@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path -- the paper's Sec. III VGG-16 experiment --
-through the entry points a user calls, at full width, and holds the kernel
-of that path against its plain PyTorch version.  Phases, one line each:
+Drives the port's two main paths through the entry points a user calls, at
+full width, and holds every kernel of those paths against its plain
+PyTorch version.  Phases, one line each:
 
 1. device      the card's name and power limit, as nvidia-smi gives them;
-2. build       the fused_conv3x3 kernel, built with nvcc from the checkout;
+2. build       the fused_conv3x3, flash_attention and fused_mlp kernels,
+               built with nvcc from the checkout, one nvcc each, together;
 3. paper flow  run_flow on the paper's configuration set and compare_fusion,
                held to the reference suite's locks (tests/test_flow.py);
 4. exhaustive  run_flow over the 320-point default space x all 2^17 VGG-16
@@ -14,17 +15,31 @@ of that path against its plain PyTorch version.  Phases, one line each:
                scalar oracles (the best point and a seeded 4,096-cell sample);
 5. forward     the 224x224 VGG-16 forward, batch 8, float32, through the
                kernel, against the plain forward;
-   phases 3-5 are the main path: the launch counts are zeroed just before
-   and read just after it;
-6. layers      the kernel against its plain version at each of the 13 VGG-16
-               conv shapes (batch 1 in float32 and bfloat16, and the forward's
-               batch 8 in float32), with its time, the plain version's, a
-               cuDNN yardstick's and the bound;
-7. the kernels line, then the result line.
+   phases 3-5 are the first main path: the launch counts are zeroed just
+   before and read just after it;
+6. plan        plan_model for all 11 registry configs at 4096 tokens; every
+               chosen tile fits the card's opt-in shared memory;
+7. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
+               and depth (28 layers, bfloat16): 8 requests, prompt 512, 32
+               generated tokens -- the second main path, counts zeroed just
+               before and read just after: flash_attention once per layer
+               in the prefill, fused_mlp once per layer per forward;
+8. serve_time  prefill ms, decode ms per token and tokens/s through the
+               kernels and, for comparison, through their plain versions;
+               prefill logits through the kernels against the plain path in
+               bfloat16 and in float32;
+9. layers      fused_conv3x3 vs its plain version at each of the 13 VGG-16
+               conv shapes, with its time, the plain version's, a cuDNN
+               yardstick's and the bound;
+10. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+               the serving shapes and at the shapes of tests/test_kernels.py
+               (masks, the planner's tiles, float32 and bfloat16), with the
+               same four times;
+11. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
-checkout.  Writes the per-layer table to ``chiprun_out/chip_smoke.json``.
+checkout.  Writes every row to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -51,8 +66,28 @@ LOGIT_TOL = 2e-4
 BATCH = 8  # images per forward on the main path
 REPS = 10  # timed runs per measurement
 SAMPLE_CELLS = 4096  # raw-plane cells held to the scalar oracles
-# The TPU kernel K1 replaces (the function that reaches pl.pallas_call).
-REPLACES = "src/repro/kernels/fused_conv.py:46"
+# The TPU kernels replaced (the functions that reach pl.pallas_call).
+REPLACES = {"fused_conv3x3": "src/repro/kernels/fused_conv.py:46",
+            "flash_attention": "src/repro/kernels/fused_attention.py:78",
+            "fused_mlp": "src/repro/kernels/fused_mlp.py:59"}
+# flash_attention / fused_mlp vs their plain versions (atol = rtol): the
+# tolerances of tests/test_kernels.py (attention as there, the MLP at 10x):
+# float32 sums are taken in another order (and the MLP's d_ff partial
+# sums in the order its blocks finish), and a bfloat16 output may round to
+# the neighbouring value from a float32 sum that differs in its last bits.
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLP_TOL = {"float32": 2e-4, "bfloat16": 2e-1}
+# Prefill logits through the kernels vs the plain path, relative to the
+# largest logit.  float32: 28 layers, each within the per-kernel float32
+# tolerances above (2e-5 attention, 2e-4 MLP, relative), whose differences
+# add along the residual stream: 28 x 2e-5 < 1e-3.  bfloat16: both paths
+# round every kernel output to bfloat16 at the same places, but a float32
+# sum that differs in its last bit can round to the neighbouring bfloat16
+# value (2^-8 = 3.9e-3 relative), and such flips propagate through the
+# later layers: 5e-2.
+PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# The serving run of the second main path.
+SERVE = {"arch": "qwen3", "requests": 8, "prompt_len": 512, "gen": 32}
 
 
 def fail(msg: str) -> None:
@@ -104,14 +139,28 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build(fused_conv) -> float:
-    """Build the kernel library from the checkout's source; nvcc seconds."""
-    built = fused_conv.build()
-    print(f"phase build: {built.path.name} in {built.seconds:.3f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    return built.seconds
+def phase_build() -> float:
+    """Build the three kernel libraries from the checkout's sources, one
+    nvcc each, all started together; wall seconds."""
+    from repro_torch.kernels import builder, fused_attention, fused_conv, fused_mlp
+
+    t0 = time.perf_counter()
+    builds = builder.build_many([fused_conv.KERNEL, fused_attention.KERNEL,
+                                 fused_mlp.KERNEL])
+    wall = time.perf_counter() - t0
+    for built in builds:
+        print(f"phase build: {built.path.name} in {built.seconds:.3f} s")
+        lines = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for line in lines[:4]:
+            print(f"  ptxas: {line}")
+        spills = [ln for ln in lines if "spill" in ln and not (
+            "0 bytes spill stores" in ln and "0 bytes spill loads" in ln)]
+        if spills:
+            print(f"  ptxas: {len(spills)} of {len(lines)} lines report spills, "
+                  f"e.g. {spills[0]}")
+    print(f"phase build: wall {wall:.3f} s")
+    return wall
 
 
 def phase_paper_flow(vgg) -> dict:
@@ -340,6 +389,446 @@ def phase_layers(torch, spec, seed: int) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The transformer serving path: plan, serve, and flash_attention / fused_mlp
+# ---------------------------------------------------------------------------
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import fused_attention, fused_conv, fused_mlp
+
+    fused_conv.fused_conv3x3.launches = 0
+    fused_attention.flash_attention.launches = 0
+    fused_mlp.fused_mlp.launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count."""
+    from repro_torch.kernels import fused_attention, fused_conv, fused_mlp
+
+    return {"fused_conv3x3": fused_conv.fused_conv3x3.launches,
+            "flash_attention": fused_attention.flash_attention.launches,
+            "fused_mlp": fused_mlp.fused_mlp.launches}
+
+
+def phase_plan(spec) -> list:
+    """plan_model for every registry config at 4096 tokens, against the
+    card's own opt-in shared memory."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.planner import plan_model
+
+    rows = []
+    for name, cfg in REGISTRY.items():
+        plan = plan_model(cfg, 4096, spec)
+        for what, n in (("attention", plan.attn_vmem_bytes),
+                        ("mlp", plan.mlp_vmem_bytes)):
+            check(0 <= n <= spec.smem_per_block_optin,
+                  f"{name}: the {what} tile stages {n} bytes, more than the "
+                  f"card's {spec.smem_per_block_optin}")
+        check(plan.use_flash or "attn" not in "".join(cfg.layer_pattern),
+              f"{name}: no flash_attention tile for an attention model")
+        rows.append({"arch": name, "attn_tile": [plan.attn_block_q, plan.attn_block_k],
+                     "attn_smem": plan.attn_vmem_bytes,
+                     "mlp_tile": [plan.mlp_block_m, plan.mlp_block_f],
+                     "mlp_smem": plan.mlp_vmem_bytes, "bw_saving": plan.bw_saving,
+                     "engine": plan.search_engine})
+        print(f"plan {plan.describe()} [{plan.search_engine}]")
+    print(f"phase plan: {len(rows)} configs, every tile within "
+          f"{spec.smem_per_block_optin} bytes of shared memory")
+    return rows
+
+
+def serve_argv(seed: int) -> list:
+    """The serving run's command line."""
+    return ["--arch", SERVE["arch"], "--full", "--requests", str(SERVE["requests"]),
+            "--prompt-len", str(SERVE["prompt_len"]), "--gen", str(SERVE["gen"]),
+            "--seed", str(seed)]
+
+
+def phase_serve(np, seed: int) -> dict:
+    """The port's serve entry point at full width and depth."""
+    from repro_torch.configs import resolve
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    ids = serve.main(serve_argv(seed))
+    wall = time.perf_counter() - t0
+    vocab = resolve(SERVE["arch"]).vocab_size
+    check(ids.shape == (SERVE["requests"], SERVE["gen"]),
+          f"serve returned ids of shape {ids.shape}")
+    check(bool(((ids >= 0) & (ids < vocab)).all()), "token ids outside the vocabulary")
+    print(f"phase serve: {SERVE['arch']} full width and depth, bfloat16, "
+          f"{SERVE['requests']} requests x prompt {SERVE['prompt_len']} + "
+          f"{SERVE['gen']} generated tokens in {wall:.3f} s (first call, "
+          f"kernels loaded); {np.unique(ids).size} distinct ids")
+    return {"wall_s": wall, "ids_head": ids[0][:12].tolist()}
+
+
+def phase_serve_time(torch, seed: int) -> dict:
+    """Prefill and decode through the kernels and through their plain
+    versions (in turns), and the prefill logits of the two held together in
+    bfloat16 and float32."""
+    import dataclasses
+
+    from repro_torch.configs import resolve, run_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = resolve(SERVE["arch"])
+    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"),
+                             attn_chunk_kv=min(64, SERVE["prompt_len"]))
+    B, S, n_gen = SERVE["requests"], SERVE["prompt_len"], SERVE["gen"]
+    max_seq = S + n_gen + 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    params = M.init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    paths = {"kernels": ops.KERNELS, "plain": ops.PLAIN}
+    out = {}
+
+    def prefill(p, c, name):
+        cache = M.init_cache(c, B, max_seq)
+        return M.prefill(p, c, rc, {"tokens": tokens}, cache, kernels=paths[name])
+
+    def events(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1), res
+
+    with torch.inference_mode():
+        first = {name: prefill(params, cfg, name) for name in paths}
+        samples = {f"{name}_{what}": [] for name in paths
+                   for what in ("prefill", "decode")}
+        for _ in range(3):
+            for name in ("kernels", "plain", "plain", "kernels"):
+                ms, (logits, cache) = events(lambda: prefill(params, cfg, name))
+                samples[f"{name}_prefill"].append(ms)
+                tok = logits[:, -1].argmax(-1)[:, None]
+
+                def decode_all(tok=tok, cache=cache, name=name):
+                    for _ in range(n_gen - 1):
+                        lg, c = M.decode(params, cfg, rc, tok, cache, kernels=paths[name])
+                        cache = c
+                        tok = lg[:, -1].argmax(-1)[:, None]
+                    return tok
+
+                ms, _ = events(decode_all)
+                samples[f"{name}_decode"].append(ms / (n_gen - 1))
+        med = {k: statistics.median(v) for k, v in samples.items()}
+        for name in paths:
+            pre, dec = med[f"{name}_prefill"], med[f"{name}_decode"]
+            out[name] = {"prefill_ms": pre, "decode_ms_per_token": dec,
+                         "decode_tokens_per_s": B / dec * 1e3,
+                         "tokens_per_s": B * n_gen / (pre + (n_gen - 1) * dec) * 1e3}
+            print(f"phase serve_time: through the {name:7s}: prefill {pre:.3f} ms, "
+                  f"decode {dec:.3f} ms/token ({out[name]['decode_tokens_per_s']:.6g} "
+                  f"tokens/s), {out[name]['tokens_per_s']:.6g} tokens/s end to end "
+                  f"({B} requests x {n_gen} tokens)")
+        out["trace"] = _serve_trace(torch, lambda: prefill(params, cfg, "kernels"),
+                                    lambda lg, c: M.decode(params, cfg, rc,
+                                                           lg[:, -1].argmax(-1)[:, None],
+                                                           c, kernels=paths["kernels"]))
+        out["logits"] = {}
+        lk, lp = first["kernels"][0], first["plain"][0]
+        del first
+        out["logits"]["bfloat16"] = _logits_agree(torch, "bfloat16", lk, lp)
+        del params
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+        params32 = M.init_params(cfg32, generator=gen)
+        lk = prefill(params32, cfg32, "kernels")[0]
+        lp = prefill(params32, cfg32, "plain")[0]
+        out["logits"]["float32"] = _logits_agree(torch, "float32", lk, lp)
+    return out
+
+
+def _device_busy(torch, fn) -> dict:
+    """Host wall ms of ``fn()`` (synchronised), the ms the device was busy
+    in it (the union of its kernel, copy and set intervals, from the
+    profiler) and the largest device times by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of intervals, in microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e3 / wall if spans else None,
+            "kernels_launched": len(spans), "top_device_ms": top}
+
+
+def _serve_trace(torch, prefill, decode) -> dict:
+    """One profiled prefill and four profiled decode steps through the
+    kernels: how much of the wall time the device was busy."""
+    holder = {}
+
+    def run_prefill():
+        holder["logits"], holder["cache"] = prefill()
+
+    def run_decode():
+        for _ in range(4):
+            holder["logits"], holder["cache"] = decode(holder["logits"], holder["cache"])
+
+    out = {"prefill": _device_busy(torch, run_prefill),
+           "decode_4_steps": _device_busy(torch, run_decode)}
+    for what, r in out.items():
+        idle = r["device_idle_share"]
+        print(f"phase serve_trace: {what} through the kernels: wall {r['wall_ms']:.3f} "
+              f"ms, device busy {r['device_busy_ms']:.3f} ms, device idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+              f"{r['kernels_launched']} device operations; largest: "
+              + "; ".join(f"{n} {t:.3f} ms" for n, t in r["top_device_ms"]))
+    return out
+
+
+def _logits_agree(torch, dname: str, got, want) -> dict:
+    """Check prefill logits through the kernels against the plain path."""
+    check(bool(torch.isfinite(got).all()), f"non-finite {dname} prefill logits")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tol = PREFILL_TOL[dname]
+    check(err <= tol * scale, f"{dname} prefill logits through the kernels differ "
+          f"from plain by {err} > {tol} x {scale}")
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"phase serve_time: {dname} prefill logits, kernels vs plain: max |diff| "
+          f"{err:.6g} (max |logit| {scale:.6g}, tolerance {tol} x max); argmax "
+          f"agrees on {same:.3f} of the requests")
+    return {"max_abs_err": err, "max_abs_logit": scale, "argmax_agree": same}
+
+
+_SDPA_NAMES: dict = {}
+
+
+def sdpa_kernel_names(torch, fn, key) -> str:
+    """The CUDA kernels one call of ``fn`` ran, from the profiler (the
+    yardstick's backend), or "not measured" if it shows none."""
+    if key not in _SDPA_NAMES:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if getattr(e, "device_time_total", 0) > 0
+                        and "elementwise" not in e.key.lower()})
+        _SDPA_NAMES[key] = "; ".join(n[:60] for n in names) or "not measured"
+    return _SDPA_NAMES[key]
+
+
+def _visible_pairs(Sq, Skv, causal, window, chunk) -> int:
+    """(query, key) pairs the masks leave visible (the work a run needs)."""
+    import torch
+
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+        if not causal:
+            ok &= (kp - qp) < window
+    elif chunk:
+        ok &= (qp // chunk) == (kp // chunk)
+    return int(ok.sum())
+
+
+def phase_attention(torch, spec, seed: int, plan_tile) -> list:
+    """flash_attention vs its plain version; yardstick: PyTorch's
+    scaled_dot_product_attention (GQA, causal or with a boolean mask)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    serve_shape = (SERVE["requests"], SERVE["prompt_len"], SERVE["prompt_len"],
+                   16, 8, 128)
+    cases = [  # (label, (B, Sq, Skv, H, KV, hd), dtype, causal, window, chunk, tile)
+        ("serve", serve_shape, "bfloat16", True, 0, 0, None),
+        ("serve", serve_shape, "float32", True, 0, 0, None),
+        ("serve_plan_tile", serve_shape, "bfloat16", True, 0, 0, plan_tile),
+    ]
+    for shape in ((1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
+                  (1, 128, 256, 4, 1, 128), (2, 384, 384, 6, 2, 32)):
+        for dname in ("float32", "bfloat16"):
+            cases.append(("test_kernels", shape, dname, True, 0, 0, None))
+    for window, chunk in ((64, 0), (0, 128), (32, 0)):
+        for dname in ("float32", "bfloat16"):
+            cases.append(("mask", (2, 256, 256, 4, 2, 64), dname, True, window,
+                          chunk, None))
+    rows = []
+    for label, shape, dname, causal, window, chunk, tile in cases:
+        B, Sq, Skv, H, KV, hd = shape
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+        bq, bk = tile if tile else fused_attention.DEFAULT_TILE
+        mask = dict(causal=causal, window=window, chunk=chunk)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window or chunk:
+            qp = torch.arange(Sq, device="cuda")[:, None]
+            kp = torch.arange(Skv, device="cuda")[None, :]
+            allowed = kp <= qp
+            allowed &= ((qp - kp) < window) if window else ((qp // chunk) == (kp // chunk))
+            lib_kw = dict(attn_mask=allowed)
+        else:
+            lib_kw = dict(is_causal=causal)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw)
+
+        def kernel():
+            return fused_attention.flash_attention(q, k, v, block_q=bq, block_k=bk, **mask)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, **mask)
+
+        want = plain().float()
+        got = kernel().float()
+        torch.cuda.synchronize()
+        tol = ATT_TOL[dname]
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+              f"flash_attention {label} {shape} {dname} {mask} tile {bq}x{bk}: "
+              f"differs from plain by up to {err} (tolerance {tol})")
+        lib_err = float((library().transpose(1, 2).float() - want).abs().max())
+        backend = sdpa_kernel_names(torch, library, (dname, bool(window or chunk)))
+        ms = time_ms(torch, {"plain": plain, "kernel": kernel, "library": library}, REPS)
+        es = q.element_size()
+        n_bytes = es * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * B * H * hd * _visible_pairs(Sq, Skv, causal, window, chunk)
+        t_bytes = spec.memory_seconds(n_bytes) * 1e3
+        t_ops = spec.compute_seconds(flops, es) * 1e3
+        row = {"case": label, "shape": list(shape), "dtype": dname, **mask,
+               "tile": [bq, bk], "max_abs_err": err, "library_max_abs_err": lib_err,
+               "library_backend": backend, "ms": ms["kernel"],
+               "plain_ms": ms["plain"], "library_ms": ms["library"],
+               "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        rows.append(row)
+        print(f"attention {label} {shape} {dname} causal={int(causal)} w={window} "
+              f"c={chunk} tile {bq}x{bk}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+              f"[{backend}], bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{flops / row['ms'] / 1e9:.4g} TFLOP/s), max_abs_err {err:.3g}")
+    return rows
+
+
+def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
+    """fused_mlp vs its plain version; yardstick: the same three matrix
+    products and activation as separate cuBLAS / PyTorch calls in the
+    input's dtype."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_mlp, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    T_pre = SERVE["requests"] * SERVE["prompt_len"]
+    cases = [  # (label, (T, d, ff, act), dtype, tile)
+        ("serve_prefill", (T_pre, 1024, 3072, "swiglu"), "bfloat16", None),
+        ("serve_decode", (SERVE["requests"], 1024, 3072, "swiglu"), "bfloat16", None),
+        ("serve_prefill", (T_pre, 1024, 3072, "swiglu"), "float32", None),
+        ("serve_decode", (SERVE["requests"], 1024, 3072, "swiglu"), "float32", None),
+        ("serve_plan_tile", (T_pre, 1024, 3072, "swiglu"), "bfloat16", plan_tile),
+        ("decode_one_row", (1, 1024, 3072, "swiglu"), "bfloat16", None),
+    ]
+    for shape in ((128, 64, 256, "swiglu"), (256, 128, 512, "geglu"),
+                  (128, 64, 128, "gelu"), (384, 96, 384, "relu")):
+        for dname in ("float32", "bfloat16"):
+            cases.append(("test_kernels", shape, dname, None))
+    acts = {"swiglu": F.silu, "geglu": lambda h: F.gelu(h, approximate="tanh"),
+            "gelu": lambda h: F.gelu(h, approximate="tanh"), "relu": torch.relu}
+    rows = []
+    for label, (T, d, ff, act), dname, tile in cases:
+        dtype = getattr(torch, dname)
+        x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+        w1 = (torch.randn((d, ff), generator=gen, device="cuda") * d ** -0.5).to(dtype)
+        w3 = (torch.randn((d, ff), generator=gen, device="cuda") * d ** -0.5).to(dtype)
+        w2 = (torch.randn((ff, d), generator=gen, device="cuda") * ff ** -0.5).to(dtype)
+        gated = act in fused_mlp.GATED
+        bm, bf = tile if tile else fused_mlp.default_tile(T)
+
+        def library():
+            h = acts[act](x @ w1)
+            return (h * (x @ w3) if gated else h) @ w2
+
+        def kernel():
+            return fused_mlp.fused_mlp(x, w1, w2, w3, act=act, block_m=bm, block_f=bf)
+
+        def plain():
+            return ref.fused_mlp_ref(x, w1, w2, w3, act=act)
+
+        want = plain().float()
+        got = kernel().float()
+        torch.cuda.synchronize()
+        tol = MLP_TOL[dname]
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+              f"fused_mlp {label} ({T}, {d}, {ff}, {act}) {dname} tile {bm}x{bf}: "
+              f"differs from plain by up to {err} (tolerance {tol})")
+        lib_err = float((library().float() - want).abs().max())
+        ms = time_ms(torch, {"plain": plain, "kernel": kernel, "library": library}, REPS)
+        es = x.element_size()
+        n_w = (3 if gated else 2) * d * ff
+        n_bytes = es * (2 * T * d + n_w)
+        flops = 2 * T * d * ff * (2 if gated else 1) + 2 * T * ff * d
+        t_bytes = spec.memory_seconds(n_bytes) * 1e3
+        t_ops = spec.compute_seconds(flops, es) * 1e3
+        row = {"case": label, "shape": [T, d, ff], "act": act, "dtype": dname,
+               "tile": [bm, bf], "max_abs_err": err, "library_max_abs_err": lib_err,
+               "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+               "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        rows.append(row)
+        print(f"mlp {label} T={T} d={d} ff={ff} {act} {dname} tile {bm}x{bf}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {flops / row['ms'] / 1e9:.4g} TFLOP/s), "
+              f"max_abs_err {err:.3g}")
+    return rows
+
+
+def serve_entry(name: str, source: str, parts: list, launches: int) -> dict:
+    """A kernels-line entry summed over the serving run's launches:
+    ``parts`` is [(row, launches at that row's shape), ...]."""
+    t_b = sum(r["bound_ms"] * n for r, n in parts if r["bound_by"] == "bytes")
+    t_o = sum(r["bound_ms"] * n for r, n in parts if r["bound_by"] == "operations")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r, _ in parts),
+        "ms": sum(r["ms"] * n for r, n in parts),
+        "plain_ms": sum(r["plain_ms"] * n for r, n in parts),
+        "bound_ms": t_b + t_o,
+        "bound_by": "operations" if t_o >= t_b else "bytes",
+        "library_ms": sum(r["library_ms"] * n for r, n in parts),
+    }
+
+
 def kernels_entry(rows: list, launches: int, spec) -> dict:
     """The fused_conv3x3 entry of the kernels line: times summed over the
     13 layers at the main path's shapes (batch 8, float32)."""
@@ -350,7 +839,7 @@ def kernels_entry(rows: list, launches: int, spec) -> dict:
         "name": "fused_conv3x3",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_conv3x3.cu",
-        "replaces": REPLACES,
+        "replaces": REPLACES["fused_conv3x3"],
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": sum(r["ms"] for r in main),
@@ -378,43 +867,85 @@ def main(argv=None) -> int:
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from the "
              "root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import resolve
     from repro_torch.core.arch import gpu_spec
     from repro_torch.core.ir import vgg16_ir
-    from repro_torch.kernels import fused_conv
+    from repro_torch.core.planner import plan_model
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must run in full float32 (TF32 is on)")
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    build_s = phase_build(fused_conv)
+    build_s = phase_build()
+    spec = gpu_spec()
     vgg = vgg16_ir(pool_mode="separate")
 
-    # ---- the main path: counts zeroed just before, read just after ----
-    fused_conv.fused_conv3x3.launches = 0
+    # ---- main path 1, the paper's VGG-16 flow: counts zeroed just before,
+    # read just after ----
+    zero_counts()
     paper = phase_paper_flow(vgg)
     exhaustive = phase_exhaustive(torch, np, vgg, args.seed)
     model, x, forward = phase_forward(torch, args.seed)
-    launches = fused_conv.fused_conv3x3.launches
-    check(launches > 0, "the main path never launched fused_conv3x3")
-    print(f"phase main_path: fused_conv3x3 launched {launches} times")
-
+    vgg_counts = read_counts()
+    check(vgg_counts["fused_conv3x3"] > 0, "the VGG-16 path never launched fused_conv3x3")
+    print(f"phase main_path vgg16: launches {vgg_counts}")
     forward["ms"] = time_forward(torch, model, x)
     del model, x
     torch.cuda.empty_cache()
-    spec = gpu_spec()
-    rows = phase_layers(torch, spec, args.seed)
-    entry = kernels_entry(rows, launches, spec)
+
+    # ---- main path 2, serving qwen3-0.6b: counts zeroed just before, read
+    # just after ----
+    plans = phase_plan(spec)
+    qwen = resolve(SERVE["arch"])
+    zero_counts()
+    serve_run = phase_serve(np, args.seed)
+    serve_counts = read_counts()
+    n_layers, n_gen = qwen.n_layers, SERVE["gen"]
+    check(serve_counts["flash_attention"] == n_layers,
+          f"serving launched flash_attention {serve_counts['flash_attention']} "
+          f"times, not once per layer of the prefill ({n_layers})")
+    check(serve_counts["fused_mlp"] == n_layers * n_gen,
+          f"serving launched fused_mlp {serve_counts['fused_mlp']} times, not "
+          f"{n_layers} layers x {n_gen} forwards = {n_layers * n_gen}")
+    print(f"phase main_path serve: launches {serve_counts}")
+    torch.cuda.empty_cache()
+
+    serve_time = phase_serve_time(torch, args.seed)
+    torch.cuda.empty_cache()
+    layer_rows = phase_layers(torch, spec, args.seed)
+    plan = plan_model(qwen, 4096, spec)
+    att_rows = phase_attention(torch, spec, args.seed,
+                               (plan.attn_block_q, plan.attn_block_k))
+    mlp_rows = phase_mlp(torch, spec, args.seed, (plan.mlp_block_m, plan.mlp_block_f))
+
+    def row(rows, case, dtype):
+        return next(r for r in rows if r["case"] == case and r["dtype"] == dtype)
+
+    entries = [
+        kernels_entry(layer_rows, vgg_counts["fused_conv3x3"], spec),
+        serve_entry("flash_attention",
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    [(row(att_rows, "serve", "bfloat16"), n_layers)],
+                    serve_counts["flash_attention"]),
+        serve_entry("fused_mlp", "src/repro_torch/kernels/csrc/fused_mlp.cu",
+                    [(row(mlp_rows, "serve_prefill", "bfloat16"), n_layers),
+                     (row(mlp_rows, "serve_decode", "bfloat16"),
+                      n_layers * (n_gen - 1))],
+                    serve_counts["fused_mlp"]),
+    ]
 
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
         "card": card, "build_s": build_s, "paper_flow": paper,
-        "exhaustive": exhaustive, "forward": forward, "layers": rows,
-        "kernels": [entry], "seconds": time.perf_counter() - t_start,
+        "exhaustive": exhaustive, "forward": forward, "layers": layer_rows,
+        "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
+        "serve_time": serve_time, "attention": att_rows, "mlp": mlp_rows,
+        "kernels": entries, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     print(f"phase done: {time.perf_counter() - t_start:.1f} s, "
           f"report {REPORT}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

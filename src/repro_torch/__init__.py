@@ -5,11 +5,15 @@ relative module paths so each counterpart is easy to find:
 
 * ``core``    — the layer/graph IR, Eq. (1)-(4) (scalar oracles and the
   batched float64 sweep, run as torch tensor code on the device), the
-  chain fusion search and the hardware x grouping flow;
-* ``kernels`` — the fused conv3x3 + bias + ReLU (+ 2x2 max-pool) group as a
-  hand-written CUDA kernel for Hopper (``sm_90a``), its plain PyTorch
-  version, and the dispatch wrappers;
-* ``models``  — VGG-16, whose forward runs through the fused kernel.
+  chain fusion search, the hardware x grouping flow and the kernel planner;
+* ``configs`` — the model registry (a copy of the reference's);
+* ``kernels`` — hand-written CUDA kernels for Hopper (``sm_90a``): the
+  fused conv3x3 + bias + ReLU (+ 2x2 max-pool) group, flash attention and
+  the fused MLP, their plain PyTorch versions, and the dispatch wrappers;
+* ``models``  — VGG-16 and the decoder-only transformers, whose fusion
+  groups run through those kernels;
+* ``runtime``, ``launch`` — the prefill/decode steps and the serving entry
+  point (``python -m repro_torch.launch.serve``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of silently falling back.

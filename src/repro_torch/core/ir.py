@@ -18,7 +18,8 @@ and re-enter), which on the quotient graph means acyclicity — see
 :mod:`repro_torch.core.fusion`.
 
 :func:`vgg16_ir` builds the paper's own Sec. III workload directly from
-:data:`VGG16_CONV_PLAN`.  Everything here is plain Python + numpy feature
+:data:`VGG16_CONV_PLAN`; :func:`transformer_block_ir` and :func:`lm_ir`
+build the transformer chains the planner prices.  Everything here is plain Python + numpy feature
 extraction; the batched metric sweep lives in :mod:`repro_torch.core.metrics`.
 """
 from __future__ import annotations
@@ -331,6 +332,92 @@ def vgg16_ir(*, pool_mode: str = "separate", include_fc: bool = False) -> Networ
         layers.append(LayerSpec("fc7", "fc", 4096, 4096, 1, 1))
         layers.append(LayerSpec("fc8", "fc", 4096, 1000, 1, 1))
     return NetworkIR("vgg16", tuple(layers))
+
+
+def transformer_block_ir(
+    *,
+    name: str,
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    d_ff: int,
+    seq_len: int,
+    ffn_act: str = "swiglu",
+    n_experts: int = 0,
+    top_k: int = 1,
+) -> NetworkIR:
+    """One transformer block as a layer chain for the evaluator.
+
+    Matmuls become 1x1 convolutions over ``seq_len`` pixels (h_in=seq, w_in=1)
+    with channels = feature dims.  Attention's QK^T and PV products are
+    ``actmul`` layers (both operands are activations).  For MoE blocks the MLP
+    matmuls carry the *active* expert weights (top_k experts worth of compute;
+    weight traffic scales with the experts actually streamed from DRAM).
+
+    The head width is ``d_model // n_heads``, as the reference builds it,
+    even where the config's ``head_dim`` differs (qwen3: 64 here, 128 in the
+    model): the planner's bandwidth verdicts must stay bit-identical to the
+    reference's.
+    """
+    hd = d_model // n_heads
+    kv_dim = n_kv_heads * hd
+    layers = [
+        LayerSpec(f"{name}.q", "matmul", d_model, d_model, seq_len, 1),
+        LayerSpec(f"{name}.kv", "matmul", d_model, 2 * kv_dim, seq_len, 1),
+        # QK^T: contraction over head_dim, output seq x seq per head.
+        LayerSpec(f"{name}.qk", "actmul", d_model, n_heads * seq_len, seq_len, 1),
+        # PV: contraction over seq, output seq x d_model.
+        LayerSpec(f"{name}.pv", "actmul", n_heads * seq_len, d_model, seq_len, 1),
+        LayerSpec(f"{name}.o", "matmul", d_model, d_model, seq_len, 1),
+    ]
+    mult = 2 if ffn_act == "swiglu" else 1  # gate + up projections
+    k = max(1, top_k)
+    if n_experts > 1:
+        layers.append(
+            LayerSpec(f"{name}.moe_w1", "matmul", d_model, mult * d_ff * k, seq_len, 1)
+        )
+        layers.append(
+            LayerSpec(f"{name}.moe_w2", "matmul", d_ff * k, d_model, seq_len, 1)
+        )
+    else:
+        layers.append(LayerSpec(f"{name}.w1", "matmul", d_model, mult * d_ff, seq_len, 1))
+        layers.append(LayerSpec(f"{name}.w2", "matmul", d_ff, d_model, seq_len, 1))
+    return NetworkIR(name, tuple(layers))
+
+
+def lm_ir(
+    *,
+    name: str,
+    n_layers: int,
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    d_ff: int,
+    seq_len: int,
+    n_experts: int = 0,
+    top_k: int = 1,
+    repeat: int = 1,
+) -> NetworkIR:
+    """A (possibly truncated) LM as one chain; ``repeat`` caps emitted blocks.
+
+    The evaluator's fusion search is per-chain; transformer LMs are periodic,
+    so evaluating ``repeat`` blocks and scaling by ``n_layers / repeat`` is
+    exact for periodic stacks.
+    """
+    blocks = []
+    for b in range(min(repeat, n_layers)):
+        blk = transformer_block_ir(
+            name=f"{name}.b{b}",
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv_heads,
+            d_ff=d_ff,
+            seq_len=seq_len,
+            n_experts=n_experts,
+            top_k=top_k,
+        )
+        blocks.extend(blk.layers)
+    return NetworkIR(name, tuple(blocks))
 
 
 def chain_ir(name: str, layers: Iterable[LayerSpec]) -> NetworkIR:

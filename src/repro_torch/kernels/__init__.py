@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels for the fusion groups the evaluator prices.
 
 Each kernel keeps a fusion group's intermediate tensors on chip (the GPU
-analogue of the paper's on-chip SRAM); here the conv3x3 pre-pool frame
-never reaches device memory.
+analogue of the paper's on-chip SRAM): the conv3x3 pre-pool frame
+(``fused_conv``), attention's score frame (``fused_attention``) and the
+MLP's hidden frame (``fused_mlp``) never reach device memory.
 
-``fused_conv`` holds the kernel's wrapper, build and launch geometry (the
-CUDA source is ``csrc/fused_conv3x3.cu``), ``ref`` the plain PyTorch
-version every kernel is held against, and ``ops`` the dispatch wrappers the
-models call.  Nothing is compiled at import time: the kernel builds with
-``nvcc`` on its first launch.
+Each of those modules holds its kernel's wrapper, sizing and launch (the
+CUDA sources are under ``csrc/``); ``builder`` compiles them, ``ref`` holds
+the plain PyTorch version every kernel is held against, and ``ops`` the
+dispatch wrappers the models call.  Nothing is compiled at import time: a
+kernel builds with ``nvcc`` on its first launch.
 """

@@ -1,0 +1,131 @@
+"""Build and load the hand-written CUDA kernels (one shared builder).
+
+Each kernel is one CUDA source under ``csrc/`` with a plain C interface.
+It is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
+``build/kernels/`` of the repository checkout at its first launch, and
+loaded with ``ctypes``; nothing compiles at import time.  The library's
+file name carries a hash of the source and the flags, so an edited source
+is rebuilt and an unchanged one reused; it is written under a temporary
+name and renamed into place, so a concurrent build never loads a
+half-written file.  :func:`build_many` starts one ``nvcc`` per source, all
+together, and waits for them all.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+# build/kernels/ of the checkout: kernels -> repro_torch -> src -> root
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BASE_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSource:
+    """One CUDA source and the ``nvcc`` flags it is built with."""
+
+    name: str  # stem of the library file
+    source: Path
+    flags: tuple[str, ...]
+
+    def library_path(self) -> Path:
+        """Where the library of this source and these flags lives."""
+        digest = hashlib.sha256(
+            self.source.read_bytes() + "\0".join(self.flags).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    """A built kernel library: its path, the seconds ``nvcc`` took (0.0 when
+    an up-to-date library was already there) and ``nvcc``'s output (the
+    ``-Xptxas -v`` register and shared-memory report)."""
+
+    path: Path
+    seconds: float
+    log: str
+
+
+def _nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` or the default
+    toolkit location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                           "the port's kernels")
+    return str(path)
+
+
+def build_many(kernels: "list[KernelSource] | tuple[KernelSource, ...]"
+               ) -> list[BuildResult]:
+    """Build every library that is not up to date, one ``nvcc`` process per
+    source, all started together.  Raises with ``nvcc``'s output if any
+    build fails (after every process has ended)."""
+    results: dict[int, BuildResult] = {}
+    pending = []
+    for i, k in enumerate(kernels):
+        lib = k.library_path()
+        log_path = lib.with_suffix(".log")
+        if lib.exists():
+            results[i] = BuildResult(
+                lib, 0.0, log_path.read_text() if log_path.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tmp_log = tmp.with_suffix(".log")
+        with open(tmp_log, "w") as out:  # nvcc's output, read back at its end
+            proc = subprocess.Popen([_nvcc(), *k.flags, "-o", str(tmp), str(k.source)],
+                                    stdout=out, stderr=subprocess.STDOUT)
+        pending.append((i, k, lib, tmp, tmp_log, proc, time.perf_counter()))
+    failures = []
+    while pending:  # collect each process as it ends, so its time is its own
+        running = []
+        for item in pending:
+            i, k, lib, tmp, tmp_log, proc, t0 = item
+            if proc.poll() is None:
+                running.append(item)
+                continue
+            seconds = time.perf_counter() - t0
+            log = tmp_log.read_text()
+            tmp_log.unlink()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed ({proc.returncode}) building "
+                                f"{k.source}:\n{log}")
+                continue
+            lib.with_suffix(".log").write_text(log)
+            os.replace(tmp, lib)
+            results[i] = BuildResult(lib, seconds, log)
+        pending = running
+        if pending:
+            time.sleep(0.05)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return [results[i] for i in range(len(kernels))]
+
+
+def build(kernel: KernelSource) -> BuildResult:
+    """Build one library (see :func:`build_many`)."""
+    return build_many([kernel])[0]
+
+
+@functools.lru_cache(maxsize=None)
+def load(kernel: KernelSource) -> ctypes.CDLL:
+    """The built library of ``kernel``, built if needed and loaded once.
+    The caller sets the C signatures."""
+    return ctypes.CDLL(str(build(kernel).path))

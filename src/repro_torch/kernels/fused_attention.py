@@ -1,0 +1,154 @@
+"""Flash attention forward (K2): QK^T -> mask -> online softmax -> PV.
+
+The fusion group of the transformer's attention: the (Sq, Skv) score frame
+(the paper's Eq. (1) group-internal tensor) never reaches device memory,
+which cuts attention's traffic from O(Sq * Skv) to O(Sq * hd + Skv * hd).
+
+The kernel is hand-written CUDA for Hopper, ``csrc/flash_attention.cu``
+(its head comment gives the design), built by
+:mod:`repro_torch.kernels.builder` at its first launch and loaded with
+``ctypes``.  It is built for the head dims :data:`HEAD_DIMS` and the
+(block_q, block_k) tiles :data:`TILES`; :func:`smem_bytes` is its shared
+memory per block, which the planner sizes against.
+
+:func:`flash_attention` is the wrapper: a CPU tensor goes to the plain
+PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`), a
+CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
+counts kernel launches.  Any Sq and Skv are taken: keys past the ragged
+last tile are excluded and queries past Sq are not stored.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from . import builder, ref
+
+HEAD_DIMS = (32, 64, 96, 128)  # head widths the kernel is built for
+TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # (block_q, block_k)
+DEFAULT_TILE = (64, 64)  # two blocks per SM at head_dim 128
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+NVCC_FLAGS = builder.BASE_FLAGS
+KERNEL = builder.KernelSource("flash_attention", SOURCE, NVCC_FLAGS)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(block_q: int, block_k: int, hd: int) -> int:
+    """Shared memory one block stages (bytes): the float32 Q tile and one
+    K-or-V tile, both with rows padded by 4 floats, and the float32
+    (block_q, block_k + 4) probability tile — the Hopper counterpart of the
+    reference kernel's ``vmem_bytes``."""
+    return (block_q * (hd + 4) + block_k * (hd + 4) + block_q * (block_k + 4)) * 4
+
+
+def build() -> builder.BuildResult:
+    """Compile ``csrc/flash_attention.cu`` into ``build/kernels/``."""
+    return builder.build(KERNEL)
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    """The built kernel library, loaded once, with its C signatures; its
+    shared-memory sizes are checked against :func:`smem_bytes`."""
+    lib = builder.load(KERNEL)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = (
+        [ptr] * 4 + [i32] * 12 + [ctypes.c_float, i32, ptr])
+    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32] * 3
+    lib.flash_attention_smem_bytes.restype = i32
+    for hd in HEAD_DIMS:
+        for bq, bk in TILES:
+            built = lib.flash_attention_smem_bytes(hd, bq, bk)
+            if built != smem_bytes(bq, bk, hd):
+                raise RuntimeError(
+                    f"{SOURCE.name} stages {built} bytes at head_dim {hd}, "
+                    f"tile {bq}x{bk}; smem_bytes says {smem_bytes(bq, bk, hd)}")
+    return lib
+
+
+def _check_args(q, k, v, window: int, chunk: int) -> None:
+    """Shapes and masks both versions take, naming the offending input."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, S, heads, head_dim)")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k and v must be (B, Skv, KV, {hd}) alike, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    KV = k.shape[2]
+    if k.shape[1] == 0:
+        raise ValueError("k and v hold no keys")
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV heads")
+    if window > 0 and chunk > 0:
+        raise ValueError("window and chunk masks are exclusive")
+
+
+def _check_cuda(q, k, v, block_q: int, block_k: int) -> None:
+    """Reject what the kernel does not take."""
+    hd = q.shape[3]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not built (built: {HEAD_DIMS})")
+    if (block_q, block_k) not in TILES:
+        raise ValueError(f"tile {block_q}x{block_k} is not built (built: {TILES})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v must lie on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, chunk: int = 0,
+                    block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
+    """Attention of ``q`` (B, Sq, H, hd) over ``k``, ``v`` (B, Skv, KV, hd)
+    with queries and keys at positions 0.., in ``q.dtype``.
+
+    ``causal``, ``window`` (sliding window; 0 = off) and ``chunk``
+    (chunked-local; 0 = off) mask by absolute position.  A CPU tensor takes
+    the plain version (tiles ignored); a CUDA tensor launches the kernel
+    (counted in ``flash_attention.launches``) at the tile ``block_q`` x
+    ``block_k`` (default :data:`DEFAULT_TILE`) or raises.
+    """
+    _check_args(q, k, v, window, chunk)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       chunk=chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    bq = DEFAULT_TILE[0] if block_q is None else block_q
+    bk = DEFAULT_TILE[1] if block_k is None else block_k
+    _check_cuda(q, k, v, bq, bk)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, Skv, H, KV, hd, bq, bk, int(causal), int(window),
+            int(chunk), int(Sq <= Skv), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention launch failed with CUDA error {err} (B {B}, Sq "
+            f"{Sq}, Skv {Skv}, H {H}, KV {KV}, head_dim {hd}, tile {bq}x{bk}, "
+            f"{smem_bytes(bq, bk, hd)} B shared)")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -10,9 +10,10 @@ The kernel is hand-written CUDA for Hopper, ``csrc/fused_conv3x3.cu`` (its
 head comment gives the design).  It is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at its first
 launch, into ``build/kernels/`` of the repository checkout, and loaded with
-``ctypes``.  The tile constants below are the single source of truth: they
-are passed to ``nvcc`` as ``-D`` flags, and the launch grid and shared
-memory size are computed here (:func:`launch_geometry`).
+``ctypes`` (:mod:`repro_torch.kernels.builder`).  The tile constants
+below are the single source of truth: they are passed to ``nvcc`` as
+``-D`` flags, and the launch grid and shared memory size are computed here
+(:func:`launch_geometry`).
 
 :func:`fused_conv3x3` is the wrapper: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.kernels.ref.fused_conv3x3_ref`), a CUDA
@@ -24,16 +25,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-from . import ref
+from . import builder, ref
 
 # Tile constants of the kernel (see the head comment of the CUDA source).
 TILE_H = 16  # pre-pool output rows per block (even: pool windows stay whole)
@@ -43,15 +39,13 @@ BLOCK_C = 64  # output channels per block
 CHANNELS_PER_THREAD = 16  # CPT in the source: 4 x 16 accumulators a thread
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_conv3x3.cu"
-# build/kernels/ of the checkout: kernels -> repro_torch -> src -> root
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+BUILD_DIR = builder.BUILD_DIR
+NVCC_FLAGS = builder.BASE_FLAGS + (
     f"-DTILE_H={TILE_H}", f"-DTILE_W={TILE_W}",
     f"-DCIN_CHUNK={CIN_CHUNK}", f"-DBLOCK_C={BLOCK_C}",
     f"-DCPT={CHANNELS_PER_THREAD}",
 )
+KERNEL = builder.KernelSource("fused_conv3x3", SOURCE, NVCC_FLAGS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,68 +83,17 @@ def launch_geometry(batch: int, H: int, W: int, Cin: int, Cout: int) -> LaunchGe
     )
 
 
-def _nvcc() -> str:
-    """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` or the default
-    toolkit location."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                           "the fused_conv3x3 kernel")
-    return str(path)
-
-
-@dataclasses.dataclass(frozen=True)
-class BuildResult:
-    """A built kernel library: its path, the seconds ``nvcc`` took (0.0 when
-    an up-to-date library was already there) and ``nvcc``'s output (the
-    ``-Xptxas -v`` register and shared-memory report)."""
-
-    path: Path
-    seconds: float
-    log: str
-
-
-def build() -> BuildResult:
-    """Compile ``csrc/fused_conv3x3.cu`` into ``build/kernels/``.
-
-    The library's file name carries a hash of the source and the flags, so
-    an edited source is rebuilt and an unchanged one reused; it is written
-    under a temporary name and renamed into place, so a concurrent build
-    never loads a half-written file.  Raises with ``nvcc``'s output if the
-    build fails.
-    """
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfused_conv3x3-{digest}.so"
-    log_path = lib.with_suffix(".log")
-    if lib.exists():
-        return BuildResult(lib, 0.0, log_path.read_text() if log_path.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True, check=False,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return BuildResult(lib, seconds, log)
+def build() -> builder.BuildResult:
+    """Compile ``csrc/fused_conv3x3.cu`` into ``build/kernels/`` (see
+    :mod:`repro_torch.kernels.builder`); raises with ``nvcc``'s output if
+    the build fails."""
+    return builder.build(KERNEL)
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     """The built kernel library, loaded once, with its C signatures."""
-    lib = ctypes.CDLL(str(build().path))
+    lib = builder.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_conv3x3_launch.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
     lib.fused_conv3x3_launch.restype = i32

@@ -1,0 +1,154 @@
+"""Fused MLP (K3): ``act(x @ w1) [* (x @ w3)] @ w2`` in one kernel.
+
+The fusion group of the transformer's feed-forward: the (T, d_ff) hidden
+activation never reaches device memory.  The Pallas kernel keeps a
+(block_m, d) accumulator across a sequential d_ff loop, which does not fit
+a Hopper block; the CUDA kernel ``csrc/fused_mlp.cu`` splits d_ff across
+blocks instead and adds their partial products into a float32 (T, d)
+buffer with atomics (its head comment gives the design, the FLOP and byte
+cost, and why float32 results may differ between runs in their last bits).
+It is built by :mod:`repro_torch.kernels.builder` at its first launch and
+loaded with ``ctypes``, for the (block_m, block_f) tiles :data:`TILES`.
+
+:func:`fused_mlp` is the wrapper: a CPU tensor goes to the plain PyTorch
+version (:func:`repro_torch.kernels.ref.fused_mlp_ref`), a CUDA tensor
+launches the kernel or raises.  ``fused_mlp.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from . import builder, ref
+
+ACTS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu": 3}
+GATED = ("swiglu", "geglu")
+TILES = ((16, 64), (16, 128), (64, 64), (64, 128))  # (block_m, block_f)
+DK = 32  # d slice staged per step of the first products (csrc)
+FK = 32  # hidden units staged per step of the second product
+BN = 128  # output columns per pass of the second product
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_mlp.cu"
+NVCC_FLAGS = builder.BASE_FLAGS
+KERNEL = builder.KernelSource("fused_mlp", SOURCE, NVCC_FLAGS)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(block_m: int, block_f: int) -> int:
+    """Shared memory one block stages (bytes): the float32 x / w1 / w3
+    slices of the first products (the w2 slice of the second reuses them)
+    and the float32 (block_m, block_f + 1) hidden tile — the Hopper
+    counterpart of the reference kernel's ``vmem_bytes``.  Independent of
+    d and d_ff: both are streamed."""
+    stage = max(block_m * DK + 2 * DK * block_f, FK * BN)
+    return (stage + block_m * (block_f + 1)) * 4
+
+
+def default_tile(n_rows: int) -> tuple[int, int]:
+    """The tile for ``n_rows`` rows: 16-row tiles with 64 hidden units for
+    decode-sized calls (few wasted rows, more blocks), else 64 x 128."""
+    return (16, 64) if n_rows <= 16 else (64, 128)
+
+
+def build() -> builder.BuildResult:
+    """Compile ``csrc/fused_mlp.cu`` into ``build/kernels/``."""
+    return builder.build(KERNEL)
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    """The built kernel library, loaded once, with its C signatures; its
+    shared-memory sizes are checked against :func:`smem_bytes`."""
+    lib = builder.load(KERNEL)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_mlp_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.fused_mlp_launch.restype = i32
+    lib.fused_mlp_smem_bytes.argtypes = [i32, i32]
+    lib.fused_mlp_smem_bytes.restype = i32
+    for bm, bf in TILES:
+        built = lib.fused_mlp_smem_bytes(bm, bf)
+        if built != smem_bytes(bm, bf):
+            raise RuntimeError(f"{SOURCE.name} stages {built} bytes at tile "
+                               f"{bm}x{bf}; smem_bytes says {smem_bytes(bm, bf)}")
+    return lib
+
+
+def _check_args(x, w1, w2, w3, act: str) -> None:
+    """Shapes and activations both versions take."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r} (one of {tuple(ACTS)})")
+    if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
+        raise ValueError("x must be (T, d), w1 (d, ff), w2 (ff, d)")
+    d, ff = w1.shape
+    if x.shape[1] != d or tuple(w2.shape) != (ff, d):
+        raise ValueError(f"x {tuple(x.shape)}, w1 {tuple(w1.shape)} and w2 "
+                         f"{tuple(w2.shape)} do not chain")
+    if act in GATED and (w3 is None or w3.shape != w1.shape):
+        raise ValueError(f"{act} needs w3 shaped like w1 {tuple(w1.shape)}")
+
+
+def _check_cuda(x, ws, block_m: int, block_f: int) -> None:
+    """Reject what the kernel does not take."""
+    if (block_m, block_f) not in TILES:
+        raise ValueError(f"tile {block_m}x{block_f} is not built (built: {TILES})")
+    if x.dtype not in _DTYPES or any(w.dtype != x.dtype for w in ws):
+        raise TypeError(f"x and the weights must share float32 or bfloat16, "
+                        f"got {x.dtype}, {[w.dtype for w in ws]}")
+    if any(w.device != x.device for w in ws):
+        raise ValueError("x and the weights must lie on one device")
+    for t in (x, *ws):
+        if not t.is_contiguous():
+            raise ValueError("x and the weights must be contiguous")
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+              w3: torch.Tensor | None = None, *, act: str = "swiglu",
+              block_m: int | None = None,
+              block_f: int | None = None) -> torch.Tensor:
+    """``act(x @ w1) [* (x @ w3)] @ w2`` for ``x`` (T, d), in float32, the
+    result in ``x.dtype``; acts swiglu, geglu (gated, need ``w3``), gelu
+    (tanh form, as ``jax.nn.gelu``) and relu.
+
+    A CPU tensor takes the plain version (tiles ignored); a CUDA tensor
+    launches the kernel (counted in ``fused_mlp.launches``) at the tile
+    ``block_m`` x ``block_f`` (default :func:`default_tile`) or raises.
+    """
+    _check_args(x, w1, w2, w3, act)
+    if x.device.type == "cpu":
+        return ref.fused_mlp_ref(x, w1, w2, w3, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp runs on cuda or cpu tensors, got {x.device}")
+    T, d = x.shape
+    ff = w1.shape[1]
+    dm, df = default_tile(T)
+    bm = dm if block_m is None else block_m
+    bf = df if block_f is None else block_f
+    gated = act in GATED
+    ws = (w1, w2, w3) if gated else (w1, w2)
+    _check_cuda(x, ws, bm, bf)
+    y = torch.empty((T, d), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    # float32 sums go straight into y; bfloat16 ones into a float32 buffer
+    acc = y if x.dtype == torch.float32 else torch.empty(
+        (T, d), dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.fused_mlp_launch(
+            x.data_ptr(), w1.data_ptr(), (w3 if gated else w1).data_ptr(),
+            w2.data_ptr(), y.data_ptr(), acc.data_ptr(), T, d, ff, ACTS[act],
+            bm, bf, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_mlp launch failed with CUDA error {err} (T {T}, d {d}, "
+            f"ff {ff}, {act}, tile {bm}x{bf}, {smem_bytes(bm, bf)} B shared)")
+    fused_mlp.launches += 1
+    return y
+
+
+fused_mlp.launches = 0

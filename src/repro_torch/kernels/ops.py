@@ -8,10 +8,64 @@ states which one the caller means, so a CPU run has to be asked for.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from ..device import resolve_device
-from . import fused_conv
+from . import fused_attention, fused_conv, fused_mlp, ref
+
+
+def _on(device, x: torch.Tensor, name: str) -> None:
+    """Resolve ``device`` and check that ``x`` lies on it."""
+    dev = resolve_device(device)
+    if x.device.type != dev.type:
+        raise ValueError(f"{name}(device={str(dev)!r}) was given a tensor on {x.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, chunk: int = 0,
+              block_q: int | None = None, block_k: int | None = None,
+              device: "str | torch.device" = "cuda") -> torch.Tensor:
+    """Flash attention (K2) of ``q`` (B, Sq, H, hd) over ``k``, ``v``
+    (B, Skv, KV, hd), positions from 0.  On ``device="cuda"`` (the
+    default) the tensors must be CUDA tensors and the kernel runs at the
+    tile ``block_q`` x ``block_k`` (``None``: the kernel's default); on
+    ``device="cpu"`` the plain version runs.  Without CUDA the default
+    raises."""
+    _on(device, q, "attention")
+    return fused_attention.flash_attention(
+        q, k, v, causal=causal, window=window, chunk=chunk,
+        block_q=block_q, block_k=block_k)
+
+
+def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+        w3: torch.Tensor | None = None, *, act: str = "swiglu",
+        block_m: int | None = None, block_f: int | None = None,
+        device: "str | torch.device" = "cuda") -> torch.Tensor:
+    """Fused MLP (K3), ``act(x @ w1) [* (x @ w3)] @ w2`` for ``x`` (T, d).
+    Devices as :func:`attention`; ``None`` tiles take the kernel's default
+    for T."""
+    _on(device, x, "mlp")
+    return fused_mlp.fused_mlp(x, w1, w2, w3, act=act, block_m=block_m,
+                               block_f=block_f)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedKernels:
+    """The fusion groups the transformer runs through: ``attention(q, k, v,
+    *, causal, window, chunk)`` and ``mlp(x, w1, w2, w3, *, act)``.  The
+    default is the kernels' wrappers (the kernels on a CUDA tensor, their
+    plain versions on a CPU one); :data:`PLAIN` is the plain versions on
+    any device, for comparison."""
+
+    attention: Callable = fused_attention.flash_attention
+    mlp: Callable = fused_mlp.fused_mlp
+
+
+KERNELS = FusedKernels()
+PLAIN = FusedKernels(attention=ref.flash_attention_ref, mlp=ref.fused_mlp_ref)
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -23,11 +77,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     fused_conv3x3 kernel runs; on ``device="cpu"`` ``x`` must be a CPU
     tensor and the plain version runs.  Without CUDA the default raises.
     """
-    dev = resolve_device(device)
-    if x.device.type != dev.type:
-        raise ValueError(
-            f"conv3x3(device={str(dev)!r}) was given a tensor on {x.device}"
-        )
+    _on(device, x, "conv3x3")
     return fused_conv.fused_conv3x3(x, w, b, pool=pool)
 
 
@@ -35,14 +85,15 @@ def fused_conv_fn(plan=None, *, device: "str | torch.device" = "cuda"):
     """Adapter for ``VGG16.forward(x, fused_conv_fn=...)``: every conv +
     ReLU (+ pool) group through :func:`conv3x3` on ``device``.
 
-    ``plan`` mirrors the reference signature; the Hopper kernel's tiles are
-    fixed at build time (``fused_conv.BLOCK_C`` etc.), so only ``None`` is
-    accepted until a planner sizes them.
+    ``plan`` is a :class:`repro_torch.core.planner.FusionPlan` or ``None``.
+    The Hopper kernel's tiles are fixed at build time, so a plan is taken
+    when its ``conv_block_c`` is the built ``fused_conv.BLOCK_C`` (the
+    planner's choice) and refused otherwise.
     """
-    if plan is not None:
-        raise NotImplementedError(
-            "plan-sized conv tiles are not supported: the fused_conv3x3 "
-            "kernel's tiles are fixed at build time"
+    if plan is not None and plan.conv_block_c != fused_conv.BLOCK_C:
+        raise ValueError(
+            f"plan.conv_block_c = {plan.conv_block_c}: the fused_conv3x3 "
+            f"kernel is built for {fused_conv.BLOCK_C} output channels a block"
         )
     resolve_device(device)
 

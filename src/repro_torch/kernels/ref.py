@@ -1,5 +1,11 @@
 """Plain PyTorch versions of the kernels (the ground truth in tests).
 
+Each repeats its kernel's function in the simplest PyTorch: the conv group
+as a cuDNN convolution, attention with materialised scores, the MLP as
+three float32 matrix products.  On the GPU a float32 matrix product runs in
+full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False by
+default).
+
 On the GPU a float32 convolution goes through cuDNN, which by default
 (``torch.backends.cudnn.allow_tf32 = True``) rounds its operands to TF32
 and keeps about three decimal digits.  The plain version switches that off
@@ -9,9 +15,12 @@ against.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30  # the finite mask value of the reference kernels
 
 
 @contextlib.contextmanager
@@ -44,3 +53,57 @@ def fused_conv3x3_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if pool:
         y = F.max_pool2d(y, 2)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        chunk: int = 0) -> torch.Tensor:
+    """Materialised-scores attention, GQA-aware, in float32.
+
+    ``q`` (B, Sq, H, hd), ``k`` and ``v`` (B, Skv, KV, hd) at positions
+    0..; query head h reads KV head h // (H // KV).  The masks are those of
+    the model's ``attention_bias`` (a sliding window when ``window``, else
+    chunked-local when ``chunk``; causal on top), added as 0 / ``NEG_INF``
+    to the scores scaled by 1/sqrt(hd).  The result is in ``q.dtype``.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    idx = torch.arange(H, device=q.device) // (H // KV)
+    kr = k.index_select(2, idx).float()
+    vr = v.index_select(2, idx).float()
+    scores = torch.einsum("bqhd,bchd->bhqc", q.float(), kr) * (1.0 / math.sqrt(hd))
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+        if not causal:
+            ok &= (kp - qp) < window
+    elif chunk:
+        ok &= (qp // chunk) == (kp // chunk)
+    scores = scores + torch.where(ok, 0.0, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqc,bchd->bqhd", probs, vr).to(q.dtype)
+
+
+def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  w3: torch.Tensor | None = None, *,
+                  act: str = "swiglu") -> torch.Tensor:
+    """``act(x @ w1) [* (x @ w3)] @ w2`` in float32, the result in
+    ``x.dtype``.  gelu is the tanh form (``jax.nn.gelu``'s default), not
+    PyTorch's default erf form."""
+    xf = x.float()
+    h = xf @ w1.float()
+    if act == "swiglu":
+        h = F.silu(h) * (xf @ w3.float())
+    elif act == "geglu":
+        h = F.gelu(h, approximate="tanh") * (xf @ w3.float())
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu":
+        h = torch.relu(h)
+    else:
+        raise ValueError(f"unknown act {act!r}")
+    return (h @ w2.float()).to(x.dtype)

@@ -1,0 +1,369 @@
+"""Shared transformer building blocks (functions over parameter dicts).
+
+The port of the JAX package's ``models/layers.py``, inference only.
+
+Conventions
+-----------
+* Activations: ``(batch, seq, ...)``; attention heads laid out
+  ``(batch, seq, heads, head_dim)``; weights ``(d_in, d_out)``.
+* Every ``init_*`` returns a dict of tensors drawn from an explicit
+  ``torch.Generator``; the matching ``apply`` is a function of
+  ``(params, inputs)``.
+* Numerics: parameters/activations in the config dtype (bf16 at scale);
+  softmax/normalisation statistics and attention accumulators in float32.
+* Positions are Python ``range`` objects on the model's path (the query
+  start is then known on the host, with no device sync); the functions
+  also take integer tensors.
+* On a CUDA tensor, :func:`attention_chunked` with more than one query is
+  the flash-attention kernel (K2) and :func:`mlp_block` the fused-MLP
+  kernel (K3); a case K2 does not take (logit softcap, queries not starting
+  at position 0, arbitrary KV positions, cross-attention, the ring cache)
+  raises ``NotImplementedError`` there.  On a CPU tensor the plain versions
+  compute the whole reference function.  Single-query decode attention
+  (:func:`attention_decode`) is plain PyTorch on both, as the reference
+  computes it outside any Pallas kernel.
+* The reference's sharding hints are dropped (one device), as are its
+  training-only options (custom-VJP flash, bf16 probability tiles).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops
+
+NEG_INF = -1e30
+GATED_ACTS = ("swiglu", "geglu")
+ACTS = ("swiglu", "geglu", "gelu", "relu")
+
+# ---------------------------------------------------------------------------
+# Initialisers (the reference's scales; draws from ``gen``)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype) -> torch.Tensor:
+    """(d_in, d_out) normal weights scaled by 1/sqrt(d_in)."""
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+    """(vocab, d) normal embeddings scaled by 0.02."""
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+def rmsnorm_init(d: int, dtype, device) -> torch.Tensor:
+    """(d,) ones."""
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Normalisation / positional encoding
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32, cast back to ``x.dtype`` before ``* scale``."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def positions_tensor(pos, device) -> torch.Tensor:
+    """``pos`` (a ``range`` or an integer tensor) as an int64 tensor."""
+    if isinstance(pos, range):
+        return torch.arange(pos.start, pos.stop, pos.step, device=device)
+    return torch.as_tensor(pos, device=device)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim // 2,) inverse frequencies."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
+    """Rotate-half RoPE.  x: (..., seq, heads, head_dim); positions: (seq,)."""
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, x.device)
+    angles = positions_tensor(positions, x.device)[..., :, None].float() * inv
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(logits / cap)``; off when ``cap <= 0``."""
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+# ---------------------------------------------------------------------------
+# Attention masks (positions are absolute token indices)
+# ---------------------------------------------------------------------------
+
+
+def attention_bias(q_pos, kv_pos, *, mixer: str, causal: bool, window: int,
+                   chunk: int, kv_len=None, device=None) -> torch.Tensor:
+    """(Sq, Skv) additive float32 bias (0 or NEG_INF).
+
+    Negative kv positions are invalid (unwritten ring-buffer slots)."""
+    qp = positions_tensor(q_pos, device)[:, None]
+    kp = positions_tensor(kv_pos, device)[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if mixer == "attn_local":
+        ok = ok & ((qp - kp) < window)
+        if not causal:
+            ok = ok & ((kp - qp) < window)
+    elif mixer == "attn_chunked":
+        ok = ok & ((qp // chunk) == (kp // chunk))
+    if kv_len is not None:
+        ok = ok & (kp < kv_len)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Attention: reference (materialised scores) — the oracle
+# ---------------------------------------------------------------------------
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) via head-index gather."""
+    KV = k.shape[2]
+    idx = torch.arange(n_heads, device=k.device) // (n_heads // KV)
+    return k.index_select(2, idx)
+
+
+def attention_reference(q, k, v, *, q_pos, kv_pos, mixer: str = "attn",
+                        causal: bool = True, window: int = 0, chunk: int = 0,
+                        kv_len=None, logit_cap: float = 0.0) -> torch.Tensor:
+    """Materialised-scores attention in float32, the result in ``q.dtype``."""
+    H, hd = q.shape[2], q.shape[3]
+    kr = repeat_kv(k, H).float()
+    vr = repeat_kv(v, H).float()
+    scores = torch.einsum("bqhd,bchd->bhqc", q.float(), kr) * (1.0 / math.sqrt(hd))
+    scores = softcap(scores, logit_cap)
+    bias = attention_bias(q_pos, kv_pos, mixer=mixer, causal=causal,
+                          window=window, chunk=chunk, kv_len=kv_len,
+                          device=q.device)
+    probs = torch.softmax(scores + bias[None, None], dim=-1)
+    return torch.einsum("bhqc,bchd->bqhd", probs, vr).to(q.dtype)
+
+
+def attention_decode(q, k, v, *, q_pos, kv_pos, mixer: str = "attn",
+                     causal: bool = True, window: int = 0, chunk: int = 0,
+                     kv_len=None, logit_cap: float = 0.0) -> torch.Tensor:
+    """Single-query attention in KV-head space (no head repeat).
+
+    The reference's dots take the cache's dtype with float32 accumulation;
+    a product of two bf16 values is exact in float32, so widening both
+    operands to float32 computes the same sums.  The probabilities are
+    rounded to the cache's dtype before PV, as the reference rounds them.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (1.0 / math.sqrt(hd))
+    s = softcap(s, logit_cap)
+    bias = attention_bias(q_pos, kv_pos, mixer=mixer, causal=causal,
+                          window=window, chunk=chunk, kv_len=kv_len,
+                          device=q.device)  # (1, Skv)
+    p = torch.softmax(s + bias[0][None, None, None, :], dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(k.dtype).float(), v.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention: chunked online-softmax (the fused-layer execution)
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(q, k, *, q_pos, kv_pos, mixer, window, chunk, kv_len,
+                logit_cap):
+    """The (window, chunk) K2 masks for this call, or the name of the case
+    K2 does not take."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if logit_cap > 0:
+        return "a logit softcap"
+    if not isinstance(q_pos, range) or q_pos != range(Sq):
+        return "queries not starting at position 0"
+    if not isinstance(kv_pos, range) or kv_pos != range(Skv):
+        return "KV positions other than 0..Skv-1 (the ring cache)"
+    if kv_len is not None and not (isinstance(kv_len, int) and kv_len >= Skv):
+        return "a kv_len shorter than the keys given"
+    return (window if mixer == "attn_local" else 0,
+            chunk if mixer == "attn_chunked" else 0)
+
+
+def attention_chunked(q, k, v, *, q_pos, kv_pos, mixer: str = "attn",
+                      causal: bool = True, window: int = 0, chunk: int = 0,
+                      kv_len=None, logit_cap: float = 0.0, kv_block: int = 1024,
+                      flash=None) -> torch.Tensor:
+    """Flash-style attention: the (Sq, Skv) score frame is never built whole.
+
+    One query goes to :func:`attention_decode`.  Queries and keys at
+    positions 0.. with no softcap go to ``flash(q, k, v, causal=, window=,
+    chunk=)`` (default: the K2 wrapper, which runs the kernel on a CUDA
+    tensor and its plain version on a CPU one).  Anything else raises
+    ``NotImplementedError`` on a CUDA tensor and, on a CPU tensor, runs the
+    reference's loop over ``kv_block``-key blocks with running (m, l, acc).
+    """
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, mixer=mixer, causal=causal,
+              window=window, chunk=chunk, kv_len=kv_len, logit_cap=logit_cap)
+    if Sq == 1:
+        return attention_decode(q, k, v, **kw)
+    case = _flash_case(q, k, q_pos=q_pos, kv_pos=kv_pos, mixer=mixer,
+                       window=window, chunk=chunk, kv_len=kv_len,
+                       logit_cap=logit_cap)
+    if not isinstance(case, str):
+        flash = ops.KERNELS.attention if flash is None else flash
+        return flash(q, k, v, causal=causal, window=case[0], chunk=case[1])
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            f"the flash_attention kernel does not take {case} (ROADMAP Queue 1)")
+    if Skv % kv_block:
+        kv_block = Skv  # degenerate single block (small/test shapes)
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float()
+    kvp = positions_tensor(kv_pos, q.device)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, Skv, kv_block):
+        blk = slice(c0, c0 + kv_block)
+        k_r = repeat_kv(k[:, blk], H).float()
+        v_r = repeat_kv(v[:, blk], H).float()
+        s = softcap(torch.einsum("bqhd,bchd->bhqc", qf, k_r) * scale, logit_cap)
+        s = s + attention_bias(q_pos, kvp[blk], mixer=mixer, causal=causal,
+                               window=window, chunk=chunk, kv_len=kv_len,
+                               device=q.device)[None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqc,bchd->bhqd", p, v_r)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Attention module (projections + rope + qk-norm + cache handling)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
+    """wq, wk, wv, wo (and the qk-norm scales) for one attention sublayer."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, gen.device)
+    return p
+
+
+def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
+                    positions, cache: dict | None = None,
+                    cross_kv: tuple | None = None, causal: bool = True,
+                    kv_block: int = 1024, ring: bool = False,
+                    flash=None) -> tuple[torch.Tensor, dict | None]:
+    """Self- (or cross-) attention sub-layer.  Returns (out, new_cache).
+
+    ``cache``: ``{"k", "v": (B, max_seq, KV, hd), "len": int}``.  The new
+    keys and values are written into the cache's buffers in place (the
+    reference returns new buffers; the port saves the copy) and
+    ``new_cache`` holds the same buffers with ``len`` advanced.  A prefill
+    that starts at position 0 attends to the fresh keys: the reference
+    attends to the whole buffer, but the slots past ``len`` are masked, so
+    the function is the same.
+    """
+    B, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if ring:
+        raise NotImplementedError("the window-sized ring cache is not ported "
+                                  "(ROADMAP Queue 1)")
+    if cross_kv is not None and x.device.type != "cpu":
+        raise NotImplementedError("cross-attention on the card waits for the "
+                                  "encoder-decoder slice (ROADMAP Queue 1)")
+
+    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, KV, hd)
+        v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    else:
+        k, v = cross_kv
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rmsnorm_eps)
+        if cross_kv is None:
+            k = rmsnorm(params["k_norm"], k, cfg.rmsnorm_eps)
+    if cross_kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cross_kv is not None:
+        kv_pos, kv_len, causal = range(k.shape[1]), None, False
+    elif cache is not None:
+        start = cache["len"]
+        cache["k"][:, start:start + S] = k
+        cache["v"][:, start:start + S] = v
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": start + S}
+        if start == 0 and S > 1:
+            kv_pos, kv_len = positions, None
+        else:
+            k = cache["k"][:, :start + S]
+            v = cache["v"][:, :start + S]
+            kv_pos, kv_len = range(start + S), start + S
+    else:
+        kv_pos, kv_len = positions, None
+
+    out = attention_chunked(
+        q, k, v, q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,
+        window=cfg.window_size, chunk=cfg.chunk_size, kv_len=kv_len,
+        logit_cap=cfg.logit_softcap, kv_block=kv_block, flash=flash)
+    return out.reshape(B, S, H * hd) @ params["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str, dtype) -> dict:
+    """w1 (d, d_ff), w2 (d_ff, d) and, for the gated acts, w3 (d, d_ff)."""
+    p = {"w1": dense_init(gen, d, d_ff, dtype), "w2": dense_init(gen, d_ff, d, dtype)}
+    if act in GATED_ACTS:
+        p["w3"] = dense_init(gen, d, d_ff, dtype)
+    return p
+
+
+def mlp_block(params: dict, x: torch.Tensor, act: str, *, fused=None) -> torch.Tensor:
+    """``act(x @ w1) [* (x @ w3)] @ w2`` over the T = B * S rows of ``x``,
+    through ``fused(x2d, w1, w2, w3, act=)`` (default: the K3 wrapper — the
+    kernel on a CUDA tensor, its plain float32 version on a CPU one)."""
+    if act not in ACTS:
+        raise ValueError(act)
+    fused = ops.KERNELS.mlp if fused is None else fused
+    shape = x.shape
+    y = fused(x.reshape(-1, shape[-1]), params["w1"], params["w2"],
+              params.get("w3"), act=act)
+    return y.reshape(shape)

@@ -1,0 +1,231 @@
+"""Decoder-only transformer trunk — the port of the JAX package's
+``models/transformer.py`` for the attention sublayers, inference only.
+
+A model is a sequence of **segments**; each segment is ``repeats`` copies
+of a *superblock* (one period of the config's cyclic ``layer_pattern``).
+The reference stacks a segment's parameters on a leading ``repeats`` axis
+and scans over it; here a segment is a Python list of per-layer parameter
+dicts, looped over in Python.  The same trunk serves an uncached forward,
+prefill (cache write) and decode (cache read-extend).  The cache's length
+is a Python int, so that no layer waits on the device to read it.
+
+Mamba and MoE sublayers raise ``NotImplementedError`` (ROADMAP Queue 1:
+the SSM slice and the MoE item).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    start_layer: int
+    repeats: int
+    kinds: tuple[tuple[str, bool], ...]  # (mixer, is_moe) per sublayer
+
+
+def segments_of(cfg, n_layers: int | None = None) -> list[SegmentSpec]:
+    """The config's layer stack as segments of repeated superblocks."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    P = cfg.pattern_period
+    segs: list[SegmentSpec] = []
+    n_full, rem = divmod(n, P)
+    if n_full:
+        segs.append(SegmentSpec(0, n_full, cfg.sublayer_kinds(0, P)))
+    if rem:
+        segs.append(SegmentSpec(n_full * P, 1, cfg.sublayer_kinds(n_full * P, rem)))
+    return segs
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported (ROADMAP Queue 1)")
+    for spec in segments_of(cfg):
+        for mixer, is_moe in spec.kinds:
+            if mixer == "mamba":
+                raise NotImplementedError(
+                    f"{cfg.name}: Mamba sublayers wait for the SSM slice "
+                    "(ROADMAP Queue 1, kernel K4)")
+            if is_moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: MoE sublayers are not ported (ROADMAP Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_sublayer(gen: torch.Generator, cfg, dtype) -> dict:
+    sub: dict = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
+                 "norm2": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
+                 "attn": L.init_attention(gen, cfg, dtype)}
+    if cfg.d_ff > 0:
+        sub["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype)
+    else:
+        del sub["norm2"]  # FFN-free block
+    return sub
+
+
+def init_params(gen: torch.Generator, cfg) -> dict:
+    """Parameters on ``gen``'s device, in ``cfg.dtype``, drawn from ``gen``
+    with the reference's initialisation scales (not its random stream)."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params: dict = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "segments": [
+            [{f"sub{j}": _init_sublayer(gen, cfg, dtype)
+              for j in range(len(spec.kinds))}
+             for _ in range(spec.repeats)]
+            for spec in segments_of(cfg)
+        ],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return params
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A numpy (or array-like) value as a CPU tensor; bfloat16 arrays go
+    through their 16-bit pattern, which numpy cannot hand to torch."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree: dict) -> dict:
+    """The reference's parameter pytree (numpy arrays; each segment's
+    leaves stacked on a leading ``repeats`` axis) as this module's
+    parameters (one dict per layer), on the CPU."""
+
+    def layer(node, r):
+        if isinstance(node, dict):
+            return {k: layer(v, r) for k, v in node.items()}
+        return _to_torch(np.asarray(node)[r])
+
+    out = {k: _to_torch(v) for k, v in tree.items() if k != "segments"}
+    out["segments"] = []
+    for seg in tree["segments"]:
+        repeats = len(np.asarray(next(iter(_leaves(seg)))))
+        out["segments"].append([layer(seg, r) for r in range(repeats)])
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, max_seq: int, n_layers: int | None = None, *,
+               device) -> dict:
+    """Decode cache matching the segment structure: per layer ``{"k", "v":
+    (batch, max_seq, KV, hd)}`` zeros in ``cfg.dtype``, and ``"len": 0``."""
+    dtype = getattr(torch, cfg.dtype)
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_seq, cfg.n_kv_heads, hd)
+    segs = []
+    for spec in segments_of(cfg, n_layers):
+        segs.append([
+            {f"sub{j}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype, device=device)}
+             for j in range(len(spec.kinds))}
+            for _ in range(spec.repeats)
+        ])
+    return {"segments": segs, "len": 0}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _sublayer(sub, x, cfg, rc, mixer, positions, cache, cache_len, kernels):
+    """One (attention + FFN) sublayer.  Returns (x, new_cache)."""
+    h = L.rmsnorm(sub["norm1"], x, cfg.rmsnorm_eps)
+    attn_cache = None
+    if cache is not None:
+        attn_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len}
+    out, nc = L.attention_block(
+        sub["attn"], h, cfg, mixer=mixer, positions=positions,
+        cache=attn_cache, kv_block=rc.attn_chunk_kv,
+        ring=(rc.local_ring_cache and mixer == "attn_local"),
+        flash=kernels.attention,
+    )
+    new_cache = None if nc is None else {"k": nc["k"], "v": nc["v"]}
+    x = x + out
+    if "norm2" not in sub:
+        return x, new_cache
+    h = L.rmsnorm(sub["norm2"], x, cfg.rmsnorm_eps)
+    return x + L.mlp_block(sub["mlp"], h, cfg.ffn_act, fused=kernels.mlp), new_cache
+
+
+def embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
+    """Token (+ frontend stub) embedding (B, S, d)."""
+    tok_emb = params["embed"][batch["tokens"]]
+    if cfg.frontend and "frontend" in batch:
+        return torch.cat([batch["frontend"].to(tok_emb.dtype), tok_emb], dim=1)
+    return tok_emb
+
+
+def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
+            kernels: ops.FusedKernels = ops.KERNELS):
+    """Trunk forward.  batch: {"tokens": (B, S), ["frontend": (B, Lf, d)]}.
+
+    With ``cache``: incremental (prefill writes at [len, len+S), decode
+    extends), positions offset by ``cache["len"]``; the cache's buffers are
+    written in place.  ``kernels`` names the attention and MLP fusion
+    groups (default: the kernels' wrappers; ``ops.PLAIN`` for the plain
+    versions).  Returns (hidden (B, S, d), new_cache | None, aux = 0).
+    """
+    check_supported(cfg)
+    x = embed_inputs(params, cfg, batch)
+    start = cache["len"] if cache is not None else 0
+    positions = range(start, start + x.shape[1])
+    new_segs = []
+    for i, spec in enumerate(segments_of(cfg)):
+        new_seg = []
+        for r in range(spec.repeats):
+            layer_params = params["segments"][i][r]
+            new_layer = {}
+            for j, (mixer, _) in enumerate(spec.kinds):
+                sub_cache = None if cache is None else cache["segments"][i][r][f"sub{j}"]
+                x, nc = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
+                                  positions, sub_cache, start, kernels)
+                if nc is not None:
+                    new_layer[f"sub{j}"] = nc
+            new_seg.append(new_layer)
+        new_segs.append(new_seg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"segments": new_segs, "len": start + x.shape[1]}
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_head_matrix(params, cfg) -> torch.Tensor:
+    """(d, V): the tied embedding's transpose, or the separate head."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the final position only (serving), float32."""
+    return (h[:, -1:, :] @ lm_head_matrix(params, cfg)).float()

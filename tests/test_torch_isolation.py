@@ -72,8 +72,11 @@ def _no_cuda():
 
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     _no_cuda()
+    from repro_torch.configs import resolve, scaled_down
     from repro_torch.core import arch, flow, ir, metrics
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
     from repro_torch.models.vgg import VGG16
 
     vgg = ir.vgg16_ir()
@@ -81,12 +84,22 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     args = flow.sweep_args(ir.as_graph(vgg), np.ones((1, 17), bool), space)
     x = torch.zeros((1, 8, 8, 3))
     w, b = torch.zeros((3, 3, 3, 8)), torch.zeros(8)
+    q, kv = torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 1, 32))
+    h, w1, w2 = torch.zeros((4, 8)), torch.zeros((8, 16)), torch.zeros((16, 8))
+    cfg = scaled_down(resolve("qwen3"))
+    serve_args = ["--arch", "qwen3", "--requests", "1", "--prompt-len", "4",
+                  "--gen", "2"]
     for call in (lambda: flow.run_flow(vgg, config_space=space,
                                        groupings="pool"),
                  lambda: metrics.evaluate_batch_graph(*args),
                  lambda: VGG16(in_hw=32, n_classes=10),
                  lambda: ops.conv3x3(x, w, b),
-                 lambda: ops.fused_conv_fn()):
+                 lambda: ops.fused_conv_fn(),
+                 lambda: ops.attention(q, kv, kv),
+                 lambda: ops.mlp(h, w1, w2, act="relu"),
+                 lambda: model.init_params(cfg),
+                 lambda: model.init_cache(cfg, 1, 8),
+                 lambda: serve.main(serve_args)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # ... and run when asked for the CPU
@@ -94,6 +107,10 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
                          device="cpu").best_hw == arch.PAPER_OPTIMAL_CONFIG
     assert metrics.evaluate_batch_graph(*args, device="cpu").shape == (8, 4, 4)
     assert ops.conv3x3(x, w, b, device="cpu").shape == (1, 8, 8, 8)
+    assert ops.attention(q, kv, kv, device="cpu").shape == q.shape
+    assert ops.mlp(h, w1, w2, act="relu", device="cpu").shape == h.shape
+    assert model.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+    assert serve.main(serve_args + ["--device", "cpu"]).shape == (1, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         flow.run_flow(vgg, groupings="pool", device="meta")
 

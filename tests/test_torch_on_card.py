@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the fused_conv3x3 CUDA kernel
-and the evaluator sweep on the card.
+"""Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
+flash_attention and fused_mlp CUDA kernels, the evaluator sweep and the
+transformer serving path on the card.
 
 Every test here carries the ``cuda`` marker and skips without CUDA (the
 kernel has no CPU mode).  On a machine with a GPU and ``nvcc``, from the
@@ -15,8 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import resolve, run_config, scaled_down
 from repro_torch.core import arch, flow, ir, metrics
-from repro_torch.kernels import fused_conv, ops, ref
+from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, ops, ref
+from repro_torch.models import model as M
 from repro_torch.models.vgg import VGG16
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +120,189 @@ def test_vgg_forward_through_the_kernel_matches_plain(cuda):
     assert fused_conv.fused_conv3x3.launches == before + 13
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# K2 flash_attention and K3 fused_mlp
+# ---------------------------------------------------------------------------
+
+ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+MLP_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-1}  # 10x, as there
+ATT_SHAPES = [  # (B, Sq, Skv, H, KV, hd)
+    (1, 128, 128, 4, 4, 64),   # the shapes of tests/test_kernels.py ...
+    (2, 256, 256, 8, 2, 64),
+    (1, 128, 256, 4, 1, 128),
+    (2, 384, 384, 6, 2, 32),
+    (2, 100, 100, 4, 2, 96),   # ragged tiles, head_dim 96
+    (1, 70, 130, 2, 1, 128),   # ragged, cross-length
+    (3, 1, 77, 4, 2, 64),      # one query (decode-shaped)
+    (2, 200, 150, 2, 2, 64),   # more queries than keys: no tile skipping
+    (2, 512, 512, 16, 8, 128),  # a qwen3 prefill layer at batch 2
+]
+MLP_SHAPES = [  # (T, d, ff, act)
+    (128, 64, 256, "swiglu"),  # the shapes of tests/test_kernels.py ...
+    (256, 128, 512, "geglu"),
+    (128, 64, 128, "gelu"),
+    (384, 96, 384, "relu"),
+    (1, 1024, 3072, "swiglu"),  # decode rows at qwen3's width
+    (8, 1024, 3072, "swiglu"),
+    (100, 72, 200, "geglu"),   # ragged rows, columns and hidden units
+]
+
+
+def _randn(gen, *shape, dtype, std=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+
+def _att_inputs(shape, dtype, seed=0):
+    B, Sq, Skv, H, KV, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (_randn(gen, B, Sq, H, hd, dtype=dtype),
+            _randn(gen, B, Skv, KV, hd, dtype=dtype),
+            _randn(gen, B, Skv, KV, hd, dtype=dtype))
+
+
+def _assert_att(got, want, dtype):
+    tol = ATT_TOL[dtype]
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", ATT_SHAPES, ids=[str(s) for s in ATT_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_matches_plain_version(cuda, shape, dtype):
+    q, k, v = _att_inputs(shape, dtype)
+    before = fused_attention.flash_attention.launches
+    got = ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.flash_attention.launches == before + 1
+    _assert_att(got, ref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
+@pytest.mark.parametrize("hd", fused_attention.HEAD_DIMS)
+def test_flash_attention_every_built_tile(cuda, tile, hd):
+    q, k, v = _att_inputs((2, 320, 320, 4, 2, hd), torch.float32, seed=1)
+    got = fused_attention.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    _assert_att(got, ref.flash_attention_ref(q, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("causal,window,chunk", [
+    (True, 64, 0), (True, 0, 128), (True, 32, 0), (False, 0, 0),
+    (False, 48, 0), (False, 0, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_masks(cuda, causal, window, chunk, dtype):
+    q, k, v = _att_inputs((2, 256, 256, 4, 2, 64), dtype, seed=2)
+    got = fused_attention.flash_attention(q, k, v, causal=causal, window=window,
+                                          chunk=chunk)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, chunk=chunk)
+    _assert_att(got, want, dtype)
+
+
+@pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
+def test_flash_attention_rows_fully_masked_in_the_first_tile(cuda, tile):
+    # window 16 < block_k: rows past 16 + block_k - 1 see no key of the
+    # first KV tile; its exp(0) garbage must be wiped, not turn into NaN
+    q, k, v = _att_inputs((1, 256, 256, 2, 1, 64), torch.float32, seed=3)
+    got = fused_attention.flash_attention(q, k, v, window=16, block_q=tile[0],
+                                          block_k=tile[1])
+    assert bool(torch.isfinite(got).all())
+    _assert_att(got, ref.flash_attention_ref(q, k, v, window=16), torch.float32)
+
+
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=[str(s) for s in MLP_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_mlp_matches_plain_version(cuda, shape, dtype):
+    T, d, ff, act = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = _randn(gen, T, d, dtype=dtype)
+    w1, w3 = (_randn(gen, d, ff, dtype=dtype, std=d ** -0.5) for _ in range(2))
+    w2 = _randn(gen, ff, d, dtype=dtype, std=ff ** -0.5)
+    before = fused_mlp.fused_mlp.launches
+    got = ops.mlp(x, w1, w2, w3, act=act)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp.launches == before + 1
+    want = ref.fused_mlp_ref(x, w1, w2, w3, act=act)
+    tol = MLP_TOL[dtype]
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("tile", fused_mlp.TILES, ids=str)
+def test_fused_mlp_every_built_tile(cuda, tile):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = _randn(gen, 200, 160, dtype=torch.float32)
+    w1, w3 = (_randn(gen, 160, 448, dtype=torch.float32, std=0.08) for _ in range(2))
+    w2 = _randn(gen, 448, 160, dtype=torch.float32, std=0.05)
+    got = fused_mlp.fused_mlp(x, w1, w2, w3, block_m=tile[0], block_f=tile[1])
+    want = ref.fused_mlp_ref(x, w1, w2, w3)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_fused_mlp_keeps_the_hidden_frame_off_the_device(cuda):
+    # qwen3's prefill MLP: the kernel's only extra memory is its float32
+    # (T, d) sum buffer, below the bfloat16 (T, d_ff) hidden frame
+    T, d, ff = 4096, 1024, 3072
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = _randn(gen, T, d, dtype=torch.bfloat16)
+    w1, w3 = (_randn(gen, d, ff, dtype=torch.bfloat16, std=d ** -0.5) for _ in range(2))
+    w2 = _randn(gen, ff, d, dtype=torch.bfloat16, std=ff ** -0.5)
+    fused_mlp.fused_mlp(x, w1, w2, w3)  # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    y = fused_mlp.fused_mlp(x, w1, w2, w3)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - y.numel() * y.element_size()
+    assert 0 < extra < T * ff * x.element_size()
+
+
+def test_attention_and_mlp_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _att_inputs((1, 64, 64, 2, 1, 48), torch.float32)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fused_attention.flash_attention(q, k, v)
+    q, k, v = _att_inputs((1, 64, 64, 2, 1, 64), torch.float32)
+    with pytest.raises(ValueError, match="tile"):
+        fused_attention.flash_attention(q, k, v, block_q=32)
+    with pytest.raises(TypeError):
+        fused_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                        k, v)
+    x, w = torch.ones(8, 64, device="cuda"), torch.ones(64, 64, device="cuda")
+    with pytest.raises(ValueError, match="tile"):
+        fused_mlp.fused_mlp(x, w, w, act="relu", block_m=32)
+    with pytest.raises(ValueError, match="one device"):
+        fused_mlp.fused_mlp(x, w.cpu(), w, act="relu")
+
+
+def test_libraries_report_their_builds(cuda):
+    for mod in (fused_attention, fused_mlp):
+        built = mod.build()
+        assert built.path.exists() and "registers" in built.log
+
+
+def test_prefill_and_decode_through_the_kernels_match_plain(cuda):
+    cfg = scaled_down(resolve("qwen3"), max_seq_len=80)
+    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"), attn_chunk_kv=64)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = M.init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    a0, m0 = fused_attention.flash_attention.launches, fused_mlp.fused_mlp.launches
+    out = {}
+    with torch.inference_mode():
+        for name, kernels in (("fused", ops.KERNELS), ("plain", ops.PLAIN)):
+            cache = M.init_cache(cfg, 2, 80)
+            logits, cache = M.prefill(params, cfg, rc, {"tokens": tokens}, cache,
+                                      kernels=kernels)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps = [logits]
+            for _ in range(3):
+                logits, cache = M.decode(params, cfg, rc, tok, cache, kernels=kernels)
+                tok = logits[:, -1].argmax(-1)[:, None]
+                steps.append(logits)
+            out[name] = torch.cat(steps, dim=1)
+    n = cfg.n_layers
+    assert fused_attention.flash_attention.launches == a0 + n
+    assert fused_mlp.fused_mlp.launches == m0 + 4 * n
+    torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
