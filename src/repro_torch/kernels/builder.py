@@ -119,6 +119,15 @@ def build_many(kernels: "list[KernelSource] | tuple[KernelSource, ...]"
     return [results[i] for i in range(len(kernels))]
 
 
+def all_kernels() -> tuple[KernelSource, ...]:
+    """Every kernel of the port: fused_conv3x3 (K1), flash_attention (K2),
+    fused_mlp (K3) and the selective scan (K4), for :func:`build_many`."""
+    from . import fused_attention, fused_conv, fused_mlp, mamba_scan
+
+    return (fused_conv.KERNEL, fused_attention.KERNEL, fused_mlp.KERNEL,
+            mamba_scan.KERNEL)
+
+
 def build(kernel: KernelSource) -> BuildResult:
     """Build one library (see :func:`build_many`)."""
     return build_many([kernel])[0]

@@ -14,7 +14,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve_device
-from . import fused_attention, fused_conv, fused_mlp, ref
+from . import fused_attention, fused_conv, fused_mlp, mamba_scan, ref
 
 
 def _on(device, x: torch.Tensor, name: str) -> None:
@@ -52,20 +52,36 @@ def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                                block_f=block_f)
 
 
+def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor, *,
+             h0: torch.Tensor | None = None, chunk: int | None = None,
+             block_d: int | None = None,
+             device: "str | torch.device" = "cuda"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan (K4) of ``dA``, ``dBx`` (B, S, di, ds) and ``C``
+    (B, S, ds) from the state ``h0`` (zeros when ``None``); returns ``(y
+    (B, S, di), h_last (B, di, ds))``.  Devices as :func:`attention`;
+    ``None`` tiles take the planner's (chunk 64, block_d min(512, di))."""
+    _on(device, dA, "ssm_scan")
+    return mamba_scan.selective_scan(dA, dBx, C, h0, chunk=chunk, block_d=block_d)
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedKernels:
-    """The fusion groups the transformer runs through: ``attention(q, k, v,
-    *, causal, window, chunk)`` and ``mlp(x, w1, w2, w3, *, act)``.  The
-    default is the kernels' wrappers (the kernels on a CUDA tensor, their
-    plain versions on a CPU one); :data:`PLAIN` is the plain versions on
-    any device, for comparison."""
+    """The fusion groups the model runs through: ``attention(q, k, v, *,
+    causal, window, chunk)``, ``mlp(x, w1, w2, w3, *, act)`` and
+    ``ssm_scan(dA, dBx, C, h0) -> (y, h_last)``.  The default is the
+    kernels' wrappers (the kernels on a CUDA tensor, their plain versions on
+    a CPU one); :data:`PLAIN` is the plain versions on any device, for
+    comparison."""
 
     attention: Callable = fused_attention.flash_attention
     mlp: Callable = fused_mlp.fused_mlp
+    ssm_scan: Callable = mamba_scan.selective_scan
 
 
 KERNELS = FusedKernels()
-PLAIN = FusedKernels(attention=ref.flash_attention_ref, mlp=ref.fused_mlp_ref)
+PLAIN = FusedKernels(attention=ref.flash_attention_ref, mlp=ref.fused_mlp_ref,
+                     ssm_scan=ref.selective_scan_ref)
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

@@ -2,7 +2,8 @@
 
 Each repeats its kernel's function in the simplest PyTorch: the conv group
 as a cuDNN convolution, attention with materialised scores, the MLP as
-three float32 matrix products.  On the GPU a float32 matrix product runs in
+three float32 matrix products, the selective scan as a sequential float32
+loop over the sequence.  On the GPU a float32 matrix product runs in
 full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False by
 default).
 
@@ -107,3 +108,22 @@ def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     else:
         raise ValueError(f"unknown act {act!r}")
     return (h @ w2.float()).to(x.dtype)
+
+
+def selective_scan_ref(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
+                       h0: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 recurrence ``h_t = dA_t * h + dBx_t`` with the readout
+    ``y_t[d] = sum_s h_t[d, s] * C_t[s]``, a sequential float32 loop over S.
+
+    ``dA`` and ``dBx`` are (B, S, di, ds), ``C`` (B, S, ds), ``h0`` the
+    (B, di, ds) state before the first step (zeros when ``None``), all
+    float32.  Returns ``(y (B, S, di), h_last (B, di, ds))``.
+    """
+    B, S, di, ds = dA.shape
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=dA.device) if h0 is None else h0
+    ys = []
+    for t in range(S):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1), h

@@ -1,17 +1,21 @@
-"""Serving driver: batched prefill + greedy decode with a KV cache.
+"""Serving entry point: batched prefill + greedy decode with a KV / SSM-state cache.
 
 ``python -m repro_torch.launch.serve --arch qwen3 --full --requests 8 --prompt-len 512 --gen 32``
+``python -m repro_torch.launch.serve --arch falcon-mamba --full --requests 8 --prompt-len 512 --gen 32``
 
-The port of the JAX package's ``launch/serve.py``: builds a KV cache,
-prefills a batch of synthetic prompts, then decodes tokens greedily.  It
+The port of the JAX package's ``launch/serve.py``: builds a cache (KV
+buffers for attention layers, the conv inputs and the SSM state for Mamba
+layers), prefills a batch of synthetic prompts, then decodes tokens
+greedily.  It
 takes the reference's flags plus ``--device`` (default ``cuda``; without
 CUDA it raises unless given ``--device cpu``).  ``--reduced`` (the
 default) runs ``scaled_down(cfg)``; ``--full`` the config at full width
 and depth.  Weights come from a ``torch.Generator`` seeded with ``--seed``,
 at the reference's initialisation scales.  On the card the prompt's
-attention runs through the flash-attention kernel and every MLP through
-the fused-MLP kernel; ``main(kernels=ops.PLAIN)`` runs their plain
-versions instead, for comparison.
+attention runs through the flash-attention kernel, every MLP through the
+fused-MLP kernel and every selective scan (the prompt's, and each decode
+step's) through the selective-scan kernel; ``main(kernels=ops.PLAIN)`` runs
+their plain versions instead, for comparison.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Model dispatch: one API over the decoder-only transformers.
+"""Model dispatch: one API over the decoder-only models (attention and
+Mamba-1 sublayers: qwen3, falcon-mamba, ...).
 
 ``init_params / forward / init_cache / prefill / decode``, the port of the
 JAX package's ``models/model.py``; launch scripts and tests import this
@@ -43,7 +44,9 @@ def forward(params, cfg, rc, batch: dict, cache=None, *,
 
 def init_cache(cfg, batch: int, max_seq: int, *, ring: bool = False,
                device: "str | torch.device" = "cuda") -> dict:
-    """A zeroed decode cache for ``batch`` sequences of ``max_seq``."""
+    """A zeroed decode cache for ``batch`` sequences of ``max_seq``: KV
+    buffers for attention sublayers, conv inputs and the float32 SSM state
+    for Mamba sublayers (their size does not grow with ``max_seq``)."""
     _decoder_only(cfg)
     if ring:
         raise NotImplementedError("the window-sized ring cache is not ported "

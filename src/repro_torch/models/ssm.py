@@ -1,0 +1,177 @@
+"""Mamba-1 selective-state-space mixer (falcon-mamba-7b, jamba) — the port
+of the JAX package's ``models/ssm.py``, inference only.
+
+:func:`mamba_block` computes the discretised transitions (dA, dBx) and the
+readout C in PyTorch and hands the recurrence to the fusion group it is
+given (``scan``): on the model's path that is ``ops.KERNELS.ssm_scan``, the
+selective-scan kernel K4 on a CUDA tensor (its plain sequential version on
+a CPU one), or ``ops.PLAIN.ssm_scan``.  The two pure-PyTorch scans of the
+reference are kept beside it: :func:`selective_scan_reference` (the
+sequential oracle) and :func:`selective_scan_chunked` (chunk-recurrent; the
+in-chunk scan is a log-depth doubling loop, since PyTorch has no
+``associative_scan``).
+
+The reference's ``mamba_param_specs`` (a ``jax.eval_shape`` hook of the
+tracing frontend) waits for the frontend's port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops, ref
+from .layers import dense_init
+
+
+def init_mamba(gen: torch.Generator, cfg, dtype) -> dict:
+    """One Mamba mixer's parameters, drawn from ``gen`` with the reference's
+    initialisation: S4D-real ``A_log`` = log [1..ds] per channel, ``dt_bias``
+    the inverse softplus of dt uniform in [1e-3, 0.1]; ``A_log``, ``D`` and
+    ``dt_bias`` in float32, the rest in ``dtype``."""
+    d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dr, dc = cfg.dt_rank, cfg.ssm_conv
+    dev = gen.device
+    a_init = torch.arange(1, ds + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    u = torch.rand((di,), generator=gen, device=dev, dtype=torch.float32)
+    dt = torch.clamp(u * (0.1 - 1e-3) + 1e-3, min=1e-4)
+    dt_bias = torch.log(torch.exp(dt) - 1.0)  # softplus^-1 of dt
+    conv_w = torch.randn((dc, di), generator=gen, device=dev, dtype=torch.float32)
+    return {
+        "in_proj": dense_init(gen, d, 2 * di, dtype),
+        "conv_w": (conv_w / math.sqrt(dc)).to(dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "x_proj": dense_init(gen, di, dr + 2 * ds, dtype),
+        "dt_proj": dense_init(gen, dr, di, dtype),
+        "dt_bias": dt_bias,
+        "A_log": torch.log(a_init),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, di, d, dtype),
+    }
+
+
+def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          state: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, di); w: (dc, di); state: the (B, dc-1, di) inputs before
+    x (zeros when ``None``).  Returns (y (B, S, di), new_state (B, dc-1,
+    di)).  The new state is a copy, so a cache holding it does not keep the
+    padded input alive."""
+    dc = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], dc - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, S+dc-1, di)
+    S = x.shape[1]
+    y = sum(xp[:, j:j + S, :] * w[j][None, None, :] for j in range(dc))
+    new_state = xp[:, S:, :].clone() if dc > 1 else state
+    return y + b[None, None, :], new_state
+
+
+def _ssm_inputs(params: dict, x_c: torch.Tensor, cfg
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Discretised (dA, dBx, C) from the conv output, all float32 and
+    contiguous (as the scan kernel takes them): dA and dBx (B, S, di, ds),
+    C (B, S, ds).  The exponential and the last product are taken in place,
+    which saves one (B, S, di, ds) temporary each."""
+    dr, ds = cfg.dt_rank, cfg.ssm_state
+    proj = (x_c @ params["x_proj"]).float()  # (B, S, dr + 2 ds)
+    dt_low, Bs, Cs = torch.split(proj, [dr, ds, ds], dim=-1)
+    dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])  # (B, S, di)
+    A = -torch.exp(params["A_log"])  # (di, ds)
+    dA = (dt[..., None] * A[None, None]).exp_()
+    dBx = (dt[..., None] * Bs[:, :, None, :]).mul_(x_c.float()[..., None])
+    return dA, dBx, Cs.contiguous()
+
+
+# The sequential oracle, (dA, dBx, Cs, h0=None) -> (y, h_last): the scan
+# kernel's plain version.
+selective_scan_reference = ref.selective_scan_ref
+
+
+def _assoc_combine(e1, e2):
+    """The scan's operator: e1 then e2, each a (decay, offset) pair."""
+    a1, b1 = e1
+    a2, b2 = e2
+    return a2 * a1, a2 * b1 + b2
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of :func:`_assoc_combine` along axis 1 by doubling
+    (Hillis-Steele): log2(n) rounds, each combining element i with i - k."""
+    k = 1
+    while k < a.shape[1]:
+        a2, b2 = _assoc_combine((a[:, :-k], b[:, :-k]), (a[:, k:], b[:, k:]))
+        a = torch.cat([a[:, :k], a2], dim=1)
+        b = torch.cat([b[:, :k], b2], dim=1)
+        k *= 2
+    return a, b
+
+
+def selective_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, Cs: torch.Tensor,
+                           h0: torch.Tensor | None = None, chunk: int = 256
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-recurrent parallel scan (the fused-layer execution): a loop
+    over chunks carries the state; inside a chunk the recurrence runs as a
+    parallel scan.  The returned state is a copy, so a cache holding it
+    does not keep the chunk's (B, chunk, di, ds) state sequence alive."""
+    B, S, di, ds = dA.shape
+    if S % chunk:
+        chunk = S
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=dA.device) if h0 is None else h0
+    ys = []
+    for i in range(0, S, chunk):
+        a, bx, c = dA[:, i:i + chunk], dBx[:, i:i + chunk], Cs[:, i:i + chunk]
+        # h_t = (prod a)(h_in) + scan(b): fold h_in in via the first b term
+        bx0 = bx.clone()
+        bx0[:, 0] += a[:, 0] * h
+        _, h_all = _assoc_scan(a, bx0)
+        ys.append(torch.einsum("bcds,bcs->bcd", h_all, c))
+        h = h_all[:, -1].clone()
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_block(params: dict, x: torch.Tensor, cfg, cache: dict | None = None, *,
+                scan: Callable | None = None
+                ) -> tuple[torch.Tensor, dict | None]:
+    """One Mamba-1 mixer over x (B, S, d).
+
+    ``cache`` is ``{"conv": (B, dc-1, di), "h": (B, di, ds) float32}`` or
+    ``None``; the new one is returned (``None`` without a cache).
+    ``scan(dA, dBx, C, h0) -> (y, h_last)`` is the recurrence's fusion group
+    (default ``ops.KERNELS.ssm_scan``: the kernel on a CUDA tensor, the
+    plain version on a CPU one).  Projections and the convolution run in
+    ``x.dtype``; the discretisation, the scan and ``y + D x`` in float32.
+    """
+    scan = ops.KERNELS.ssm_scan if scan is None else scan
+    xz = x @ params["in_proj"]
+    x_in, z = torch.chunk(xz, 2, dim=-1)
+
+    conv_state = cache["conv"] if cache is not None else None
+    x_c, new_conv = causal_depthwise_conv(x_in, params["conv_w"], params["conv_b"],
+                                          conv_state)
+    x_c = F.silu(x_c)
+
+    dA, dBx, Cs = _ssm_inputs(params, x_c, cfg)
+    h0 = cache["h"] if cache is not None else None
+    y, h = scan(dA, dBx, Cs, h0)
+    del dA, dBx
+
+    y = y + params["D"][None, None, :] * x_c.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ params["out_proj"]
+    new_cache = {"conv": new_conv, "h": h} if cache is not None else None
+    return out, new_cache
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
+    """A zeroed Mamba cache: the conv inputs in ``dtype``, the state in
+    float32."""
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                         device=device),
+    }

@@ -1,5 +1,6 @@
 """Decoder-only transformer trunk — the port of the JAX package's
-``models/transformer.py`` for the attention sublayers, inference only.
+``models/transformer.py`` for the attention and Mamba-1 sublayers,
+inference only.
 
 A model is a sequence of **segments**; each segment is ``repeats`` copies
 of a *superblock* (one period of the config's cyclic ``layer_pattern``).
@@ -9,8 +10,10 @@ dicts, looped over in Python.  The same trunk serves an uncached forward,
 prefill (cache write) and decode (cache read-extend).  The cache's length
 is a Python int, so that no layer waits on the device to read it.
 
-Mamba and MoE sublayers raise ``NotImplementedError`` (ROADMAP Queue 1:
-the SSM slice and the MoE item).
+Each sublayer is a mixer (attention, or a Mamba-1 SSM) followed by a
+dense FFN, or by nothing when ``d_ff == 0`` (falcon-mamba's blocks are
+mixer-only).  MoE sublayers and encoder-decoder models raise
+``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from ..kernels import ops
 from . import layers as L
+from . import ssm as SSM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +53,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported (ROADMAP Queue 1)")
     for spec in segments_of(cfg):
-        for mixer, is_moe in spec.kinds:
-            if mixer == "mamba":
-                raise NotImplementedError(
-                    f"{cfg.name}: Mamba sublayers wait for the SSM slice "
-                    "(ROADMAP Queue 1, kernel K4)")
+        for _mixer, is_moe in spec.kinds:
             if is_moe:
                 raise NotImplementedError(
                     f"{cfg.name}: MoE sublayers are not ported (ROADMAP Queue 1)")
@@ -64,14 +64,17 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(gen: torch.Generator, cfg, dtype) -> dict:
+def _init_sublayer(gen: torch.Generator, cfg, mixer: str, dtype) -> dict:
     sub: dict = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
-                 "norm2": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
-                 "attn": L.init_attention(gen, cfg, dtype)}
+                 "norm2": L.rmsnorm_init(cfg.d_model, dtype, gen.device)}
+    if mixer == "mamba":
+        sub["mamba"] = SSM.init_mamba(gen, cfg, dtype)
+    else:
+        sub["attn"] = L.init_attention(gen, cfg, dtype)
     if cfg.d_ff > 0:
         sub["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype)
     else:
-        del sub["norm2"]  # FFN-free block
+        del sub["norm2"]  # mamba-1 blocks: mixer only, no FFN sublayer
     return sub
 
 
@@ -84,8 +87,8 @@ def init_params(gen: torch.Generator, cfg) -> dict:
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
         "segments": [
-            [{f"sub{j}": _init_sublayer(gen, cfg, dtype)
-              for j in range(len(spec.kinds))}
+            [{f"sub{j}": _init_sublayer(gen, cfg, mixer, dtype)
+              for j, (mixer, _) in enumerate(spec.kinds)}
              for _ in range(spec.repeats)]
             for spec in segments_of(cfg)
         ],
@@ -107,7 +110,9 @@ def _to_torch(a) -> torch.Tensor:
 def params_from_jax(tree: dict) -> dict:
     """The reference's parameter pytree (numpy arrays; each segment's
     leaves stacked on a leading ``repeats`` axis) as this module's
-    parameters (one dict per layer), on the CPU."""
+    parameters (one dict per layer), on the CPU.  Every leaf keeps its
+    dtype, so a Mamba mixer's ``A_log``, ``D`` and ``dt_bias`` stay float32
+    in a bfloat16 model."""
 
     def layer(node, r):
         if isinstance(node, dict):
@@ -137,17 +142,24 @@ def _leaves(node):
 
 def init_cache(cfg, batch: int, max_seq: int, n_layers: int | None = None, *,
                device) -> dict:
-    """Decode cache matching the segment structure: per layer ``{"k", "v":
-    (batch, max_seq, KV, hd)}`` zeros in ``cfg.dtype``, and ``"len": 0``."""
+    """Decode cache matching the segment structure, zeros: per attention
+    sublayer ``{"k", "v": (batch, max_seq, KV, hd)}`` in ``cfg.dtype``, per
+    Mamba sublayer ``{"conv": (batch, dc-1, di)}`` in ``cfg.dtype`` and
+    ``{"h": (batch, di, ds)}`` in float32; and ``"len": 0``."""
     dtype = getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim
     shape = (batch, max_seq, cfg.n_kv_heads, hd)
+
+    def sub_cache(mixer):
+        if mixer == "mamba":
+            return SSM.init_mamba_cache(cfg, batch, dtype, device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
     segs = []
     for spec in segments_of(cfg, n_layers):
         segs.append([
-            {f"sub{j}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                         "v": torch.zeros(shape, dtype=dtype, device=device)}
-             for j in range(len(spec.kinds))}
+            {f"sub{j}": sub_cache(mixer) for j, (mixer, _) in enumerate(spec.kinds)}
             for _ in range(spec.repeats)
         ])
     return {"segments": segs, "len": 0}
@@ -159,18 +171,22 @@ def init_cache(cfg, batch: int, max_seq: int, n_layers: int | None = None, *,
 
 
 def _sublayer(sub, x, cfg, rc, mixer, positions, cache, cache_len, kernels):
-    """One (attention + FFN) sublayer.  Returns (x, new_cache)."""
+    """One (mixer + FFN) sublayer.  Returns (x, new_cache)."""
     h = L.rmsnorm(sub["norm1"], x, cfg.rmsnorm_eps)
-    attn_cache = None
-    if cache is not None:
-        attn_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len}
-    out, nc = L.attention_block(
-        sub["attn"], h, cfg, mixer=mixer, positions=positions,
-        cache=attn_cache, kv_block=rc.attn_chunk_kv,
-        ring=(rc.local_ring_cache and mixer == "attn_local"),
-        flash=kernels.attention,
-    )
-    new_cache = None if nc is None else {"k": nc["k"], "v": nc["v"]}
+    if mixer == "mamba":
+        out, new_cache = SSM.mamba_block(sub["mamba"], h, cfg, cache,
+                                         scan=kernels.ssm_scan)
+    else:
+        attn_cache = None
+        if cache is not None:
+            attn_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len}
+        out, nc = L.attention_block(
+            sub["attn"], h, cfg, mixer=mixer, positions=positions,
+            cache=attn_cache, kv_block=rc.attn_chunk_kv,
+            ring=(rc.local_ring_cache and mixer == "attn_local"),
+            flash=kernels.attention,
+        )
+        new_cache = None if nc is None else {"k": nc["k"], "v": nc["v"]}
     x = x + out
     if "norm2" not in sub:
         return x, new_cache
@@ -191,10 +207,11 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
     """Trunk forward.  batch: {"tokens": (B, S), ["frontend": (B, Lf, d)]}.
 
     With ``cache``: incremental (prefill writes at [len, len+S), decode
-    extends), positions offset by ``cache["len"]``; the cache's buffers are
-    written in place.  ``kernels`` names the attention and MLP fusion
-    groups (default: the kernels' wrappers; ``ops.PLAIN`` for the plain
-    versions).  Returns (hidden (B, S, d), new_cache | None, aux = 0).
+    extends), positions offset by ``cache["len"]``; the KV buffers are
+    written in place, a Mamba sublayer's conv inputs and state are replaced
+    in the returned cache.  ``kernels`` names the attention, MLP and scan
+    fusion groups (default: the kernels' wrappers; ``ops.PLAIN`` for the
+    plain versions).  Returns (hidden (B, S, d), new_cache | None, aux = 0).
     """
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)

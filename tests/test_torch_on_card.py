@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
-flash_attention and fused_mlp CUDA kernels, the evaluator sweep and the
-transformer serving path on the card.
+flash_attention, fused_mlp and selective-scan CUDA kernels, the evaluator
+sweep and the transformer and Mamba serving paths on the card.
 
 Every test here carries the ``cuda`` marker and skips without CUDA (the
 kernel has no CPU mode).  On a machine with a GPU and ``nvcc``, from the
@@ -20,7 +20,7 @@ import dataclasses
 
 from repro_torch.configs import resolve, run_config, scaled_down
 from repro_torch.core import arch, flow, ir, metrics
-from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, ops, ref
+from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, mamba_scan, ops, ref
 from repro_torch.models import model as M
 from repro_torch.models.vgg import VGG16
 
@@ -305,4 +305,111 @@ def test_prefill_and_decode_through_the_kernels_match_plain(cuda):
     n = cfg.n_layers
     assert fused_attention.flash_attention.launches == a0 + n
     assert fused_mlp.fused_mlp.launches == m0 + 4 * n
+    torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4 selective_scan
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = 1e-4  # tests/test_kernels.py
+SCAN_CASES = [  # (B, S, di, ds, chunk, block_d, with h0 and the final state)
+    (1, 64, 16, 4, 16, 16, False),  # the shapes of tests/test_kernels.py ...
+    (2, 128, 32, 8, 32, 16, False),
+    (1, 64, 64, 16, 64, 32, False),
+    (2, 128, 32, 8, 32, 16, True),
+    (8, 1, 8192, 16, None, None, True),  # falcon-mamba's decode step
+    (3, 200, 1000, 16, 64, 384, True),  # ragged S and di
+    (2, 77, 300, 5, 16, 128, True),  # odd ds: scalar loads
+    (2, 50, 130, 6, 7, 64, True),  # ds % 4 == 2: float2 loads
+    (1, 9, 40, 1, 4, 32, False),  # one state value a channel
+]
+
+
+def _scan_inputs(B, S, di, ds, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dA = 0.3 + 0.68 * torch.rand((B, S, di, ds), generator=gen, device="cuda")
+    dBx = 0.1 * torch.randn((B, S, di, ds), generator=gen, device="cuda")
+    C = torch.randn((B, S, ds), generator=gen, device="cuda")
+    h0 = 0.5 * torch.randn((B, di, ds), generator=gen, device="cuda")
+    return dA, dBx, C, h0
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=[str(c) for c in SCAN_CASES])
+def test_selective_scan_matches_plain_version(cuda, case):
+    B, S, di, ds, chunk, block_d, state = case
+    dA, dBx, C, h0 = _scan_inputs(B, S, di, ds)
+    h0 = h0 if state else None
+    before = mamba_scan.selective_scan.launches
+    y, h = ops.ssm_scan(dA, dBx, C, h0=h0, chunk=chunk, block_d=block_d)
+    torch.cuda.synchronize()
+    assert mamba_scan.selective_scan.launches == before + 1
+    want_y, want_h = ref.selective_scan_ref(dA, dBx, C, h0)
+    torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(h, want_h, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_selective_scan_without_the_final_state_writes_none(cuda):
+    dA, dBx, C, _ = _scan_inputs(2, 33, 70, 16, seed=1)
+    y, h = mamba_scan.selective_scan(dA, dBx, C, final_state=False, block_d=32)
+    assert h is None
+    torch.testing.assert_close(y, ref.selective_scan_ref(dA, dBx, C)[0],
+                               atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_selective_scan_on_the_card_never_runs_the_plain_version(cuda, monkeypatch):
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "selective_scan_ref", no_plain)
+    dA, dBx, C, h0 = _scan_inputs(2, 16, 64, 16, seed=2)
+    y, h = mamba_scan.selective_scan(dA, dBx, C, h0)
+    assert y.is_cuda and h.is_cuda
+    with pytest.raises(ValueError, match="ds 17"):  # raises, no fallback
+        mamba_scan.selective_scan(*_scan_inputs(1, 4, 8, 17)[:3])
+
+
+def test_selective_scan_rejects_what_the_kernel_does_not_take(cuda):
+    dA, dBx, C, h0 = _scan_inputs(2, 16, 64, 16, seed=3)
+    with pytest.raises(TypeError):
+        mamba_scan.selective_scan(dA.double(), dBx.double(), C.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan.selective_scan(dA, dBx, C, h0.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="one device"):
+        mamba_scan.selective_scan(dA, dBx, C.cpu())
+    with pytest.raises(ValueError, match="block_d"):
+        mamba_scan.selective_scan(dA, dBx, C, block_d=1024)
+    with pytest.raises(ValueError, match="chunk"):
+        mamba_scan.selective_scan(dA, dBx, C, chunk=100_000)
+    flat = torch.empty(dA.numel() + 1, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        mamba_scan.selective_scan(flat[1:].view(dA.shape), dBx, C)
+
+
+def test_scan_library_reports_its_build(cuda):
+    built = mamba_scan.build()
+    assert built.path.exists() and "registers" in built.log
+
+
+def test_mamba_prefill_and_decode_through_the_kernel_match_plain(cuda):
+    cfg = scaled_down(resolve("falcon-mamba"), max_seq_len=80)
+    rc = run_config(cfg.name, "decode_32k")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = M.init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    s0 = mamba_scan.selective_scan.launches
+    out = {}
+    with torch.inference_mode():
+        for name, kernels in (("fused", ops.KERNELS), ("plain", ops.PLAIN)):
+            cache = M.init_cache(cfg, 2, 80)
+            logits, cache = M.prefill(params, cfg, rc, {"tokens": tokens}, cache,
+                                      kernels=kernels)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps = [logits]
+            for _ in range(3):
+                logits, cache = M.decode(params, cfg, rc, tok, cache, kernels=kernels)
+                tok = logits[:, -1].argmax(-1)[:, None]
+                steps.append(logits)
+            out[name] = torch.cat(steps, dim=1)
+    assert mamba_scan.selective_scan.launches == s0 + 4 * cfg.n_layers
     torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
