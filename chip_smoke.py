@@ -8,7 +8,10 @@ PyTorch version.  Phases, one line each:
 1. device      the card's name and power limit, as nvidia-smi gives them;
 2. build       the fused_conv3x3, flash_attention, fused_mlp and
                selective_scan kernels, built with nvcc from the checkout,
-               one nvcc each, together;
+               one nvcc each, together; for flash_attention and fused_mlp
+               the registers, spills and tensor-core (HMMA / HGMMA)
+               instructions of each bfloat16 instantiation, failing if one
+               that serving launches has none;
 3. paper flow  run_flow on the paper's configuration set and compare_fusion,
                held to the reference suite's locks (tests/test_flow.py);
 4. exhaustive  run_flow over the 320-point default space x all 2^17 VGG-16
@@ -45,7 +48,9 @@ PyTorch version.  Phases, one line each:
 12. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes and at the shapes of tests/test_kernels.py
                (masks, the planner's tiles, float32 and bfloat16), with the
-               same four times;
+               same four times, and every built tile at the serving shapes;
+               kernel phases time a launch over runs of CALLS launches and
+               also one call alone;
 13. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
@@ -80,6 +85,7 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-1}
 LOGIT_TOL = 2e-4
 BATCH = 8  # images per forward on the main path
 REPS = 10  # timed runs per measurement
+CALLS = 10  # launches in a row per timed run of a kernel phase
 SAMPLE_CELLS = 4096  # raw-plane cells held to the scalar oracles
 # The TPU kernels replaced (the functions that reach pl.pallas_call).
 REPLACES = {"fused_conv3x3": "src/repro/kernels/fused_conv.py:46",
@@ -151,10 +157,13 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(torch, fns: dict, reps: int) -> dict:
-    """Median device time (ms) of each zero-argument callable in ``fns``,
-    taken in turns (one of each per round) with CUDA events, after two
-    warm-up calls of each."""
+def time_ms(torch, fns: dict, reps: int, calls: int = 1) -> dict:
+    """Median time (ms) of one call of each zero-argument callable in
+    ``fns``, taken in turns (one sample of each per round) after two warm-up
+    calls of each.  A sample is CUDA events around ``calls`` calls in a row,
+    divided by ``calls``: with ``calls`` > 1 the host work of a call
+    overlaps the device work of the one before, so the time is the device's
+    unless the host is slower."""
     for fn in fns.values():
         fn()
         fn()
@@ -164,11 +173,19 @@ def time_ms(torch, fns: dict, reps: int) -> dict:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            fn()
+            for _ in range(calls):
+                fn()
             e1.record()
             e1.synchronize()
-            samples[k].append(e0.elapsed_time(e1))
+            samples[k].append(e0.elapsed_time(e1) / calls)
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def time_kernel(torch, fns: dict) -> tuple[dict, dict]:
+    """A kernel phase's times: per launch over runs of CALLS launches (the
+    device time, the rows' ``ms``) and one call between two events (the
+    call's host cost included, the rows' ``call_ms``)."""
+    return time_ms(torch, fns, REPS, CALLS), time_ms(torch, fns, REPS)
 
 
 def phase_device(torch) -> str:
@@ -188,27 +205,66 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build() -> float:
+def phase_build() -> dict:
     """Build the four kernel libraries from the checkout's sources, one
-    nvcc each, all started together; wall seconds."""
-    from repro_torch.kernels import builder
+    nvcc each, all started together.  For K2 and K3, whose bfloat16 bodies
+    run on the tensor cores: each bf16 instantiation's registers and spills
+    (``-Xptxas -v``) and its HMMA / HGMMA instructions in the SASS
+    (``cuobjdump -sass``); fails if a bf16 instantiation that serving
+    launches has none."""
+    from repro_torch.kernels import builder, fused_attention, fused_mlp
 
     t0 = time.perf_counter()
-    builds = builder.build_many(builder.all_kernels())
+    kernels = builder.all_kernels()
+    builds = builder.build_many(kernels)
     wall = time.perf_counter() - t0
-    for built in builds:
-        print(f"phase build: {built.path.name} in {built.seconds:.3f} s")
-        lines = [ln.strip() for ln in built.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for line in lines[:4]:
-            print(f"  ptxas: {line}")
-        spills = [ln for ln in lines if "spill" in ln and not (
-            "0 bytes spill stores" in ln and "0 bytes spill loads" in ln)]
-        if spills:
-            print(f"  ptxas: {len(spills)} of {len(lines)} lines report spills, "
-                  f"e.g. {spills[0]}")
+    out = {"wall_s": wall, "libraries": {}, "tensor_core": {}}
+    for kernel, built in zip(kernels, builds):
+        report = builder.ptxas_report(built.log)
+        regs = [r.get("registers", 0) for r in report.values()]
+        spilling = [n for n, r in report.items()
+                    if r.get("spill_stores", 0) or r.get("spill_loads", 0)]
+        print(f"phase build: {built.path.name} in {built.seconds:.3f} s, "
+              f"{len(report)} kernels, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, {len(spilling)} spilling")
+        out["libraries"][kernel.name] = {"seconds": built.seconds,
+                                         "kernels": len(report), "spilling": spilling}
+    tc = fused_attention.DEFAULT_TILE
+    bm, bf = fused_mlp.default_tile(SERVE["requests"] * SERVE["prompt_len"])
+    dm, df = fused_mlp.default_tile(SERVE["requests"])
+    serving = {  # the bf16 instantiations qwen3's serve launches (swiglu: gated)
+        fused_attention.KERNEL.name: [f"flash_attention_mma_kernelILi128ELi{tc[0]}ELi{tc[1]}E"],
+        fused_mlp.KERNEL.name: [f"fused_mlp_mma_prefill_kernelILi{bm}ELi{bf}ELb1E",
+                                f"fused_mlp_mma_decode_kernelILi{dm}ELi{df}ELb1E"],
+    }
+    for kernel, built in zip(kernels, builds):
+        if kernel.name not in serving:
+            continue
+        report = builder.ptxas_report(built.log)
+        sass = builder.sass_counts(built.path)
+        bf16 = sorted(n for n in sass if "_mma_" in n)
+        f32 = [n for n in sass if "_f32_kernel" in n]
+        for want in serving[kernel.name]:
+            check(any(want in n for n in bf16),
+                  f"{built.path.name}: no bf16 kernel {want} in the SASS")
+        for name in bf16:
+            ops, ptx = sass[name], report.get(name, {})
+            short = name.split("_mma_", 1)[1].split("EEv", 1)[0]
+            serve = any(w in name for w in serving[kernel.name])
+            out["tensor_core"][f"{kernel.name}:{short}"] = {**ops, **ptx, "serving": serve}
+            print(f"  {kernel.name} bf16 {short}{' (serving)' if serve else ''}: "
+                  f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; {ptx.get('registers')} "
+                  f"registers, spills {ptx.get('spill_stores')} / {ptx.get('spill_loads')} "
+                  "bytes")
+            check(not serve or ops["HMMA"] + ops["HGMMA"] > 0,
+                  f"{kernel.name}'s serving instantiation {short} has no tensor-core "
+                  "instruction in its SASS")
+        n_tc = sum(1 for n in f32 if sass[n]["HMMA"] + sass[n]["HGMMA"])
+        print(f"  {kernel.name}: {len(bf16)} bf16 kernels, "
+              f"{sum(1 for n in bf16 if sass[n]['HMMA'] + sass[n]['HGMMA'])} with "
+              f"tensor-core instructions; {len(f32)} float32 kernels, {n_tc} with")
     print(f"phase build: wall {wall:.3f} s")
-    return wall
+    return out
 
 
 def phase_paper_flow(vgg) -> dict:
@@ -411,8 +467,8 @@ def phase_layers(torch, spec, seed: int) -> list:
                   f"by up to {err} (tolerance {tol})")
             lib_err = float((library().permute(0, 2, 3, 1).float()
                              - want).abs().max())
-            ms = time_ms(torch, {"plain": plain, "kernel": kernel,
-                                 "library": library}, REPS)
+            ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel,
+                                          "library": library})
             es = x.element_size()
             out_hw = hw // 2 if pool else hw
             n_bytes = es * (x.numel() + w.numel() + b.numel()
@@ -424,8 +480,9 @@ def phase_layers(torch, spec, seed: int) -> list:
                    "cin": cin, "cout": cout, "pool": pool,
                    "max_abs_err": err, "library_max_abs_err": lib_err,
                    "ms": ms["kernel"], "plain_ms": ms["plain"],
-                   "library_ms": ms["library"], "bytes": n_bytes,
-                   "flops": flops, "bound_ms": max(t_bytes, t_ops),
+                   "library_ms": ms["library"], "call_ms": one["kernel"],
+                   "plain_call_ms": one["plain"], "library_call_ms": one["library"],
+                   "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             rows.append(row)
             print(f"layer {name} b{batch} {dname} {hw}x{hw} {cin}->{cout} "
@@ -762,6 +819,24 @@ def _visible_pairs(Sq, Skv, causal, window, chunk) -> int:
     return int(ok.sum())
 
 
+def tile_sweep(torch, what: str, run, want, tiles, tol: float, flops: int) -> list:
+    """``run(tile)`` at every built tile, each held to ``want`` within
+    ``tol`` (atol = rtol) and timed per launch: which tile is fastest at a
+    main-path shape (the wrapper's default is chosen from these rows)."""
+    rows = []
+    for tile in tiles:
+        got = run(tile).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+              f"{what} tile {tile[0]}x{tile[1]}: differs from plain by up to {err}")
+        ms = time_ms(torch, {"kernel": lambda: run(tile)}, REPS, CALLS)["kernel"]
+        rows.append({"case": what, "tile": list(tile), "ms": ms, "max_abs_err": err})
+        print(f"tiles {what} {tile[0]}x{tile[1]}: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.4g} TFLOP/s), max_abs_err {err:.3g}")
+    return rows
+
+
 def phase_attention(torch, spec, seed: int, plan_tile) -> list:
     """flash_attention vs its plain version; yardstick: PyTorch's
     scaled_dot_product_attention (GQA, causal or with a boolean mask)."""
@@ -823,7 +898,7 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
               f"differs from plain by up to {err} (tolerance {tol})")
         lib_err = float((library().transpose(1, 2).float() - want).abs().max())
         backend = sdpa_kernel_names(torch, library, (dname, bool(window or chunk)))
-        ms = time_ms(torch, {"plain": plain, "kernel": kernel, "library": library}, REPS)
+        ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel, "library": library})
         es = q.element_size()
         n_bytes = es * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * B * H * hd * _visible_pairs(Sq, Skv, causal, window, chunk)
@@ -833,14 +908,25 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
                "tile": [bq, bk], "max_abs_err": err, "library_max_abs_err": lib_err,
                "library_backend": backend, "ms": ms["kernel"],
                "plain_ms": ms["plain"], "library_ms": ms["library"],
-               "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+               "call_ms": one["kernel"], "plain_call_ms": one["plain"],
+               "library_call_ms": one["library"], "bytes": n_bytes, "flops": flops,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
         print(f"attention {label} {shape} {dname} causal={int(causal)} w={window} "
-              f"c={chunk} tile {bq}x{bk}: kernel {row['ms']:.4f} ms, plain "
+              f"c={chunk} tile {bq}x{bk}: kernel {row['ms']:.4f} ms (one call "
+              f"{row['call_ms']:.4f}), plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
               f"[{backend}], bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{flops / row['ms'] / 1e9:.4g} TFLOP/s), max_abs_err {err:.3g}")
+    B, S, H, KV, hd = serve_shape[0], serve_shape[1], 16, 8, 128
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    rows += tile_sweep(
+        torch, "attention serve bfloat16",
+        lambda t: fused_attention.flash_attention(q, k, v, block_q=t[0], block_k=t[1]),
+        ref.flash_attention_ref(q, k, v).float(), fused_attention.TILES,
+        ATT_TOL["bfloat16"], 4 * B * H * hd * _visible_pairs(S, S, True, 0, 0))
     return rows
 
 
@@ -876,7 +962,7 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
         w3 = (torch.randn((d, ff), generator=gen, device="cuda") * d ** -0.5).to(dtype)
         w2 = (torch.randn((ff, d), generator=gen, device="cuda") * ff ** -0.5).to(dtype)
         gated = act in fused_mlp.GATED
-        bm, bf = tile if tile else fused_mlp.default_tile(T)
+        bm, bf = tile if tile else fused_mlp.default_tile(T, dtype)
 
         def library():
             h = acts[act](x @ w1)
@@ -897,7 +983,7 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
               f"fused_mlp {label} ({T}, {d}, {ff}, {act}) {dname} tile {bm}x{bf}: "
               f"differs from plain by up to {err} (tolerance {tol})")
         lib_err = float((library().float() - want).abs().max())
-        ms = time_ms(torch, {"plain": plain, "kernel": kernel, "library": library}, REPS)
+        ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel, "library": library})
         es = x.element_size()
         n_w = (3 if gated else 2) * d * ff
         n_bytes = es * (2 * T * d + n_w)
@@ -907,14 +993,27 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
         row = {"case": label, "shape": [T, d, ff], "act": act, "dtype": dname,
                "tile": [bm, bf], "max_abs_err": err, "library_max_abs_err": lib_err,
                "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
-               "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+               "call_ms": one["kernel"], "plain_call_ms": one["plain"],
+               "library_call_ms": one["library"], "bytes": n_bytes, "flops": flops,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
         print(f"mlp {label} T={T} d={d} ff={ff} {act} {dname} tile {bm}x{bf}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}, {flops / row['ms'] / 1e9:.4g} TFLOP/s), "
-              f"max_abs_err {err:.3g}")
+              f"{row['ms']:.4f} ms (one call {row['call_ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{flops / row['ms'] / 1e9:.4g} TFLOP/s), max_abs_err {err:.3g}")
+    d, ff = 1024, 3072
+    w1, w3 = ((torch.randn((d, ff), generator=gen, device="cuda") * d ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    w2 = (torch.randn((ff, d), generator=gen, device="cuda") * ff ** -0.5).to(torch.bfloat16)
+    for label, T in (("prefill", T_pre), ("decode", SERVE["requests"])):
+        x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+        rows += tile_sweep(
+            torch, f"mlp serve_{label} bfloat16",
+            lambda t: fused_mlp.fused_mlp(x, w1, w2, w3, block_m=t[0], block_f=t[1]),
+            ref.fused_mlp_ref(x, w1, w2, w3).float(), fused_mlp.TILES,
+            MLP_TOL["bfloat16"], 6 * T * d * ff)
     return rows
 
 
@@ -967,7 +1066,7 @@ def phase_scan(torch, spec, seed: int) -> list:
               f"selective_scan {label} {(b, s, di, ds)} tile {chunk}x{block_d}: "
               f"differs from plain by up to {err} (tolerance {SCAN_TOL})")
         del want_y, want_h, got_y, got_h
-        ms = time_ms(torch, {"plain": plain, "kernel": kernel}, REPS)
+        ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel})
         n_state = b * di * ds
         n_bytes = 4 * (2 * b * s * di * ds + b * s * ds + b * s * di
                        + (2 * n_state if state else 0))
@@ -976,8 +1075,9 @@ def phase_scan(torch, spec, seed: int) -> list:
         t_ops = spec.compute_seconds(flops, 4) * 1e3
         row = {"case": label, "shape": [b, s, di, ds], "dtype": "float32",
                "tile": [chunk, block_d], "state": state, "max_abs_err": err,
-               "ms": ms["kernel"],
-               "plain_ms": ms["plain"], "library_ms": None, "library": SCAN_LIBRARY,
+               "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": None,
+               "call_ms": one["kernel"], "plain_call_ms": one["plain"],
+               "library": SCAN_LIBRARY,
                "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
@@ -1060,7 +1160,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    build_s = phase_build()
+    build = phase_build()
     spec = gpu_spec()
     vgg = vgg16_ir(pool_mode="separate")
 
@@ -1124,7 +1224,7 @@ def main(argv=None) -> int:
     scan_rows = phase_scan(torch, spec, args.seed)
 
     def row(rows, case, dtype):
-        return next(r for r in rows if r["case"] == case and r["dtype"] == dtype)
+        return next(r for r in rows if r["case"] == case and r.get("dtype") == dtype)
 
     entries = [
         kernels_entry(layer_rows, vgg_counts["fused_conv3x3"], spec),
@@ -1146,7 +1246,7 @@ def main(argv=None) -> int:
 
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
-        "card": card, "build_s": build_s, "paper_flow": paper,
+        "card": card, "build": build, "paper_flow": paper,
         "exhaustive": exhaustive, "forward": forward, "layers": layer_rows,
         "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
         "serve_time": serve_time, "serve_ssm": ssm_run, "serve_ssm_counts": ssm_counts,

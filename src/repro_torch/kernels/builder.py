@@ -1,13 +1,14 @@
 """Build and load the hand-written CUDA kernels (one shared builder).
 
-Each kernel is one CUDA source under ``csrc/`` with a plain C interface.
-It is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
-``build/kernels/`` of the repository checkout at its first launch, and
-loaded with ``ctypes``; nothing compiles at import time.  The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one reused; it is written under a temporary
-name and renamed into place, so a concurrent build never loads a
-half-written file.  :func:`build_many` starts one ``nvcc`` per source, all
+Each kernel is one CUDA source under ``csrc/`` with a plain C interface
+(the bf16 kernels share the header ``csrc/mma_bf16.cuh``).  It is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library in ``build/kernels/`` of
+the repository checkout at its first launch, and loaded with ``ctypes``;
+nothing compiles at import time.  The library's file name carries a hash
+of the source, its headers and the flags, so an edited source is rebuilt
+and an unchanged one reused; it is written under a temporary name and
+renamed into place, so a concurrent build never loads a half-written
+file.  :func:`build_many` starts one ``nvcc`` per source, all
 together, and waits for them all.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,17 +34,19 @@ BASE_FLAGS = (
 
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
-    """One CUDA source and the ``nvcc`` flags it is built with."""
+    """One CUDA source, the headers it includes and the ``nvcc`` flags it
+    is built with."""
 
     name: str  # stem of the library file
     source: Path
     flags: tuple[str, ...]
+    headers: tuple[Path, ...] = ()
 
     def library_path(self) -> Path:
-        """Where the library of this source and these flags lives."""
-        digest = hashlib.sha256(
-            self.source.read_bytes() + "\0".join(self.flags).encode()
-        ).hexdigest()[:16]
+        """Where the library of this source, its headers and these flags
+        lives."""
+        text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
+        digest = hashlib.sha256(text + "\0".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
 
@@ -117,6 +121,52 @@ def build_many(kernels: "list[KernelSource] | tuple[KernelSource, ...]"
     if failures:
         raise RuntimeError("\n".join(failures))
     return [results[i] for i in range(len(kernels))]
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` log: registers a
+    thread and spill stores / loads (bytes)."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def cuobjdump() -> str | None:
+    """Path of ``cuobjdump``, beside the ``nvcc`` the kernels are built with
+    or on PATH, or None."""
+    beside = Path(_nvcc()).with_name("cuobjdump")
+    return str(beside) if beside.exists() else shutil.which("cuobjdump")
+
+
+def sass_counts(library: Path, opcodes: tuple[str, ...] = ("HMMA", "HGMMA")
+                ) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of a built library: how many SASS
+    instructions start with each of ``opcodes`` (``cuobjdump -sass``)."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = func.split("\n", 1)
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        out[name.strip()] = {op: sum(1 for o in ops if o.startswith(op)) for op in opcodes}
+    return out
 
 
 def all_kernels() -> tuple[KernelSource, ...]:

@@ -1,22 +1,23 @@
 // Flash attention forward for Hopper (sm_90a): QK^T -> mask -> online
-// softmax -> PV in one kernel, float32 arithmetic, q/k/v/o in the
-// reference's (B, S, heads, head_dim) layout, float32 or bfloat16.
+// softmax -> PV in one kernel, q/k/v/o in the reference's (B, S, heads,
+// head_dim) layout, bfloat16 on the tensor cores or float32 on the CUDA
+// cores.
 //
 // Replaces: src/repro/kernels/fused_attention.py::flash_attention, the
-// Pallas TPU kernel (`_kernel`, launched by `pl.pallas_call`).  What it
-// keeps from that kernel is the fusion group's guarantee and its
-// arithmetic: the (Sq, Skv) score frame exists only as one
-// (BLOCK_Q, BLOCK_K) tile in shared memory, never in device memory; the
-// running max m, sum l and accumulator acc are float32 and live in
-// registers; the scale 1/sqrt(head_dim) is applied after the dot; masked
-// scores are the finite NEG_INF = -1e30 (not -inf), so a row whose first
-// tiles are fully masked takes exp(0) = 1 garbage into l and acc that the
-// first visible tile wipes with corr = exp(-1e30 - m) = 0, exactly as the
-// TPU kernel does (a -inf mask would give exp(-inf + inf) = NaN there);
-// the output is acc / max(l, 1e-30).  GQA is in the index arithmetic:
-// query head h reads KV head h / (H / KV); no repeated K/V is built.
-// Keys past Skv (the ragged last tile) are -inf, i.e. excluded outright,
-// and queries past Sq are not stored, so any Sq and Skv are taken.
+// Pallas TPU kernel (`_kernel`, launched by `pl.pallas_call`).  What both
+// bodies keep from that kernel is the fusion group's guarantee and its
+// arithmetic: the (Sq, Skv) score frame exists only one tile at a time on
+// chip, never in device memory; the running max m, sum l and accumulator
+// acc are float32 and live in registers; the scale 1/sqrt(head_dim) is
+// applied after the dot; masked scores are the finite NEG_INF = -1e30
+// (not -inf), so a row whose first tiles are fully masked takes exp(0) = 1
+// garbage into l and acc that the first visible tile wipes with
+// corr = exp(-1e30 - m) = 0, exactly as the TPU kernel does (a -inf mask
+// would give exp(-inf + inf) = NaN there); the output is acc / max(l,
+// 1e-30).  GQA is in the index arithmetic: query head h reads KV head
+// h / (H / KV); no repeated K/V is built.  Keys past Skv (the ragged last
+// tile) are -inf, i.e. excluded outright, and queries past Sq are not
+// stored, so any Sq and Skv are taken.
 //
 // Masks, from absolute positions 0..Sq-1 and 0..Skv-1: causal k <= q;
 // window (q - k) < window, and also (k - q) < window when not causal (the
@@ -28,61 +29,60 @@
 // seen a visible key and garbage that is wiped later to rows that have
 // not, so the output is the same.
 //
-// What bounds it: at the serving shapes (S = 512, head_dim 128) the block
+// What bounds it: at the serving shape (S = 512, head_dim 128) a block
 // does 4 * BLOCK_Q * BLOCK_K * head_dim flops per KV tile against
-// 2 * BLOCK_K * head_dim * 2 bytes of K/V, so it is compute-bound; this
-// version runs its products as float32 FMAs on the CUDA cores (bf16 inputs
-// are widened on load), so its bound is the float32 CUDA-core peak, not
-// the tensor cores.  No wgmma, TMA or double buffering yet: this is the
-// simple, right version.
+// 2 * BLOCK_K * head_dim * 2 bytes of K/V, so it is compute-bound.
 //
-// Tile design: 256 threads = 16 row groups (ty) x 16 column groups (tx).
-// Thread (ty, tx) owns the scores of rows ty + 16 i and keys tx + 16 j
-// (i < BLOCK_Q / 16, j < BLOCK_K / 16) and the output dims tx + 16 e
-// (e < HD / 16) of its rows.  The 16 threads of a row are one half-warp,
-// so row max and row sum are four xor-shuffles.  Shared memory holds the
-// Q tile, one K-or-V tile (K for the scores, then V for PV) and the P
-// tile, all float32; sizes in fused_attention.py::smem_bytes.
+// bfloat16 body (flash_attention_mma_kernel), FlashAttention-2 style:
+//  - one warp owns 16 query rows; a block of BLOCK_Q / 16 warps.  Q is
+//    staged once in shared memory and held in registers as mma A
+//    fragments (ldmatrix);
+//  - K and V tiles arrive by 16-byte cp.async in a two-stage ring: the next
+//    visited tile loads while this one is computed.  Rows are padded by 16
+//    bytes, so the eight rows an ldmatrix reads fall in distinct banks;
+//  - S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products summed in
+//    float32; S stays in registers, the online softmax runs on its C
+//    fragments (row max and row sum over the 4 lanes of a quad, two
+//    xor-shuffles), and P is rounded to bf16 and packed straight into A
+//    fragments: it never goes to shared memory.  V is read with
+//    ldmatrix.trans;
+//  - numerics: the products are exact and summed in float32 as the TPU
+//    kernel's are; what differs is that P is rounded to bf16 (relative
+//    error <= 2^-9 per weight) before PV, while l sums the float32 P.  Each
+//    output is then sum_k p_k (1 + e_k) v_k / l with |e_k| <= 2^-9, off
+//    the float32 result by at most 2^-9 x sum_k (p_k / l) |v_k| <= 2^-9 max
+//    |v| = 2e-3 max |v|, inside the bf16 tolerance 2e-2 (atol and rtol) of
+//    tests/test_kernels.py; tests/test_torch_attention_mlp.py holds an
+//    emulation of this rounding to the TPU kernel;
+//  - q-tiles are launched heaviest first (the last q-tile sees the most
+//    keys under the causal mask), which shortens the tail of the grid.
 //
-// Build (see fused_attention.py): nvcc -gencode arch=compute_90a,code=sm_90a
-//   -O3 -shared -Xcompiler -fPIC.  The (head_dim, BLOCK_Q, BLOCK_K) shapes
-// built are listed in INSTANTIATE below and in fused_attention.py.
+// float32 body (flash_attention_f32_kernel): float32 FMAs on the CUDA
+// cores, since TF32 would miss the 2e-5 float32 tolerance.  256 threads =
+// 16 row groups (ty) x 16 column groups (tx); thread (ty, tx) owns the
+// scores of rows ty + 16 i and keys tx + 16 j and the output dims tx + 16 e
+// of its rows; the 16 threads of a row are one half-warp, so row max and
+// row sum are four xor-shuffles.  Shared memory holds the Q tile, one
+// K-or-V tile and the P tile, all float32.
+//
+// Shared memory of each body in flash_attention_smem_bytes (and
+// fused_attention.py::smem_bytes).  Build (see fused_attention.py): nvcc
+// -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC.  The
+// (head_dim, BLOCK_Q, BLOCK_K) shapes built are listed in FOR_EACH_SHAPE
+// below and in fused_attention.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as the plain version
-}
-
-template <int HD, int BQ, int BK>
-struct Tiles {
-  static constexpr int RQ = BQ / 16;   // query rows per thread
-  static constexpr int CK = BK / 16;   // keys per thread
-  static constexpr int DPT = HD / 16;  // output dims per thread
-  static constexpr int QLD = HD + 4;   // row stride (floats) of the Q and K tiles
-  static constexpr int PLD = BK + 4;   // row stride of the P tile
-  static constexpr int Q_FLOATS = BQ * QLD;
-  static constexpr int KV_FLOATS = BK * QLD;  // K tile; the V tile (stride HD) reuses it
-  static constexpr int SMEM_BYTES = (Q_FLOATS + KV_FLOATS + BQ * PLD) * 4;
-  static_assert(HD % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tiles of 16");
-  static_assert(QLD % 4 == 0, "Q and K rows are read as float4");
-};
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ bool visible(int q, int k, int causal, int window,
                                         int chunk) {
@@ -108,6 +108,275 @@ __device__ __forceinline__ bool tile_masked(int q_lo, int q_hi, int k_lo,
   return false;
 }
 
+// True when every (query, key) pair of the two ranges is visible.
+__device__ __forceinline__ bool tile_visible(int q_lo, int q_hi, int k_lo,
+                                             int k_hi, int causal, int window,
+                                             int chunk) {
+  if (causal && k_hi > q_lo) return false;
+  if (window > 0 && q_hi - k_lo >= window) return false;
+  if (window > 0 && !causal && k_hi - q_lo >= window) return false;
+  if (chunk > 0 && !(q_lo / chunk == k_lo / chunk && q_hi / chunk == k_lo / chunk &&
+                     k_hi / chunk == k_lo / chunk))
+    return false;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+template <int HD, int BQ, int BK>
+struct MmaTiles {
+  static constexpr int WARPS = BQ / 16;
+  static constexpr int NTHREADS = WARPS * 32;
+  static constexpr int LD = HD + 8;  // row stride (bf16) of the Q, K and V tiles
+  static constexpr int Q_ELEMS = BQ * LD;
+  static constexpr int KV_ELEMS = BK * LD;  // one K or one V tile
+  static constexpr int STAGES = 2;          // (K, V) pairs in flight
+  static constexpr int SMEM_BYTES = (Q_ELEMS + STAGES * 2 * KV_ELEMS) * 2;
+  static_assert(HD % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tiles of 16");
+};
+
+// cp.async of `rows` rows of HD bf16 (row `row0` on) into a tile of row
+// stride LD; rows at or past `n_valid` are zero-filled.
+template <int HD, int LD, int NTHREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          size_t stride, int row0, int rows,
+                                          int n_valid, int tid) {
+  constexpr int CH = HD / 8;  // 16-byte chunks a row
+  for (int i = tid; i < rows * CH; i += NTHREADS) {
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    const bool in = row0 + r < n_valid;
+    const __nv_bfloat16* g = in ? src + (size_t)(row0 + r) * stride + c : src;
+    mma::cp_async16(dst + r * LD + c, g, in);
+  }
+}
+
+template <int HD, int BQ, int BK>
+__global__ void __launch_bounds__(BQ / 16 * 32)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                           int H, int KV, int causal, int window, int chunk,
+                           int skip, float scale) {
+  using TL = MmaTiles<HD, BQ, BK>;
+  constexpr int LD = TL::LD;
+  constexpr int NT_S = BK / 8;   // n-tiles of S (keys)
+  constexpr int NT_O = HD / 8;   // n-tiles of O (head dims)
+  constexpr int KC_Q = HD / 16;  // k-chunks of Q K^T
+  constexpr int KC_P = BK / 16;  // k-chunks of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LD]
+  __nv_bfloat16* skv = sq + TL::Q_ELEMS;  // stage s: K at 2s, V at 2s + 1 tiles
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q-tile first
+  const size_t q_stride = (size_t)H * HD;  // elements between positions
+  const size_t kv_stride = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
+
+  const int q_hi = min(q0 + BQ, Sq) - 1;
+  const int n_kb = (Skv + BK - 1) / BK;
+  const float scale_log2 = scale * LOG2E;
+  // The next KV tile at or after kt that the block visits.
+  auto next_tile = [&](int kt) {
+    while (kt < n_kb && skip &&
+           tile_masked(q0, q_hi, kt * BK, min(kt * BK + BK, Skv) - 1, causal,
+                       window, chunk))
+      ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int stage) {
+    __nv_bfloat16* sk = skv + stage * 2 * TL::KV_ELEMS;
+    load_rows<HD, LD, TL::NTHREADS>(sk, kb, kv_stride, kt * BK, BK, Skv, tid);
+    load_rows<HD, LD, TL::NTHREADS>(sk + TL::KV_ELEMS, vb, kv_stride, kt * BK,
+                                    BK, Skv, tid);
+  };
+
+  int kt = next_tile(0);
+  load_rows<HD, LD, TL::NTHREADS>(sq, qb, q_stride, q0, BQ, Sq, tid);
+  if (kt < n_kb) load_kv(kt, 0);
+  mma::cp_async_commit();
+
+  // This warp's rows, and its part of the state: rows g and g + 8.
+  const int wq0 = q0 + warp * 16;
+  const int qr0 = wq0 + g;
+  const int qr1 = qr0 + 8;
+  uint32_t qf[KC_Q][4];
+  float acc[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  bool first = true;
+  int stage = 0;
+  while (kt < n_kb) {
+    const int nk = next_tile(kt + 1);
+    if (nk < n_kb) load_kv(nk, stage ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // Q and this tile have landed (this thread's part)
+    __syncthreads();          // ... and every thread's
+    if (first) {
+#pragma unroll
+      for (int kc = 0; kc < KC_Q; ++kc)
+        mma::ldmatrix_x4(qf[kc], sq + (warp * 16 + mma::a_row(lane)) * LD +
+                                     kc * 16 + mma::a_col(lane));
+      first = false;
+    }
+    const __nv_bfloat16* sk = skv + stage * 2 * TL::KV_ELEMS;
+    const __nv_bfloat16* sv = sk + TL::KV_ELEMS;
+    const int k0 = kt * BK;
+
+    float s[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC_Q; ++kc)
+#pragma unroll
+      for (int np = 0; np < NT_S / 2; ++np) {
+        uint32_t bf[4];
+        mma::ldmatrix_x4(bf, sk + (np * 16 + mma::bnk_row(lane)) * LD + kc * 16 +
+                                 mma::bnk_col(lane));
+        mma::mma_bf16(s[2 * np], qf[kc], bf[0], bf[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[kc], bf[2], bf[3]);
+      }
+
+    // Scale (by scale * log2 e: the softmax runs in base 2), mask (only
+    // where this warp's rows meet a masked or ragged key), and the
+    // online-softmax update on the fragments.
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    if (!(k0 + BK <= Skv &&
+          tile_visible(wq0, wq0 + 15, k0, k0 + BK - 1, causal, window, chunk))) {
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + j * 8 + 2 * t + (e & 1);
+          const int qi = e < 2 ? qr0 : qr1;
+          if (kj >= Skv)
+            s[j][e] = -INFINITY;  // past the ragged edge: no key at all
+          else if (!visible(qi, kj, causal, window, chunk))
+            s[j][e] = NEG_INF;
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // key k0 < Skv is in this tile, so the row max is >= NEG_INF: finite
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0);
+    const float c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;  // this lane's part of the row sums
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn0);
+      s[j][1] = exp2f(s[j][1] - mn0);
+      s[j][2] = exp2f(s[j][2] - mn1);
+      s[j][3] = exp2f(s[j][3] - mn1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      acc[j][0] *= c0;
+      acc[j][1] *= c0;
+      acc[j][2] *= c1;
+      acc[j][3] *= c1;
+    }
+
+    // O += P V, P from registers.
+#pragma unroll
+    for (int kc = 0; kc < KC_P; ++kc) {
+      uint32_t pa[4];
+      mma::pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int np = 0; np < NT_O / 2; ++np) {
+        uint32_t bf[4];
+        mma::ldmatrix_x4_trans(bf, sv + (kc * 16 + mma::bkn_row(lane)) * LD +
+                                       np * 16 + mma::bkn_col(lane));
+        mma::mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
+        mma::mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+    stage ^= 1;
+    kt = nk;
+  }
+  mma::cp_async_wait<0>();
+
+  // The row sums over the quad, then the output.
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (qr0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qr0 * q_stride + d) =
+          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
+    if (qr1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qr1 * q_stride + d) =
+          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;
+
+template <int HD, int BQ, int BK>
+struct F32Tiles {
+  static constexpr int RQ = BQ / 16;   // query rows per thread
+  static constexpr int CK = BK / 16;   // keys per thread
+  static constexpr int DPT = HD / 16;  // output dims per thread
+  static constexpr int QLD = HD + 4;   // row stride (floats) of the Q and K tiles
+  static constexpr int PLD = BK + 4;   // row stride of the P tile
+  static constexpr int Q_FLOATS = BQ * QLD;
+  static constexpr int KV_FLOATS = BK * QLD;  // K tile; the V tile (stride HD) reuses it
+  static constexpr int SMEM_BYTES = (Q_FLOATS + KV_FLOATS + BQ * PLD) * 4;
+  static_assert(HD % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tiles of 16");
+  static_assert(QLD % 4 == 0, "Q and K rows are read as float4");
+};
+
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -121,13 +390,13 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Skv, int H, int KV, int causal, int window,
-                       int chunk, int skip, float scale) {
-  using TL = Tiles<HD, BQ, BK>;
+template <int HD, int BQ, int BK>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int Sq, int Skv, int H, int KV, int causal, int window,
+                           int chunk, int skip, float scale) {
+  using TL = F32Tiles<HD, BQ, BK>;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // [BQ][QLD]
   float* skv = sq + TL::Q_FLOATS;               // [BK][QLD] K, or [BK][HD] V
@@ -142,16 +411,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const size_t q_stride = (size_t)H * HD;  // elements between positions
   const size_t kv_stride = (size_t)KV * HD;
-  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
-  T* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const float* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  float* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
-  for (int i = tid; i < BQ * HD; i += NTHREADS) {
+  for (int i = tid; i < BQ * HD; i += F32_THREADS) {
     const int r = i / HD;
     const int d = i % HD;
     const int s = q0 + r;
-    sq[r * TL::QLD + d] = s < Sq ? to_f32(qb[(size_t)s * q_stride + d]) : 0.f;
+    sq[r * TL::QLD + d] = s < Sq ? qb[(size_t)s * q_stride + d] : 0.f;
   }
 
   float m[TL::RQ], l[TL::RQ], acc[TL::RQ][TL::DPT];
@@ -172,11 +441,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (skip && tile_masked(q0, q_hi, k0, k_hi, causal, window, chunk)) continue;
 
     __syncthreads();  // the previous tile's V and P reads are done
-    for (int i = tid; i < BK * HD; i += NTHREADS) {
+    for (int i = tid; i < BK * HD; i += F32_THREADS) {
       const int r = i / HD;
       const int d = i % HD;
       const int s = k0 + r;
-      skv[r * TL::QLD + d] = s < Skv ? to_f32(kb[(size_t)s * kv_stride + d]) : 0.f;
+      skv[r * TL::QLD + d] = s < Skv ? kb[(size_t)s * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -247,11 +516,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TL::CK; ++j)
         sp[(ty + 16 * i) * TL::PLD + tx + 16 * j] = s[i][j];
-    for (int i = tid; i < BK * HD; i += NTHREADS) {
+    for (int i = tid; i < BK * HD; i += F32_THREADS) {
       const int r = i / HD;
       const int d = i % HD;
       const int s2 = k0 + r;
-      skv[r * HD + d] = s2 < Skv ? to_f32(vb[(size_t)s2 * kv_stride + d]) : 0.f;
+      skv[r * HD + d] = s2 < Skv ? vb[(size_t)s2 * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -276,9 +545,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < TL::DPT; ++e)
-      ob[(size_t)qi * q_stride + tx + 16 * e] = from_f32<T>(acc[i][e] / denom);
+      ob[(size_t)qi * q_stride + tx + 16 * e] = acc[i][e] / denom;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void* q;
@@ -290,17 +563,32 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int BQ, int BK>
-int launch(const Args& a) {
-  using TL = Tiles<HD, BQ, BK>;
-  auto kern = flash_attention_kernel<T, HD, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
+template <int HD, int BQ, int BK>
+int launch_bf16(const Args& a) {
+  using TL = MmaTiles<HD, BQ, BK>;
+  static bool smem_set[64];
+  auto kern = flash_attention_mma_kernel<HD, BQ, BK>;
+  const cudaError_t err = mma::set_smem_once(kern, TL::SMEM_BYTES, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
+  kern<<<grid, TL::NTHREADS, TL::SMEM_BYTES, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o),
+      a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.chunk, a.skip, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, int BQ, int BK>
+int launch_f32(const Args& a) {
+  using TL = F32Tiles<HD, BQ, BK>;
+  static bool smem_set[64];
+  auto kern = flash_attention_f32_kernel<HD, BQ, BK>;
+  const cudaError_t err = mma::set_smem_once(kern, TL::SMEM_BYTES, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  kern<<<grid, NTHREADS, TL::SMEM_BYTES, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.Sq, a.Skv, a.H,
+  kern<<<grid, F32_THREADS, TL::SMEM_BYTES, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Skv, a.H,
       a.KV, a.causal, a.window, a.chunk, a.skip, a.scale);
   return (int)cudaGetLastError();
 }
@@ -315,10 +603,10 @@ int launch(const Args& a) {
 
 }  // namespace
 
-// C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k,
-// v and o share it).  Returns the CUDA error code of the launch (0 on
-// success); a shape this library was not built for is refused with
-// cudaErrorInvalidValue.
+// C interface, loaded with ctypes.  dtype: 0 = float32 (CUDA cores), 1 =
+// bfloat16 (tensor cores); q, k, v and o share it.  Returns the CUDA error
+// code of the launch (0 on success); a shape this library was not built
+// for is refused with cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int hd,
@@ -327,22 +615,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   const Args a{q, k, v, o, B, Sq, Skv, H, KV, causal, window, chunk, skip,
                scale, static_cast<cudaStream_t>(stream)};
-#define DISPATCH(HD_, BQ_, BK_)                                     \
-  if (hd == HD_ && block_q == BQ_ && block_k == BK_) {              \
-    if (dtype == 0) return launch<float, HD_, BQ_, BK_>(a);         \
-    if (dtype == 1) return launch<__nv_bfloat16, HD_, BQ_, BK_>(a); \
-    return (int)cudaErrorInvalidValue;                              \
+#define DISPATCH(HD_, BQ_, BK_)                            \
+  if (hd == HD_ && block_q == BQ_ && block_k == BK_) {     \
+    if (dtype == 0) return launch_f32<HD_, BQ_, BK_>(a);   \
+    if (dtype == 1) return launch_bf16<HD_, BQ_, BK_>(a);  \
+    return (int)cudaErrorInvalidValue;                     \
   }
   FOR_EACH_SHAPE(DISPATCH)
 #undef DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory of one block at a built shape (bytes), or -1: the
-// wrapper checks its own sizing function against it.
-extern "C" int flash_attention_smem_bytes(int hd, int block_q, int block_k) {
-#define SMEM(HD_, BQ_, BK_) \
-  if (hd == HD_ && block_q == BQ_ && block_k == BK_) return Tiles<HD_, BQ_, BK_>::SMEM_BYTES;
+// Shared memory of one block at a built shape and dtype (bytes), or -1:
+// the wrapper checks its own sizing function against it.
+extern "C" int flash_attention_smem_bytes(int hd, int block_q, int block_k,
+                                          int dtype) {
+#define SMEM(HD_, BQ_, BK_)                                       \
+  if (hd == HD_ && block_q == BQ_ && block_k == BK_) {            \
+    if (dtype == 0) return F32Tiles<HD_, BQ_, BK_>::SMEM_BYTES;   \
+    if (dtype == 1) return MmaTiles<HD_, BQ_, BK_>::SMEM_BYTES;   \
+  }
   FOR_EACH_SHAPE(SMEM)
 #undef SMEM
   return -1;

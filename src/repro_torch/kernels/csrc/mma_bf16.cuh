@@ -1,0 +1,213 @@
+// Tensor-core building blocks for the bf16 kernels, built for sm_90a:
+// 16-byte cp.async copies into shared memory, ldmatrix fragment loads, the
+// warp-level mma.sync m16n8k16 bf16 product and the warpgroup-level wgmma
+// m64nNk16 product, both with float32 accumulation.  Included by
+// flash_attention.cu and fused_mlp.cu.
+//
+// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
+//   A (16 x 16, row-major), four b32 registers of two bf16 each:
+//     a[0] = (row g,   cols 2t, 2t+1)   a[1] = (row g+8, cols 2t, 2t+1)
+//     a[2] = (row g,   cols 2t+8, +9)   a[3] = (row g+8, cols 2t+8, +9)
+//   B (16 x 8, k x n), two registers: b[0] = (k 2t, 2t+1; n g),
+//     b[1] = (k 2t+8, 2t+9; n g)
+//   C (16 x 8, float32): c[0], c[1] = (row g, cols 2t, 2t+1),
+//     c[2], c[3] = (row g+8, cols 2t, 2t+1)
+// So the C fragments of two neighbouring n-tiles, rounded to bf16 and
+// paired, are the A fragment of the next product over those 16 columns
+// (pack_a below): a product's result feeds the next one from registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma {
+
+// 16 bytes global -> shared, bypassing L1; with `full` false the 16 bytes
+// are zero-filled and nothing is read (the ragged edge of a tile).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// The same, each matrix transposed: a (k, n) row-major tile read as B.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// c += a * b on the tensor cores: bf16 products, exact in float32, summed
+// in float32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to nearest-even bf16, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment over 16 columns from the C fragments of n-tiles c0
+// (columns 0..7) and c1 (columns 8..15).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Lane offsets into a row-major tile for ldmatrix_x4 of a 16x16 A block:
+// row (lane % 16), column 8 (lane / 16).
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
+// For ldmatrix_x4 of B from an (n, k) row-major tile (K of Q K^T): two
+// n-tiles x two k halves; r[0..1] is n-tile 0, r[2..3] n-tile 1.
+__device__ __forceinline__ int bnk_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int bnk_col(int lane) { return ((lane >> 3) & 1) << 3; }
+// For ldmatrix_x4_trans of B from a (k, n) row-major tile (V, w1, w3, w2):
+// r[0..1] is n-tile 0 (columns 0..7), r[2..3] n-tile 1 (columns 8..15).
+__device__ __forceinline__ int bkn_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int bkn_col(int lane) { return (lane >> 4) << 3; }
+
+// ---------------------------------------------------------------------------
+// Warpgroup products (wgmma, sm_90a): four warps issue one 64-row product
+// asynchronously, B read by the tensor cores from shared memory through a
+// descriptor, A from shared memory too or from registers (the same
+// fragments as mma.sync's A, warp w of the group giving rows 16 w ..
+// 16 w + 15), the sum in registers in mma.sync's C layout (warp w holds
+// rows 16 w ..).  Operands in shared memory use the 128-byte-swizzled
+// canonical layouts: atoms of 8 rows x 128 bytes (64 bf16), 1024 bytes,
+// 1024-byte aligned, within which the 16-byte chunk c of row r sits at
+// chunk c ^ r.
+// K-major (A here: k contiguous): a row is one m, 64 consecutive k; atoms
+// 8 m apart are `sbo` bytes apart.  MN-major (B: n contiguous): a row is
+// one k, 64 consecutive n; atoms 8 k apart are `sbo` bytes apart, atoms 64
+// n apart `lbo` bytes.
+// ---------------------------------------------------------------------------
+
+// The swizzled byte offset of linear byte offset `lin` in such a tile.
+__device__ __forceinline__ int swizzle128(int lin) { return lin ^ ((lin >> 3) & 0x70); }
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, int lbo, int sbo) {
+  const uint64_t a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);  // 128-byte swizzle
+}
+
+// Shared memory written by threads (cp.async included) made visible to the
+// tensor cores' async reads; then a barrier.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 float32 in mma.sync's C layout, d[j] the n-tile j) += A (64
+// x 16 bf16, K-major: k contiguous) at `desc_a` * B (16 x 128 bf16,
+// MN-major: n contiguous, transposed in the instruction) at `desc_b`, both
+// read by the tensor cores from shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// d (64 x 64 float32 in mma.sync's C layout, d[j] the n-tile j) += a (the
+// warp's 16 rows of a 64 x 16 bf16 A, in registers) * the 16 x 64 bf16 B
+// at `desc` (MN-major: n contiguous, transposed in the instruction).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// kernel and device (a launch does not repeat it).
+template <typename Kernel>
+__host__ inline cudaError_t set_smem_once(Kernel kern, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return err;
+}
+
+}  // namespace mma

@@ -7,9 +7,12 @@ which cuts attention's traffic from O(Sq * Skv) to O(Sq * hd + Skv * hd).
 The kernel is hand-written CUDA for Hopper, ``csrc/flash_attention.cu``
 (its head comment gives the design), built by
 :mod:`repro_torch.kernels.builder` at its first launch and loaded with
-``ctypes``.  It is built for the head dims :data:`HEAD_DIMS` and the
-(block_q, block_k) tiles :data:`TILES`; :func:`smem_bytes` is its shared
-memory per block, which the planner sizes against.
+``ctypes``.  bfloat16 runs on the tensor cores (warp-level ``mma.sync``,
+K/V tiles double-buffered by ``cp.async``, P kept in registers and rounded
+to bf16 before PV); float32 runs on the CUDA cores, since TF32 would miss
+the float32 tolerance.  It is built for the head dims :data:`HEAD_DIMS` and
+the (block_q, block_k) tiles :data:`TILES`; :func:`smem_bytes` is its shared
+memory per block for each dtype, which the planner sizes against.
 
 :func:`flash_attention` is the wrapper: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`), a
@@ -31,19 +34,28 @@ from . import builder, ref
 HEAD_DIMS = (32, 64, 96, 128)  # head widths the kernel is built for
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # (block_q, block_k)
 DEFAULT_TILE = (64, 64)  # two blocks per SM at head_dim 128
+ALIGN = 16  # bytes: the bf16 body copies rows in 16-byte cp.async chunks
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
 NVCC_FLAGS = builder.BASE_FLAGS
-KERNEL = builder.KernelSource("flash_attention", SOURCE, NVCC_FLAGS)
+KERNEL = builder.KernelSource("flash_attention", SOURCE, NVCC_FLAGS,
+                              (CSRC / "mma_bf16.cuh",))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(block_q: int, block_k: int, hd: int) -> int:
-    """Shared memory one block stages (bytes): the float32 Q tile and one
-    K-or-V tile, both with rows padded by 4 floats, and the float32
-    (block_q, block_k + 4) probability tile — the Hopper counterpart of the
-    reference kernel's ``vmem_bytes``."""
-    return (block_q * (hd + 4) + block_k * (hd + 4) + block_q * (block_k + 4)) * 4
+def smem_bytes(block_q: int, block_k: int, hd: int,
+               dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory one block stages (bytes) — the Hopper counterpart of
+    the reference kernel's ``vmem_bytes``.  bfloat16 (the serving dtype,
+    the default): the Q tile and two stages of K and V tiles, rows padded by
+    8 elements.  float32: the Q tile and one K-or-V tile, rows padded by 4
+    floats, and the (block_q, block_k + 4) probability tile."""
+    if dtype == torch.bfloat16:
+        return (block_q + 4 * block_k) * (hd + 8) * 2
+    if dtype == torch.float32:
+        return (block_q * (hd + 4) + block_k * (hd + 4) + block_q * (block_k + 4)) * 4
+    raise TypeError(f"flash_attention is built for float32 and bfloat16, not {dtype}")
 
 
 def build() -> builder.BuildResult:
@@ -60,15 +72,17 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = (
         [ptr] * 4 + [i32] * 12 + [ctypes.c_float, i32, ptr])
     lib.flash_attention_launch.restype = i32
-    lib.flash_attention_smem_bytes.argtypes = [i32] * 3
+    lib.flash_attention_smem_bytes.argtypes = [i32] * 4
     lib.flash_attention_smem_bytes.restype = i32
-    for hd in HEAD_DIMS:
-        for bq, bk in TILES:
-            built = lib.flash_attention_smem_bytes(hd, bq, bk)
-            if built != smem_bytes(bq, bk, hd):
-                raise RuntimeError(
-                    f"{SOURCE.name} stages {built} bytes at head_dim {hd}, "
-                    f"tile {bq}x{bk}; smem_bytes says {smem_bytes(bq, bk, hd)}")
+    for dtype, code in _DTYPES.items():
+        for hd in HEAD_DIMS:
+            for bq, bk in TILES:
+                built = lib.flash_attention_smem_bytes(hd, bq, bk, code)
+                want = smem_bytes(bq, bk, hd, dtype)
+                if built != want:
+                    raise RuntimeError(
+                        f"{SOURCE.name} stages {built} bytes at head_dim {hd}, "
+                        f"tile {bq}x{bk}, {dtype}; smem_bytes says {want}")
     return lib
 
 
@@ -105,6 +119,8 @@ def _check_cuda(q, k, v, block_q: int, block_k: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % ALIGN:
+            raise ValueError(f"bfloat16 {name} must be {ALIGN}-byte aligned")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -146,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(
             f"flash_attention launch failed with CUDA error {err} (B {B}, Sq "
             f"{Sq}, Skv {Skv}, H {H}, KV {KV}, head_dim {hd}, tile {bq}x{bk}, "
-            f"{smem_bytes(bq, bk, hd)} B shared)")
+            f"{smem_bytes(bq, bk, hd, q.dtype)} B shared)")
     flash_attention.launches += 1
     return o
 

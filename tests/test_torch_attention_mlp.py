@@ -6,7 +6,16 @@ here that is held against the reference's Pallas kernel in interpret mode
 and its oracle (``repro.kernels.ref``), at the shapes and tolerances of
 tests/test_kernels.py.  The CUDA kernels themselves run only on the card
 (tests/test_torch_on_card.py and chip_smoke.py).
+
+The bfloat16 bodies of both kernels run on the tensor cores and round one
+intermediate to bfloat16 that the TPU kernels keep in float32: K2 rounds
+the probabilities P before P @ V (with the row sums l over the float32 P),
+K3 rounds the hidden tile h before h @ w2.  ``_k2_tensor_core`` and
+``_k3_tensor_core`` below emulate that arithmetic in plain PyTorch, and the
+tests hold them to the Pallas kernels within the bf16 tolerances.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -56,6 +65,61 @@ def _close(got, want, tol):
                                np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
+def _k2_tensor_core(q, k, v, *, causal=True, window=0, chunk=0, block_k=64,
+                    round_p=True):
+    """The bf16 K2 body's arithmetic: bf16 products summed in float32, the
+    online softmax over ``block_k``-key tiles with the finite -1e30 mask,
+    P rounded to bf16 before P @ V (``round_p``) while l sums the float32
+    P, the output rounded to bf16."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    idx = torch.arange(H) // (H // KV)
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.index_select(2, idx).float().permute(0, 2, 1, 3)
+    vf = v.index_select(2, idx).float().permute(0, 2, 1, 3)
+    qp = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq), ref.NEG_INF)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, hd))
+    for k0 in range(0, Skv, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window:
+            ok &= (qp - kp) < window
+        if chunk:
+            ok &= (qp // chunk) == (kp // chunk)
+        s = torch.where(ok, (qf @ kt.transpose(-1, -2)) / math.sqrt(hd), ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        acc = acc * corr[..., None] + pv @ vt
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _k3_tensor_core(x, w1, w2, w3=None, *, act="swiglu"):
+    """The bf16 K3 body's arithmetic: bf16 products summed in float32, the
+    activation in float32, h rounded to bf16 before h @ w2, the output
+    rounded to bf16."""
+    xf = x.float()
+    h = xf @ w1.float()
+    if act == "swiglu":
+        h = torch.nn.functional.silu(h) * (xf @ w3.float())
+    elif act == "geglu":
+        h = torch.nn.functional.gelu(h, approximate="tanh") * (xf @ w3.float())
+    elif act == "gelu":
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+    else:
+        h = torch.relu(h)
+    return (h.to(torch.bfloat16).float() @ w2.float()).to(x.dtype)
+
+
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd", ATT_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_plain_version_matches_reference(B, Sq, Skv, H, KV, hd, dtype):
@@ -97,6 +161,32 @@ def test_attention_rows_masked_in_their_first_tile():
                                              block_k=64), ATT_TOL["float32"])
 
 
+K2_ROUNDING_CASES = [  # (B, Sq, Skv, H, KV, hd, window, chunk)
+    (1, 128, 128, 4, 2, 128, 0, 0),   # head_dim 128, GQA 2:1
+    (1, 64, 64, 16, 8, 64, 0, 0),     # qwen3's 16 query / 8 KV heads
+    (1, 128, 256, 4, 1, 128, 0, 0),   # MQA, cross-length
+    (1, 192, 192, 2, 1, 128, 32, 0),  # rows fully masked in their first tile
+    (2, 128, 128, 4, 2, 64, 0, 64),   # chunked-local
+]
+
+
+@pytest.mark.parametrize("case", K2_ROUNDING_CASES, ids=str)
+def test_attention_tensor_core_rounding_matches_reference(case):
+    B, Sq, Skv, H, KV, hd, window, chunk = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(B, Sq, Skv, H, KV, hd, 6), "bfloat16")
+    got = _k2_tensor_core(tq, tk, tv, window=window, chunk=chunk)
+    assert torch.isfinite(got.float()).all()
+    kernel = r_fa.flash_attention(jq, jk, jv, window=window, chunk=chunk,
+                                  block_q=64, block_k=64)
+    _close(got.float().numpy(), kernel, ATT_TOL["bfloat16"])
+    _close(got.float().numpy(), r_ref.flash_attention_ref(jq, jk, jv, window=window,
+                                                          chunk=chunk),
+           ATT_TOL["bfloat16"])
+    # the rounding of P is exercised: without it the outputs differ
+    kept = _k2_tensor_core(tq, tk, tv, window=window, chunk=chunk, round_p=False)
+    assert not torch.equal(got, kept)
+
+
 def test_attention_refuses_window_and_chunk_together():
     q, k, v = (torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 1, 32),
                torch.zeros(1, 8, 1, 32))
@@ -122,6 +212,20 @@ def test_mlp_plain_version_matches_reference(T, d, ff, act, dtype):
     _close(got.float().numpy(), kernel, MLP_TOL[dtype])
     _close(got.float().numpy(), r_ref.fused_mlp_ref(jx, jw1, jw2, jw3, act=act),
            MLP_TOL[dtype])
+
+
+@pytest.mark.parametrize("T,d,ff,act", MLP_SHAPES)
+def test_mlp_tensor_core_rounding_matches_reference(T, d, ff, act):
+    rng = np.random.default_rng(7)
+    arrays = (rng.standard_normal((T, d), dtype=np.float32),
+              rng.standard_normal((d, ff), dtype=np.float32) * np.float32(0.1),
+              rng.standard_normal((ff, d), dtype=np.float32) * np.float32(0.1),
+              rng.standard_normal((d, ff), dtype=np.float32) * np.float32(0.1))
+    (jx, jw1, jw2, jw3), (tx, tw1, tw2, tw3) = _both(arrays, "bfloat16")
+    got = _k3_tensor_core(tx, tw1, tw2, tw3, act=act).float().numpy()
+    kernel = r_fm.fused_mlp(jx, jw1, jw2, jw3, act=act, block_m=128, block_f=128)
+    _close(got, kernel, MLP_TOL["bfloat16"])
+    _close(got, r_ref.fused_mlp_ref(jx, jw1, jw2, jw3, act=act), MLP_TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("act", ["geglu", "gelu"])
@@ -170,15 +274,24 @@ def test_mlp_wrapper_rejects_what_it_does_not_take():
 @pytest.mark.parametrize("tile", fused_attention.TILES)
 def test_attention_tiles_fit_a_hopper_block(hd, tile):
     bq, bk = tile
-    assert fused_attention.smem_bytes(bq, bk, hd) <= SMEM_LIMIT
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fused_attention.smem_bytes(bq, bk, hd, dtype) <= SMEM_LIMIT
+    # the planner sizes for the serving dtype, bf16
+    assert fused_attention.smem_bytes(bq, bk, hd) == \
+        fused_attention.smem_bytes(bq, bk, hd, torch.bfloat16)
     assert bq % 16 == 0 and bk % 16 == 0 and hd % 16 == 0
+    assert fused_attention.DEFAULT_TILE in fused_attention.TILES
 
 
 @pytest.mark.parametrize("tile", fused_mlp.TILES)
 def test_mlp_tiles_fit_a_hopper_block(tile):
-    assert fused_mlp.smem_bytes(*tile) <= SMEM_LIMIT
-    assert fused_mlp.default_tile(8) in fused_mlp.TILES
-    assert fused_mlp.default_tile(4096) in fused_mlp.TILES
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fused_mlp.smem_bytes(*tile, dtype) <= SMEM_LIMIT
+        assert fused_mlp.default_tile(8, dtype) in fused_mlp.TILES
+        assert fused_mlp.default_tile(4096, dtype) in fused_mlp.TILES
+        assert fused_mlp.default_tile(8, dtype)[0] == 16  # decode: 16-row tiles
+    assert fused_mlp.smem_bytes(*tile) == fused_mlp.smem_bytes(*tile, torch.bfloat16)
+    assert tile[0] % 16 == 0 and tile[1] % 16 == 0
 
 
 def test_kernel_sources_name_what_they_replace_and_build_for_sm90a():
@@ -194,3 +307,14 @@ def test_kernel_sources_name_what_they_replace_and_build_for_sm90a():
     src = fused_mlp.SOURCE.read_text()
     for bm, bf in fused_mlp.TILES:
         assert f"X({bm}, {bf})" in src
+    # the bf16 bodies: tensor-core products (mma.sync; wgmma for K3's
+    # prefill tiles), cp.async tiles, a shared header that is part of each
+    # library's build hash
+    header = fused_attention.CSRC / "mma_bf16.cuh"
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header.read_text()
+    assert "cp.async.cg.shared.global" in header.read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in header.read_text()
+    assert "fused_mlp_mma_prefill_kernel" in fused_mlp.SOURCE.read_text()
+    for mod in (fused_attention, fused_mlp):
+        assert '#include "mma_bf16.cuh"' in mod.SOURCE.read_text()
+        assert header in mod.KERNEL.headers

@@ -12,15 +12,16 @@ root of a checkout::
 ``--noconftest``: the suite's conftest files import JAX, which the port
 does not need and the GPU machine may not have.  This file imports no JAX.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-import dataclasses
-
 from repro_torch.configs import resolve, run_config, scaled_down
 from repro_torch.core import arch, flow, ir, metrics
-from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, mamba_scan, ops, ref
+from repro_torch.kernels import (builder, fused_attention, fused_conv, fused_mlp,
+                                 mamba_scan, ops, ref)
 from repro_torch.models import model as M
 from repro_torch.models.vgg import VGG16
 
@@ -138,6 +139,9 @@ ATT_SHAPES = [  # (B, Sq, Skv, H, KV, hd)
     (3, 1, 77, 4, 2, 64),      # one query (decode-shaped)
     (2, 200, 150, 2, 2, 64),   # more queries than keys: no tile skipping
     (2, 512, 512, 16, 8, 128),  # a qwen3 prefill layer at batch 2
+    (1, 33, 47, 4, 2, 128),    # Sq, Skv not multiples of 16 (mma fragment edges)
+    (2, 77, 77, 16, 8, 128),   # qwen3's 16 / 8 heads, ragged
+    (1, 130, 300, 4, 4, 32),   # Sq < Skv, neither a multiple of a tile
 ]
 MLP_SHAPES = [  # (T, d, ff, act)
     (128, 64, 256, "swiglu"),  # the shapes of tests/test_kernels.py ...
@@ -146,8 +150,12 @@ MLP_SHAPES = [  # (T, d, ff, act)
     (384, 96, 384, "relu"),
     (1, 1024, 3072, "swiglu"),  # decode rows at qwen3's width
     (8, 1024, 3072, "swiglu"),
+    (16, 1024, 3072, "swiglu"),  # the last decode-tile row count
+    (17, 1024, 3072, "swiglu"),  # the first prefill-tile row count
+    (4096, 1024, 3072, "swiglu"),  # qwen3's prefill MLP
     (100, 72, 200, "geglu"),   # ragged rows, columns and hidden units
 ]
+DTYPES = [torch.float32, torch.bfloat16]
 
 
 def _randn(gen, *shape, dtype, std=1.0):
@@ -181,10 +189,11 @@ def test_flash_attention_matches_plain_version(cuda, shape, dtype):
 
 @pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
 @pytest.mark.parametrize("hd", fused_attention.HEAD_DIMS)
-def test_flash_attention_every_built_tile(cuda, tile, hd):
-    q, k, v = _att_inputs((2, 320, 320, 4, 2, hd), torch.float32, seed=1)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_every_built_tile(cuda, tile, hd, dtype):
+    q, k, v = _att_inputs((2, 320, 320, 4, 2, hd), dtype, seed=1)
     got = fused_attention.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
-    _assert_att(got, ref.flash_attention_ref(q, k, v), torch.float32)
+    _assert_att(got, ref.flash_attention_ref(q, k, v), dtype)
 
 
 @pytest.mark.parametrize("causal,window,chunk", [
@@ -200,14 +209,15 @@ def test_flash_attention_masks(cuda, causal, window, chunk, dtype):
 
 
 @pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
-def test_flash_attention_rows_fully_masked_in_the_first_tile(cuda, tile):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_rows_fully_masked_in_the_first_tile(cuda, tile, dtype):
     # window 16 < block_k: rows past 16 + block_k - 1 see no key of the
     # first KV tile; its exp(0) garbage must be wiped, not turn into NaN
-    q, k, v = _att_inputs((1, 256, 256, 2, 1, 64), torch.float32, seed=3)
+    q, k, v = _att_inputs((1, 256, 256, 2, 1, 64), dtype, seed=3)
     got = fused_attention.flash_attention(q, k, v, window=16, block_q=tile[0],
                                           block_k=tile[1])
-    assert bool(torch.isfinite(got).all())
-    _assert_att(got, ref.flash_attention_ref(q, k, v, window=16), torch.float32)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_att(got, ref.flash_attention_ref(q, k, v, window=16), dtype)
 
 
 @pytest.mark.parametrize("shape", MLP_SHAPES, ids=[str(s) for s in MLP_SHAPES])
@@ -229,14 +239,16 @@ def test_fused_mlp_matches_plain_version(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("tile", fused_mlp.TILES, ids=str)
-def test_fused_mlp_every_built_tile(cuda, tile):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_fused_mlp_every_built_tile(cuda, tile, dtype):
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x = _randn(gen, 200, 160, dtype=torch.float32)
-    w1, w3 = (_randn(gen, 160, 448, dtype=torch.float32, std=0.08) for _ in range(2))
-    w2 = _randn(gen, 448, 160, dtype=torch.float32, std=0.05)
+    x = _randn(gen, 200, 160, dtype=dtype)
+    w1, w3 = (_randn(gen, 160, 448, dtype=dtype, std=0.08) for _ in range(2))
+    w2 = _randn(gen, 448, 160, dtype=dtype, std=0.05)
     got = fused_mlp.fused_mlp(x, w1, w2, w3, block_m=tile[0], block_f=tile[1])
     want = ref.fused_mlp_ref(x, w1, w2, w3)
-    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    tol = MLP_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_fused_mlp_keeps_the_hidden_frame_off_the_device(cuda):
@@ -274,12 +286,40 @@ def test_attention_and_mlp_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_mlp.fused_mlp(x, w, w, act="relu", block_m=32)
     with pytest.raises(ValueError, match="one device"):
         fused_mlp.fused_mlp(x, w.cpu(), w, act="relu")
+    # the bf16 bodies copy 16-byte rows: d and d_ff multiples of 8, aligned
+    xb = torch.ones(8, 60, device="cuda").bfloat16()
+    wb = torch.ones(60, 60, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_mlp.fused_mlp(xb, wb, wb, act="relu")
+    flat = torch.ones(8 * 64 + 1, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fused_mlp.fused_mlp(flat[1:].view(8, 64), w.bfloat16(), w.bfloat16(), act="relu")
+    qb = torch.ones(1 * 64 * 2 * 64 + 1, device="cuda").bfloat16()[1:].view(1, 64, 2, 64)
+    kb = torch.ones(1, 64, 1, 64, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fused_attention.flash_attention(qb, kb, kb)
 
 
 def test_libraries_report_their_builds(cuda):
     for mod in (fused_attention, fused_mlp):
         built = mod.build()
         assert built.path.exists() and "registers" in built.log
+
+
+def test_bf16_bodies_run_on_the_tensor_cores(cuda):
+    # every bf16 instantiation's SASS holds tensor-core instructions (HMMA,
+    # or HGMMA for K3's wgmma prefill body), the float32 ones none; K3's
+    # bf16 kernels come gated and not
+    if builder.cuobjdump() is None:
+        pytest.skip("cuobjdump not found beside nvcc or on PATH")
+    for mod, n_bf16, n_f32 in ((fused_attention, 16, 16), (fused_mlp, 8, 4)):
+        counts = builder.sass_counts(mod.build().path)
+        bf16 = {name: c for name, c in counts.items() if "_mma_" in name}
+        f32 = [c for name, c in counts.items() if "_f32_kernel" in name]
+        assert len(bf16) == n_bf16 and len(f32) == n_f32
+        assert all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values())
+        assert all(c["HGMMA"] > 0 for name, c in bf16.items() if "prefill" in name)
+        assert not any(c["HMMA"] + c["HGMMA"] for c in f32)
 
 
 def test_prefill_and_decode_through_the_kernels_match_plain(cuda):
