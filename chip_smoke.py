@@ -11,7 +11,9 @@ PyTorch version.  Phases, one line each:
                one nvcc each, together; for flash_attention and fused_mlp
                the registers, spills and tensor-core (HMMA / HGMMA)
                instructions of each bfloat16 instantiation, failing if one
-               that serving launches has none;
+               that serving launches has none; for fused_conv3x3 those of
+               its float32 (3xTF32) and bfloat16 instantiations, failing
+               if one has no HMMA or spills;
 3. paper flow  run_flow on the paper's configuration set and compare_fusion,
                held to the reference suite's locks (tests/test_flow.py);
 4. exhaustive  run_flow over the 320-point default space x all 2^17 VGG-16
@@ -44,7 +46,8 @@ PyTorch version.  Phases, one line each:
                cut depth, printed);
 11. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
-               yardstick's and the bound;
+               yardstick's and the bound (float32: the smaller of the
+               CUDA-core and the 3xTF32 bounds, both printed);
 12. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes and at the shapes of tests/test_kernels.py
                (masks, the planner's tiles, float32 and bfloat16), with the
@@ -54,7 +57,9 @@ PyTorch version.  Phases, one line each:
 13. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
-               (no single PyTorch call computes a selective scan);
+               (no single PyTorch call computes a selective scan); the
+               decode row also replays its CALLS launches from a CUDA graph
+               (``device_ms``: the kernel without the host's launch path);
 14. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
@@ -181,6 +186,21 @@ def time_ms(torch, fns: dict, reps: int, calls: int = 1) -> dict:
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
+def graph_ms(torch, fn) -> float:
+    """ms of one call of ``fn`` with the host's launch path taken out: CALLS
+    calls in a row captured in a CUDA graph, the median replay (timed as
+    :func:`time_ms` times) divided by CALLS."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(CALLS):
+            fn()
+    ms = time_ms(torch, {"graph": graph.replay}, REPS)["graph"] / CALLS
+    del graph
+    return ms
+
+
 def time_kernel(torch, fns: dict) -> tuple[dict, dict]:
     """A kernel phase's times: per launch over runs of CALLS launches (the
     device time, the rows' ``ms``) and one call between two events (the
@@ -211,8 +231,10 @@ def phase_build() -> dict:
     run on the tensor cores: each bf16 instantiation's registers and spills
     (``-Xptxas -v``) and its HMMA / HGMMA instructions in the SASS
     (``cuobjdump -sass``); fails if a bf16 instantiation that serving
-    launches has none."""
-    from repro_torch.kernels import builder, fused_attention, fused_mlp
+    launches has none.  For K1, whose float32 (3xTF32) and bfloat16 bodies
+    both run on the tensor cores, the same for every instantiation; fails
+    if one has no HMMA or spills."""
+    from repro_torch.kernels import builder, fused_attention, fused_conv, fused_mlp
 
     t0 = time.perf_counter()
     kernels = builder.all_kernels()
@@ -263,6 +285,25 @@ def phase_build() -> dict:
         print(f"  {kernel.name}: {len(bf16)} bf16 kernels, "
               f"{sum(1 for n in bf16 if sass[n]['HMMA'] + sass[n]['HGMMA'])} with "
               f"tensor-core instructions; {len(f32)} float32 kernels, {n_tc} with")
+    # K1: every instantiation (float32 3xTF32 and bfloat16, both tiles) is
+    # launched by the VGG path or phase layers.
+    conv = builds[kernels.index(fused_conv.KERNEL)]
+    report = builder.ptxas_report(conv.log)
+    sass = builder.sass_counts(conv.path)
+    names = sorted(n for n in sass if "fused_conv3x3_kernel" in n)
+    check(len(names) == 2 * len(fused_conv.TILES),
+          f"{conv.path.name}: {len(names)} fused_conv3x3 kernels in the SASS, not "
+          f"{2 * len(fused_conv.TILES)}")
+    for name in names:
+        ops, ptx = sass[name], report.get(name, {})
+        short = name.split("fused_conv3x3_kernel", 1)[1].split("EEv", 1)[0]
+        dname = "float32 3xTF32" if short.startswith("If") else "bfloat16"
+        spills = (ptx.get("spill_stores"), ptx.get("spill_loads"))
+        out["tensor_core"][f"{fused_conv.KERNEL.name}:{short}"] = {**ops, **ptx}
+        print(f"  {fused_conv.KERNEL.name} {dname} {short}: {ops['HMMA']} HMMA; "
+              f"{ptx.get('registers')} registers, spills {spills[0]} / {spills[1]} bytes")
+        check(ops["HMMA"] > 0, f"fused_conv3x3 {short} has no HMMA in its SASS")
+        check(not any(spills), f"fused_conv3x3 {short} spills {spills} bytes")
     print(f"phase build: wall {wall:.3f} s")
     return out
 
@@ -425,10 +466,11 @@ def phase_layers(torch, spec, seed: int) -> list:
     from repro_torch.kernels import fused_conv, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    print(f"phase layers: bounds at {spec.hbm_bw / 1e12:g} TB/s, "
-          f"{spec.peak_fp32_flops / 1e12:g} TFLOP/s float32 (CUDA cores), "
-          f"{spec.peak_bf16_flops / 1e12:g} TFLOP/s bfloat16 (data sheet, "
-          f"H100 SXM at 700 W)")
+    print(f"phase layers: bounds at {spec.hbm_bw / 1e12:g} TB/s; float32 the "
+          f"smaller of FLOPs / {spec.peak_fp32_flops / 1e12:g} TFLOP/s (CUDA "
+          f"cores) and 3 x FLOPs / {spec.peak_tf32_flops / 1e12:g} TFLOP/s "
+          f"(3xTF32 on the tensor cores); bfloat16 FLOPs / "
+          f"{spec.peak_bf16_flops / 1e12:g} TFLOP/s (data sheet, H100 SXM at 700 W)")
     rows = []
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
                          (BATCH, torch.float32)):
@@ -475,9 +517,13 @@ def phase_layers(torch, spec, seed: int) -> list:
                             + batch * out_hw * out_hw * cout)
             flops = 2 * 9 * cin * cout * hw * hw * batch
             t_bytes = spec.memory_seconds(n_bytes) * 1e3
-            t_ops = spec.compute_seconds(flops, es) * 1e3
+            t_cores, t_3x = conv_op_bounds(spec, flops, es)
+            t_ops = t_cores if t_3x is None else min(t_cores, t_3x)
+            geo = fused_conv.launch_geometry(batch, hw, hw, cin, cout)
             row = {"layer": name, "batch": batch, "dtype": dname, "hw": hw,
-                   "cin": cin, "cout": cout, "pool": pool,
+                   "cin": cin, "cout": cout, "pool": pool, "tile": geo.tile,
+                   "blocks": geo.grid[0] * geo.grid[1] * geo.grid[2],
+                   "bound_cuda_cores_ms": t_cores, "bound_3xtf32_ms": t_3x,
                    "max_abs_err": err, "library_max_abs_err": lib_err,
                    "ms": ms["kernel"], "plain_ms": ms["plain"],
                    "library_ms": ms["library"], "call_ms": one["kernel"],
@@ -485,13 +531,25 @@ def phase_layers(torch, spec, seed: int) -> list:
                    "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
             rows.append(row)
+            bounds = (f"; CUDA cores {t_cores:.4f}, 3xTF32 {t_3x:.4f}"
+                      if t_3x is not None else "")
             print(f"layer {name} b{batch} {dname} {hw}x{hw} {cin}->{cout} "
-                  f"pool={int(pool)}: kernel {row['ms']:.4f} ms, plain "
+                  f"pool={int(pool)} tile {geo.tile} ({row['blocks']} blocks): "
+                  f"kernel {row['ms']:.4f} ms (one call {row['call_ms']:.4f}), plain "
                   f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
-                  f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}{bounds}; "
                   f"{flops / row['ms'] / 1e9:.4g} TFLOP/s), max_abs_err "
                   f"{err:.3g}")
     return rows
+
+
+def conv_op_bounds(spec, flops: float, es: int) -> tuple:
+    """The operations bound (ms) of a conv: float32 (``es`` 4) gives the
+    CUDA-core bound and the 3xTF32 bound (the kernel's float32-exact route
+    on the tensor cores); bfloat16 its tensor-core bound and None."""
+    if es == 4:
+        return spec.compute_seconds(flops, 4) * 1e3, spec.tf32x3_seconds(flops) * 1e3
+    return spec.compute_seconds(flops, es) * 1e3, None
 
 
 # ---------------------------------------------------------------------------
@@ -1067,6 +1125,7 @@ def phase_scan(torch, spec, seed: int) -> list:
               f"differs from plain by up to {err} (tolerance {SCAN_TOL})")
         del want_y, want_h, got_y, got_h
         ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel})
+        device_ms = graph_ms(torch, kernel) if label == "serve_decode" else None
         n_state = b * di * ds
         n_bytes = 4 * (2 * b * s * di * ds + b * s * ds + b * s * di
                        + (2 * n_state if state else 0))
@@ -1077,12 +1136,14 @@ def phase_scan(torch, spec, seed: int) -> list:
                "tile": [chunk, block_d], "state": state, "max_abs_err": err,
                "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": None,
                "call_ms": one["kernel"], "plain_call_ms": one["plain"],
-               "library": SCAN_LIBRARY,
+               "device_ms": device_ms, "library": SCAN_LIBRARY,
                "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         rows.append(row)
+        graphed = "" if device_ms is None else f", from a CUDA graph {device_ms:.4f}"
         print(f"scan {label} {(b, s, di, ds)} tile {chunk}x{block_d} state={int(state)}: "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"kernel {row['ms']:.4f} ms (one call {row['call_ms']:.4f}{graphed}), "
+              f"plain {row['plain_ms']:.4f} ms, library "
               f"{SCAN_LIBRARY}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{n_bytes / row['ms'] / 1e9:.4g} TB/s), max_abs_err {err:.3g}")
         del dA, dBx, C, h0
@@ -1117,7 +1178,14 @@ def kernels_entry(rows: list, launches: int, spec) -> dict:
     13 layers at the main path's shapes (batch 8, float32)."""
     main = [r for r in rows if r["batch"] == BATCH and r["dtype"] == "float32"]
     t_bytes = spec.memory_seconds(sum(r["bytes"] for r in main)) * 1e3
-    t_ops = spec.compute_seconds(sum(r["flops"] for r in main), 4) * 1e3
+    flops = sum(r["flops"] for r in main)
+    t_cores, t_3x = conv_op_bounds(spec, flops, 4)
+    t_ops = min(t_cores, t_3x)
+    print(f"fused_conv3x3 over the forward (batch {BATCH}, float32, {flops / 1e9:.6g} "
+          f"GFLOP): kernel {sum(r['ms'] for r in main):.4f} ms, cuDNN "
+          f"{sum(r['library_ms'] for r in main):.4f} ms, plain "
+          f"{sum(r['plain_ms'] for r in main):.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+          f"(CUDA cores {t_cores:.4f}, 3xTF32 {t_3x:.4f}, bytes {t_bytes:.4f})")
     return {
         "name": "fused_conv3x3",
         "route": "cuda",

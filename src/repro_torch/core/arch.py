@@ -315,12 +315,18 @@ class GPUSpec:
     hbm_bw: float = 3.35e12  # bytes/s
     peak_fp32_flops: float = 67e12  # CUDA cores, no tensor cores
     peak_bf16_flops: float = 989e12  # tensor cores, dense
+    peak_tf32_flops: float = 494.7e12  # tensor cores, dense TF32
     source: str = "datasheet"
 
     def compute_seconds(self, flops: float, dtype_bytes: int = 4) -> float:
         """Compute-bound time at the peak rate for the operand type."""
         peak = self.peak_fp32_flops if dtype_bytes == 4 else self.peak_bf16_flops
         return flops / peak
+
+    def tf32x3_seconds(self, flops: float) -> float:
+        """Compute-bound time of float32-exact work done as 3xTF32: three
+        TF32 tensor-core products per multiply-add."""
+        return 3 * flops / self.peak_tf32_flops
 
     def memory_seconds(self, n_bytes: float) -> float:
         """Memory-bound time at peak device-memory bandwidth."""

@@ -1,8 +1,8 @@
-// Tensor-core building blocks for the bf16 kernels, built for sm_90a:
-// 16-byte cp.async copies into shared memory, ldmatrix fragment loads, the
-// warp-level mma.sync m16n8k16 bf16 product and the warpgroup-level wgmma
-// m64nNk16 product, both with float32 accumulation.  Included by
-// flash_attention.cu and fused_mlp.cu.
+// Tensor-core building blocks, built for sm_90a: 16-byte cp.async copies
+// into shared memory, ldmatrix fragment loads, the warp-level mma.sync
+// m16n8k16 bf16 and m16n8k8 tf32 products and the warpgroup-level wgmma
+// m64nNk16 product, all with float32 accumulation.  Included by
+// flash_attention.cu, fused_mlp.cu and fused_conv3x3.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A (16 x 16, row-major), four b32 registers of two bf16 each:
@@ -15,6 +15,11 @@
 // So the C fragments of two neighbouring n-tiles, rounded to bf16 and
 // paired, are the A fragment of the next product over those 16 columns
 // (pack_a below): a product's result feeds the next one from registers.
+// mma.sync.m16n8k8.row.col with tf32 operands (one 32-bit value a
+// register): a[0] = (row g, col t), a[1] = (row g+8, col t), a[2] = (row g,
+// col t+4), a[3] = (row g+8, col t+4); b[0] = (k t, n g), b[1] = (k t+4,
+// n g); C as above.  So ldmatrix_x4 with a_row / a_col (16-byte rows of
+// four 32-bit values) loads a tf32 A fragment as it loads a bf16 one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +74,31 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on the tensor cores with tf32 operands (10 stored mantissa
+// bits): the products are exact in float32, summed in float32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to tf32, to nearest with ties away from zero (the low 13 bits
+// of the result are 0): half a tf32 ulp added to the magnitude bits, then
+// cut.  The same bits as cvt.rna.tf32.f32 (infinities and NaNs stay so),
+// in two integer instructions where ptxas gives the cvt five.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// The 3xTF32 split of a float32 value: big = tf32(v), small = tf32(v - big),
+// so v = big + small within 2^-22 |v|.
+__device__ __forceinline__ void tf32_split(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
 }
 
 // Two floats rounded to nearest-even bf16, lo in the low half.

@@ -7,10 +7,14 @@ chip and only the pooled frame is written to device memory — the traffic
 the evaluator's Eq. (1) credits a fused group.
 
 The kernel is hand-written CUDA for Hopper, ``csrc/fused_conv3x3.cu`` (its
-head comment gives the design).  It is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, at its first
-launch, into ``build/kernels/`` of the repository checkout, and loaded with
-``ctypes`` (:mod:`repro_torch.kernels.builder`).  The tile constants
+head comment gives the design): an implicit GEMM on the tensor cores,
+``mma.sync`` in three TF32 products for float32 (3xTF32, float32-exact to
+about 2^-22 a product; single-pass TF32 would miss the float32 tolerance)
+and one bfloat16 product for bfloat16, the 2x2 pool in registers through a
+sub-pixel-major row order (:func:`gemm_row_pixel`).  It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface, at
+its first launch, into ``build/kernels/`` of the repository checkout, and
+loaded with ``ctypes`` (:mod:`repro_torch.kernels.builder`).  The tile constants
 below are the single source of truth: they are passed to ``nvcc`` as
 ``-D`` flags, and the launch grid and shared memory size are computed here
 (:func:`launch_geometry`).
@@ -29,39 +33,77 @@ from pathlib import Path
 
 import torch
 
+from ..core.arch import H100
 from . import builder, ref
 
 # Tile constants of the kernel (see the head comment of the CUDA source).
-TILE_H = 16  # pre-pool output rows per block (even: pool windows stay whole)
-TILE_W = 16  # pre-pool output columns per block (even)
-CIN_CHUNK = 8  # input channels staged in shared memory per loop step
-BLOCK_C = 64  # output channels per block
-CHANNELS_PER_THREAD = 16  # CPT in the source: 4 x 16 accumulators a thread
+BLOCK_C = 64  # output channels a block: the planner's conv_block_c
+WARP_C = 32  # output channels a warp (a warp owns 64 pixels x WARP_C)
+TILES = (16, 8)  # square pre-pool pixel tiles built, largest first (even)
+CHUNK_BYTES = 32  # input channels staged a pixel a loop step: one mma k-step
+STAGES = 3  # depth of the cp.async ring
+PIX_BYTES = CHUNK_BYTES + 16  # a staged pixel's row, padded
+SM_COUNT = H100.sm_count  # the grid a tile must fill
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_conv3x3.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "fused_conv3x3.cu"
 BUILD_DIR = builder.BUILD_DIR
 NVCC_FLAGS = builder.BASE_FLAGS + (
-    f"-DTILE_H={TILE_H}", f"-DTILE_W={TILE_W}",
-    f"-DCIN_CHUNK={CIN_CHUNK}", f"-DBLOCK_C={BLOCK_C}",
-    f"-DCPT={CHANNELS_PER_THREAD}",
+    f"-DBLOCK_C={BLOCK_C}", f"-DCHUNK_BYTES={CHUNK_BYTES}", f"-DSTAGES={STAGES}",
+    f"-DTILE_BIG={TILES[0]}", f"-DTILE_SMALL={TILES[1]}",
 )
-KERNEL = builder.KernelSource("fused_conv3x3", SOURCE, NVCC_FLAGS)
+KERNEL = builder.KernelSource("fused_conv3x3", SOURCE, NVCC_FLAGS,
+                              (CSRC / "mma_bf16.cuh",))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(tile_h: int = TILE_H, tile_w: int = TILE_W,
-               cin_chunk: int = CIN_CHUNK, block_c: int = BLOCK_C) -> int:
-    """Shared memory one block stages (bytes): the haloed float32 input tile
-    plus the float32 ``cin_chunk x 9 x block_c`` weight slice — the Hopper
-    counterpart of the reference kernel's ``vmem_bytes``."""
-    return ((tile_h + 2) * (tile_w + 2) * cin_chunk
-            + 9 * cin_chunk * block_c) * 4
+def cin_chunk(dtype: torch.dtype) -> int:
+    """Input channels staged a loop step: one mma k-step, 8 float32 (tf32
+    m16n8k8) or 16 bfloat16 (m16n8k16)."""
+    return CHUNK_BYTES * 8 // torch.finfo(dtype).bits
+
+
+def threads(tile: int) -> int:
+    """Threads a block at ``tile``: a warp per 16 pool windows (64 pixels)
+    and per WARP_C output channels."""
+    return (tile // 2) ** 2 // 16 * (BLOCK_C // WARP_C) * 32
+
+
+def smem_bytes(tile: int = TILES[0]) -> int:
+    """Shared memory one block stages (bytes): STAGES x (the haloed input
+    tile, a PIX_BYTES row a pixel, plus the 9 x chunk x BLOCK_C weight
+    slice, rows padded by 8 elements) -- the Hopper counterpart of the
+    reference kernel's ``vmem_bytes``.  A chunk is CHUNK_BYTES of channels
+    in either dtype, so the size does not depend on it."""
+    return STAGES * ((tile + 2) ** 2 * PIX_BYTES + 9 * CHUNK_BYTES * (BLOCK_C + 8))
+
+
+def choose_tile(batch: int, H: int, W: int, Cout: int) -> int:
+    """The largest built tile whose grid has a block for every SM, else the
+    smallest."""
+    for tile in TILES:
+        if -(-H // tile) * -(-W // tile) * -(-Cout // BLOCK_C) * batch >= SM_COUNT:
+            return tile
+    return TILES[-1]
+
+
+def gemm_row_pixel(tile: int, m: int) -> tuple[int, int]:
+    """(h, w) in a ``tile`` x ``tile`` block of GEMM row ``m``, the kernel's
+    sub-pixel-major order: warp ``m // 64`` owns windows 16 (m // 64) ..
+    + 15 (row-major in the tile); in its rows, m16 tile ``mt = m % 64 //
+    16`` is the window's sub-pixel (mt // 2, mt % 2) and the row in the
+    tile, ``m % 16``, the window.  So the C fragment rows a lane holds (l/4
+    and l/4 + 8 of every m16 tile) are the four pixels of two windows."""
+    warp, mt, r = m // 64, m % 64 // 16, m % 16
+    wy, wx = divmod(warp * 16 + r, tile // 2)
+    return 2 * wy + mt // 2, 2 * wx + mt % 2
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchGeometry:
-    """Grid, block and shared memory of one launch."""
+    """Tile, grid, block and shared memory of one launch."""
 
+    tile: int
     grid: tuple[int, int, int]  # (spatial tiles, Cout blocks, batch)
     threads: int
     smem_bytes: int
@@ -70,17 +112,27 @@ class LaunchGeometry:
 
 def launch_geometry(batch: int, H: int, W: int, Cin: int, Cout: int) -> LaunchGeometry:
     """The launch for an NHWC ``(batch, H, W, Cin)`` input and ``Cout``
-    output channels: one block per (spatial tile, BLOCK_C channels, image)."""
-    del Cin  # looped over inside the block, in CIN_CHUNK steps
-    tiles_h = -(-H // TILE_H)
-    tiles_w = -(-W // TILE_W)
-    threads = (TILE_H // 2) * (TILE_W // 2) * (BLOCK_C // CHANNELS_PER_THREAD)
+    output channels: one block per (spatial tile, BLOCK_C channels, image),
+    at the tile :func:`choose_tile` picks."""
+    del Cin  # looped over inside the block, a chunk at a time
+    tile = choose_tile(batch, H, W, Cout)
+    tiles_w = -(-W // tile)
     return LaunchGeometry(
-        grid=(tiles_h * tiles_w, -(-Cout // BLOCK_C), batch),
-        threads=threads,
-        smem_bytes=smem_bytes(),
+        tile=tile,
+        grid=(-(-H // tile) * tiles_w, -(-Cout // BLOCK_C), batch),
+        threads=threads(tile),
+        smem_bytes=smem_bytes(tile),
         tiles_w=tiles_w,
     )
+
+
+def vectorised(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the kernel may stage x and w in 16-byte cp.async pieces:
+    both 16-byte aligned and their Cin and Cout rows whole pieces (else it
+    stages element by element, as at Cin = 3)."""
+    es = x.element_size()
+    return (x.shape[-1] * es % 16 == 0 and w.shape[-1] * es % 16 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def build() -> builder.BuildResult:
@@ -95,15 +147,18 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, loaded once, with its C signatures."""
     lib = builder.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_conv3x3_launch.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
+    lib.fused_conv3x3_launch.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
     lib.fused_conv3x3_launch.restype = i32
-    lib.fused_conv3x3_threads.argtypes = []
-    lib.fused_conv3x3_threads.restype = i32
-    expected = launch_geometry(1, TILE_H, TILE_W, 1, BLOCK_C).threads
-    if lib.fused_conv3x3_threads() != expected:
-        raise RuntimeError(
-            f"{SOURCE.name} was built for {lib.fused_conv3x3_threads()} "
-            f"threads a block, the wrapper expects {expected}")
+    for name in ("fused_conv3x3_threads", "fused_conv3x3_smem_bytes"):
+        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).restype = i32
+    for tile in TILES:
+        built = (lib.fused_conv3x3_threads(tile), lib.fused_conv3x3_smem_bytes(tile))
+        if built != (threads(tile), smem_bytes(tile)):
+            raise RuntimeError(
+                f"{SOURCE.name} was built for {built[0]} threads and {built[1]} "
+                f"bytes a block at tile {tile}; the wrapper expects "
+                f"{(threads(tile), smem_bytes(tile))}")
     return lib
 
 
@@ -155,14 +210,14 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     with torch.cuda.device(x.device):
         err = lib.fused_conv3x3_launch(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            H, W, Cin, Cout, int(pool), _DTYPES[x.dtype], *geo.grid,
-            geo.tiles_w, geo.smem_bytes,
+            H, W, Cin, Cout, int(pool), _DTYPES[x.dtype], geo.tile, *geo.grid,
+            geo.tiles_w, geo.smem_bytes, int(vectorised(x, w)),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"fused_conv3x3 launch failed with CUDA error {err} "
-            f"(grid {geo.grid}, {geo.threads} threads, {geo.smem_bytes} B shared)")
+            f"fused_conv3x3 launch failed with CUDA error {err} (tile {geo.tile}, "
+            f"grid {geo.grid}, {geo.threads} threads, {geo.smem_bytes} B shared)")
     fused_conv3x3.launches += 1
     return y
 

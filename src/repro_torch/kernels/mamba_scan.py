@@ -7,10 +7,12 @@ Pallas kernel stages (chunk, block_d, ds) tiles of dA and dBx in VMEM (2 MiB
 each at its default tile), which does not fit a Hopper block; the CUDA
 kernel ``csrc/mamba_scan.cu`` keeps one channel's state in one thread's
 registers and streams dA and dBx from device memory step by step, with C
-staged in shared memory a chunk of steps at a time (its head comment gives
-the design and the byte count).  It is built by
-:mod:`repro_torch.kernels.builder` at its first launch and loaded with
-``ctypes``.
+staged in shared memory a chunk of steps at a time; a decode step (S = 1)
+takes a body of its own with no staging and no barrier (its head comment
+gives the design and the byte count).  The wrapper checks shapes, dtypes,
+devices and the tile once per launch key, and contiguity and alignment on
+every call.  It is built by :mod:`repro_torch.kernels.builder` at its
+first launch and loaded with ``ctypes``.
 
 Unlike the Pallas kernel, which zero-initialises its state and drops it at
 the end, the kernel takes an optional initial state ``h0`` and optionally
@@ -104,27 +106,63 @@ def _check_args(dA, dBx, C, h0) -> None:
         raise ValueError(f"empty scan {tuple(dA.shape)}: B, S, di and ds must be >= 1")
 
 
-def _check_cuda(tensors, ds: int, chunk: int, block_d: int) -> None:
-    """Reject what the kernel does not take."""
+def _check_tile(ins, chunk: int | None, block_d: int | None,
+                smem_limit: int) -> tuple[int, int]:
+    """Reject what the kernel does not take, as far as shapes, dtypes,
+    devices and the tile decide it, and return the tile (``None``s replaced
+    by :func:`default_tile`)."""
+    dA, dBx, C = ins[:3]
+    _check_args(dA, dBx, C, ins[3] if len(ins) > 3 else None)
+    ds = dA.shape[-1]
+    d_chunk, d_block = default_tile(dA.shape[2])
+    chunk = d_chunk if chunk is None else chunk
+    block_d = d_block if block_d is None else block_d
     if ds > MAX_DS:
         raise ValueError(f"ds {ds} > {MAX_DS}: the kernel holds at most "
                          f"{MAX_DS} state values a channel in registers")
     if not 1 <= block_d <= MAX_BLOCK_D:
         raise ValueError(f"block_d {block_d} outside 1..{MAX_BLOCK_D}")
-    props = torch.cuda.get_device_properties(tensors[0].device)
-    limit = getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
-    if chunk < 1 or smem_bytes(chunk, block_d, ds) > limit:
+    if chunk < 1 or smem_bytes(chunk, block_d, ds) > smem_limit:
         raise ValueError(f"chunk {chunk} stages {smem_bytes(chunk, block_d, ds)} "
-                         f"bytes of C; a block has {limit}")
-    for t in tensors:
+                         f"bytes of C; a block has {smem_limit}")
+    for t in ins:
         if t.dtype != torch.float32:
             raise TypeError(f"the scan's inputs must be float32, got {t.dtype}")
-        if t.device != tensors[0].device:
+        if t.device != dA.device:
             raise ValueError("dA, dBx, C and h0 must lie on one device")
+    return chunk, block_d
+
+
+# Launch key -> the tile _check_tile returned for it.  The key holds every
+# input's shape, dtype and device index (-1 on the CPU) and the tile asked
+# for, so a key seen before has passed those checks; contiguity and
+# alignment depend on strides and pointers, and are checked on every call.
+_CHECKED: dict = {}
+_SMEM_LIMIT: dict = {}  # device index -> opt-in shared memory a block
+
+
+def _checked_tile(ins, chunk: int | None, block_d: int | None,
+                  smem_limit: "int | None" = None) -> tuple[int, int]:
+    """The launch's tile, its checks run once per launch key; contiguity
+    and alignment checked every call.  ``smem_limit``: the device's opt-in
+    shared memory a block (read once per device when ``None``)."""
+    key = (chunk, block_d, *[(t.shape, t.dtype, t.get_device()) for t in ins])
+    tile = _CHECKED.get(key)
+    if tile is None:
+        if smem_limit is None:
+            idx = ins[0].device.index
+            if idx not in _SMEM_LIMIT:
+                props = torch.cuda.get_device_properties(ins[0].device)
+                _SMEM_LIMIT[idx] = getattr(props, "shared_memory_per_block_optin",
+                                           SMEM_OPTIN)
+            smem_limit = _SMEM_LIMIT[idx]
+        tile = _CHECKED[key] = _check_tile(ins, chunk, block_d, smem_limit)
+    for t in ins:
         if not t.is_contiguous():
             raise ValueError("dA, dBx, C and h0 must be contiguous")
         if t.data_ptr() % ALIGN:
             raise ValueError(f"dA, dBx, C and h0 must be {ALIGN}-byte aligned")
+    return tile
 
 
 def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
@@ -138,31 +176,31 @@ def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
 
     A CPU tensor takes the plain version (tile ignored); a CUDA tensor
     launches the kernel (counted in ``selective_scan.launches``) at the tile
-    ``chunk`` x ``block_d`` (default :func:`default_tile`) or raises.
+    ``chunk`` x ``block_d`` (default :func:`default_tile`; a decode step, S
+    = 1, runs the kernel's own S = 1 body, which stages nothing) or raises.
     """
-    _check_args(dA, dBx, C, h0)
-    if dA.device.type == "cpu":
+    if dA.device.type != "cuda":
+        _check_args(dA, dBx, C, h0)
+        if dA.device.type != "cpu":
+            raise ValueError(f"selective_scan runs on cuda or cpu tensors, got {dA.device}")
         y, h = ref.selective_scan_ref(dA, dBx, C, h0)
         return y, (h if final_state else None)
-    if dA.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cuda or cpu tensors, got {dA.device}")
-    B, S, di, ds = dA.shape
-    d_chunk, d_block = default_tile(di)
-    chunk = d_chunk if chunk is None else chunk
-    block_d = d_block if block_d is None else block_d
     ins = (dA, dBx, C) if h0 is None else (dA, dBx, C, h0)
-    _check_cuda(ins, ds, chunk, block_d)
-    y = torch.empty((B, S, di), dtype=torch.float32, device=dA.device)
-    h = (torch.empty((B, di, ds), dtype=torch.float32, device=dA.device)
-         if final_state else None)
+    chunk, block_d = _checked_tile(ins, chunk, block_d)
+    B, S, di, ds = dA.shape
+    dev = dA.device
+    y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    h = torch.empty((B, di, ds), dtype=torch.float32, device=dev) if final_state else None
     lib = _library()
-    with torch.cuda.device(dA.device):
-        err = lib.selective_scan_launch(
-            dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
+    args = (dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
             None if h is None else h.data_ptr(), B, S, di, ds, chunk, block_d,
-            torch.cuda.current_stream(dA.device).cuda_stream,
-        )
+            torch._C._cuda_getCurrentRawStream(dev.index))  # current_stream's, cheaper
+    if dev.index == torch.cuda.current_device():
+        err = lib.selective_scan_launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.selective_scan_launch(*args)
     if err != 0:
         raise RuntimeError(
             f"selective_scan launch failed with CUDA error {err} (B {B}, S {S}, "

@@ -87,20 +87,33 @@ def test_conv3x3_refuses_a_tensor_on_another_device():
 def test_launch_geometry_fits_hopper_at_every_vgg_layer(name, n_in, n_out,
                                                         hw, pooled):
     geo = fused_conv.launch_geometry(8, hw, hw, n_in, n_out)
-    assert geo.smem_bytes == fused_conv.smem_bytes() <= SMEM_LIMIT
+    assert geo.tile in fused_conv.TILES and geo.tile % 2 == 0
+    assert geo.smem_bytes == fused_conv.smem_bytes(geo.tile) <= SMEM_LIMIT
+    assert geo.threads == fused_conv.threads(geo.tile)
     assert geo.threads <= 1024 and geo.threads % 32 == 0
+    # a block for every SM of the card at batch 8; 14x14 takes the small tile
+    assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= fused_conv.SM_COUNT == 132
+    assert geo.tile == (fused_conv.TILES[-1] if hw == 14 else fused_conv.TILES[0])
     tiles_h = geo.grid[0] // geo.tiles_w
     # every output pixel and channel is covered, and tiles are even, so no
     # 2x2 pool window straddles two blocks
-    assert tiles_h * fused_conv.TILE_H >= hw and geo.tiles_w * fused_conv.TILE_W >= hw
-    assert fused_conv.TILE_H % 2 == 0 and fused_conv.TILE_W % 2 == 0
+    assert tiles_h * geo.tile >= hw and geo.tiles_w * geo.tile >= hw
     assert geo.grid[1] * fused_conv.BLOCK_C >= n_out and geo.grid[2] == 8
 
 
 def test_smem_bytes_counts_the_staged_tiles():
-    # haloed input tile + weight slice, float32
-    assert fused_conv.smem_bytes(16, 16, 8, 64) == (18 * 18 * 8 + 9 * 8 * 64) * 4
-    assert fused_conv.smem_bytes() < 48 * 1024  # no opt-in needed at the default
+    # STAGES x (haloed input tile, a 32-byte chunk + 16 bytes of pad a pixel,
+    # + the weight slice: 9 taps x 32 bytes of channels x (64 + 8) outputs)
+    assert fused_conv.smem_bytes(16) == 3 * (18 * 18 * 48 + 9 * 32 * 72)
+    assert fused_conv.smem_bytes(8) == 3 * (10 * 10 * 48 + 9 * 32 * 72)
+    assert fused_conv.smem_bytes() == fused_conv.smem_bytes(fused_conv.TILES[0])
+    # a chunk is one mma k-step in either dtype: 8 float32 (tf32 m16n8k8)
+    # or 16 bfloat16 (m16n8k16) channels
+    assert fused_conv.cin_chunk(torch.float32) == 8
+    assert fused_conv.cin_chunk(torch.bfloat16) == 16
+    # above the 48 KB default: the kernel opts in, once per device
+    assert all(48 * 1024 < fused_conv.smem_bytes(t) <= SMEM_LIMIT
+               for t in fused_conv.TILES)
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -146,12 +159,159 @@ def test_plain_version_pools_odd_frames_like_a_valid_window():
 def test_build_flags_carry_every_tile_constant():
     flags = " ".join(fused_conv.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    for name, value in (("TILE_H", fused_conv.TILE_H),
-                        ("TILE_W", fused_conv.TILE_W),
-                        ("CIN_CHUNK", fused_conv.CIN_CHUNK),
-                        ("BLOCK_C", fused_conv.BLOCK_C),
-                        ("CPT", fused_conv.CHANNELS_PER_THREAD)):
+    for name, value in (("BLOCK_C", fused_conv.BLOCK_C),
+                        ("CHUNK_BYTES", fused_conv.CHUNK_BYTES),
+                        ("STAGES", fused_conv.STAGES),
+                        ("TILE_BIG", fused_conv.TILES[0]),
+                        ("TILE_SMALL", fused_conv.TILES[1])):
         assert f"-D{name}={value}" in flags
     src = fused_conv.SOURCE.read_text()
     assert "src/repro/kernels/fused_conv.py::fused_conv3x3" in src
+    # the tensor-core helpers are part of the build hash
+    assert [h.name for h in fused_conv.KERNEL.headers] == ["mma_bf16.cuh"]
+    assert '#include "mma_bf16.cuh"' in src
     assert fused_conv.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core design, on the CPU: the 3xTF32 arithmetic and the
+# sub-pixel-major row order
+# ---------------------------------------------------------------------------
+
+
+def _tf32(v: np.ndarray) -> np.ndarray:
+    """float32 rounded to tf32 as ``cvt.rna.tf32.f32`` and the kernel's
+    ``mma::tf32_rna`` do: 10 stored mantissa bits, to nearest, ties away
+    from zero (half an ulp added to the magnitude bits, then cut)."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _conv_tf32(x, w, b, *, pool, passes):
+    """The kernel's float32 arithmetic emulated: operands split into tf32
+    big + small, per chunk of 8 input channels and per tap one m16n8k8 step
+    of ``passes`` products (3: small*big, big*small, big*big, in that order;
+    1: big*big alone, single-pass TF32), each product's k8 sum added to the
+    chunk's float32 partial and the partial to the accumulator, in the
+    kernel's K order (rounding to nearest throughout: the tensor cores'
+    truncating sums are not emulated); then bias, ReLU, pool."""
+    B, H, W, Cin = x.shape
+    kc = fused_conv.cin_chunk(torch.float32)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    xb, wb = _tf32(xp), _tf32(w)
+    xs, ws = _tf32(xp - xb), _tf32(w - wb)
+    acc = torch.zeros((B, H, W, w.shape[-1]), dtype=torch.float32)
+    for c0 in range(0, Cin, kc):
+        part = torch.zeros_like(acc)
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            rows = (slice(None), slice(dy, dy + H), slice(dx, dx + W), slice(c0, c0 + kc))
+            a_big, a_small = torch.from_numpy(xb[rows]), torch.from_numpy(xs[rows])
+            b_big = torch.from_numpy(wb[dy, dx, c0:c0 + kc])
+            b_small = torch.from_numpy(ws[dy, dx, c0:c0 + kc])
+            if passes == 3:
+                part += a_small @ b_big
+                part += a_big @ b_small
+            part += a_big @ b_big
+        acc += part
+    y = torch.relu(acc + torch.from_numpy(b))
+    if pool:
+        y = torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return y.numpy()
+
+
+def _pallas(x, w, b, pool):
+    return np.asarray(r_fused_conv.fused_conv3x3(
+        *(jnp.asarray(a) for a in (x, w, b)), pool=pool,
+        block_c=min(64, w.shape[-1]), interpret=True), np.float32)
+
+
+VGG_LIKE = (1, 14, 14, 512, 512, True)  # conv5_3 of VGG-16 at batch 1
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,pool", SHAPES + [VGG_LIKE],
+                         ids=[str(s) for s in SHAPES + [VGG_LIKE]])
+def test_3xtf32_arithmetic_matches_the_pallas_kernel(B, H, W, Cin, Cout, pool):
+    x, w, b = _inputs(B, H, W, Cin, Cout)
+    got = _conv_tf32(x, w, b, pool=pool, passes=3)
+    want = _pallas(x, w, b, pool)
+    tol = TOL["float32"]
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+def test_single_pass_tf32_misses_the_float32_tolerance():
+    # why the kernel takes three products: one tf32 product a step rounds
+    # each operand to 11 significant bits, and over K = 4,608 that misses
+    # the tolerance the 3xTF32 arithmetic meets on the same inputs
+    x, w, b = _inputs(*VGG_LIKE[:5])
+    want = _pallas(x, w, b, True)
+    tol = TOL["float32"]
+    one = np.abs(_conv_tf32(x, w, b, pool=True, passes=1) - want)
+    three = np.abs(_conv_tf32(x, w, b, pool=True, passes=3) - want)
+    assert (one > tol + tol * np.abs(want)).any()
+    assert not (three > tol + tol * np.abs(want)).any()
+    assert three.max() < one.max() / 100
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10  # of a tf32 value in [1, 2)
+    v = np.array([1.0, 1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                  1 + 0.75 * one_ulp], np.float32)
+    assert _tf32(v).tolist() == [1.0, 1 + one_ulp, -(1 + one_ulp), 1.0, 1 + one_ulp]
+    big = _tf32(v)
+    small = _tf32(v - big)
+    assert np.all(np.abs(v - big - small) <= 2.0 ** -22 * np.abs(v))
+
+
+@pytest.mark.parametrize("tile", fused_conv.TILES)
+def test_gemm_rows_map_one_to_one_and_lanes_hold_whole_windows(tile):
+    rows = [fused_conv.gemm_row_pixel(tile, m) for m in range(tile * tile)]
+    assert sorted(rows) == [(h, w) for h in range(tile) for w in range(tile)]
+    assert tile * tile // 64 * 32 * 2 == fused_conv.threads(tile)  # 2 warps a 64 rows
+    for warp in range(tile * tile // 64):
+        for lane in range(32):
+            # the C fragment rows of lane l: l / 4 and l / 4 + 8 of each m16 tile
+            for r in (lane // 4, lane // 4 + 8):
+                px = [fused_conv.gemm_row_pixel(tile, warp * 64 + mt * 16 + r)
+                      for mt in range(4)]
+                h, w = px[0]
+                assert h % 2 == 0 and w % 2 == 0
+                assert px == [(h, w), (h, w + 1), (h + 1, w), (h + 1, w + 1)]
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 14, 14), (3, 30, 18)])
+def test_gemm_rows_cover_a_frame_once_and_every_pool_window_in_one_lane(B, H, W):
+    geo = fused_conv.launch_geometry(B, H, W, 3, 8)
+    tile = geo.tile
+    stored, pooled = [], {}
+    for n in range(geo.grid[2]):
+        for t in range(geo.grid[0]):
+            h0, w0 = t // geo.tiles_w * tile, t % geo.tiles_w * tile
+            for m in range(tile * tile):
+                h, w = fused_conv.gemm_row_pixel(tile, m)
+                if h0 + h < H and w0 + w < W:  # the kernel's store mask
+                    stored.append((n, h0 + h, w0 + w))
+            for warp in range(tile * tile // 64):
+                for g in range(8):  # lanes 4 g .. 4 g + 3 hold the same rows
+                    for r in (g, g + 8):
+                        px = [fused_conv.gemm_row_pixel(tile, warp * 64 + mt * 16 + r)
+                              for mt in range(4)]
+                        ph, pw = (h0 + px[0][0]) // 2, (w0 + px[0][1]) // 2
+                        if ph < H // 2 and pw < W // 2:  # the pooled store mask
+                            assert (n, ph, pw) not in pooled
+                            pooled[n, ph, pw] = {(h0 + h, w0 + w) for h, w in px}
+    assert sorted(stored) == [(n, h, w) for n in range(B) for h in range(H) for w in range(W)]
+    assert sorted(pooled) == [(n, i, j) for n in range(B) for i in range(H // 2)
+                              for j in range(W // 2)]
+    for (n, i, j), px in pooled.items():
+        assert px == {(2 * i + a, 2 * j + c) for a in (0, 1) for c in (0, 1)}
+
+
+def test_unaligned_or_ragged_rows_are_staged_element_by_element():
+    x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 64, 64))
+    assert fused_conv.vectorised(x, w)
+    assert fused_conv.vectorised(x.bfloat16(), w.bfloat16())
+    assert not fused_conv.vectorised(x[..., :3].contiguous(), w[:, :, :3].contiguous())
+    assert not fused_conv.vectorised(x[..., :4].bfloat16().contiguous(), w.bfloat16())
+    flat = torch.empty(x.numel() + 1)
+    assert not fused_conv.vectorised(flat[1:].view(x.shape), w)

@@ -74,6 +74,46 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("layer", ir.VGG16_CONV_PLAN, ids=[p[0] for p in ir.VGG16_CONV_PLAN])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_version_at_every_vgg_layer(cuda, layer, dtype):
+    # the forward's 13 layers at batch 8: both tiles, Cin = 3 staged element
+    # by element, the rest in cp.async pieces
+    name, cin, cout, hw, pool = layer
+    x, w, b = _inputs((8, hw, hw, cin, cout, pool), dtype, seed=9)
+    got = fused_conv.fused_conv3x3(x, w, b, pool=pool)
+    want = ref.fused_conv3x3_ref(x, w, b, pool=pool)
+    tol = TOL[dtype]
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hw", [28, 14], ids=["conv4_2", "conv5_1"])
+def test_float32_sums_keep_their_error_small_at_vgg_depth(cuda, hw):
+    # K = 4,608: the tensor cores truncate each sum toward zero; summed
+    # straight into one accumulator that bias grows with K, to errors near
+    # the 2e-4 tolerance here and past 2e-4 x max at the 224x224 logits.
+    # The per-chunk partial keeps the float32 error a few times below 1e-4
+    x, w, b = _inputs((8, hw, hw, 512, 512, False), torch.float32, seed=11)
+    got = fused_conv.fused_conv3x3(x, w, b)
+    want = ref.fused_conv3x3_ref(x, w, b)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def test_kernel_stages_unaligned_inputs_element_by_element(cuda):
+    # a view one element into its storage is not 16-byte aligned: the
+    # wrapper stages it element by element, with the same result
+    shape = (2, 12, 12, 16, 32, True)
+    x, w, b = _inputs(shape, torch.float32, seed=10)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert not fused_conv.vectorised(xu, w) and fused_conv.vectorised(x, w)
+    got = fused_conv.fused_conv3x3(xu, w, b, pool=True)
+    torch.testing.assert_close(got, fused_conv.fused_conv3x3(x, w, b, pool=True),
+                               atol=0, rtol=0)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x, w, b = _inputs((1, 8, 8, 4, 8, False), torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -309,9 +349,18 @@ def test_libraries_report_their_builds(cuda):
 def test_bf16_bodies_run_on_the_tensor_cores(cuda):
     # every bf16 instantiation's SASS holds tensor-core instructions (HMMA,
     # or HGMMA for K3's wgmma prefill body), the float32 ones none; K3's
-    # bf16 kernels come gated and not
+    # bf16 kernels come gated and not.  K1's float32 (3xTF32) and bf16
+    # instantiations, both tiles, hold HMMA and spill nothing
     if builder.cuobjdump() is None:
         pytest.skip("cuobjdump not found beside nvcc or on PATH")
+    built = fused_conv.build()
+    conv = {n: c for n, c in builder.sass_counts(built.path).items()
+            if "fused_conv3x3_kernel" in n}
+    assert len(conv) == 2 * len(fused_conv.TILES)
+    assert all(c["HMMA"] > 0 for c in conv.values())
+    report = builder.ptxas_report(built.log)
+    assert {n for n in report if "fused_conv3x3_kernel" in n} == set(conv)
+    assert not any(r.get("spill_stores") or r.get("spill_loads") for r in report.values())
     for mod, n_bf16, n_f32 in ((fused_attention, 16, 16), (fused_mlp, 8, 4)):
         counts = builder.sass_counts(mod.build().path)
         bf16 = {name: c for name, c in counts.items() if "_mma_" in name}
@@ -363,6 +412,9 @@ SCAN_CASES = [  # (B, S, di, ds, chunk, block_d, with h0 and the final state)
     (2, 77, 300, 5, 16, 128, True),  # odd ds: scalar loads
     (2, 50, 130, 6, 7, 64, True),  # ds % 4 == 2: float2 loads
     (1, 9, 40, 1, 4, 32, False),  # one state value a channel
+    (8, 1, 8192, 16, None, None, False),  # the decode body without a state
+    (3, 1, 1000, 5, None, None, True),  # the decode body, ragged, odd ds
+    (3, 1, 1000, 5, None, None, False),
 ]
 
 
@@ -389,12 +441,31 @@ def test_selective_scan_matches_plain_version(cuda, case):
     torch.testing.assert_close(h, want_h, atol=SCAN_TOL, rtol=SCAN_TOL)
 
 
-def test_selective_scan_without_the_final_state_writes_none(cuda):
-    dA, dBx, C, _ = _scan_inputs(2, 33, 70, 16, seed=1)
+@pytest.mark.parametrize("S", [33, 1], ids=["prefill_body", "decode_body"])
+def test_selective_scan_without_the_final_state_writes_none(cuda, S):
+    dA, dBx, C, h0 = _scan_inputs(2, S, 70, 16, seed=1)
     y, h = mamba_scan.selective_scan(dA, dBx, C, final_state=False, block_d=32)
     assert h is None
     torch.testing.assert_close(y, ref.selective_scan_ref(dA, dBx, C)[0],
                                atol=SCAN_TOL, rtol=SCAN_TOL)
+    y, h = mamba_scan.selective_scan(dA, dBx, C, h0, final_state=False)
+    assert h is None
+    torch.testing.assert_close(y, ref.selective_scan_ref(dA, dBx, C, h0)[0],
+                               atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_selective_scan_decode_body_equals_the_prefill_body_at_one_step(cuda):
+    # the S == 1 body does the prefill body's FMAs in its order: the same
+    # bits as the first step of a longer scan
+    dA, dBx, C, h0 = _scan_inputs(3, 2, 1000, 16, seed=4)
+    y2, _ = mamba_scan.selective_scan(dA, dBx, C, h0)
+    y1, h1 = mamba_scan.selective_scan(dA[:, :1].contiguous(), dBx[:, :1].contiguous(),
+                                       C[:, :1].contiguous(), h0)
+    assert torch.equal(y1[:, 0], y2[:, 0])
+    _, h_next = mamba_scan.selective_scan(dA[:, 1:].contiguous(), dBx[:, 1:].contiguous(),
+                                          C[:, 1:].contiguous(), h1)
+    _, h_two = mamba_scan.selective_scan(dA, dBx, C, h0)
+    assert torch.equal(h_next, h_two)
 
 
 def test_selective_scan_on_the_card_never_runs_the_plain_version(cuda, monkeypatch):

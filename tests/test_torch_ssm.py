@@ -150,6 +150,43 @@ def test_scan_wrapper_checks_shapes_and_drops_the_state_on_request():
         ops.ssm_scan(dA.to("meta"), dBx, C, device="cpu")
 
 
+def test_cached_launch_checks_refuse_the_same_bad_inputs_at_a_new_shape():
+    # the CUDA path checks shapes, dtypes, devices and the tile once per
+    # launch key: a key it has not seen is checked in full, and contiguity
+    # and alignment are checked on every call, a cached key's too
+    limit = planner.H100.smem_per_block_optin
+    good = tuple(torch.from_numpy(a) for a in _scan_inputs((2, 8, 16, 4)))
+    assert mamba_scan._checked_tile(good, None, None, limit) == (64, 16)
+    assert mamba_scan._checked_tile(good, None, None, limit) == (64, 16)  # cached
+    dA, dBx, C, h0 = (torch.from_numpy(a) for a in _scan_inputs((3, 5, 24, 4)))
+    bad = [
+        (TypeError, None, (dA.double(), dBx.double(), C.double()), {}),
+        (ValueError, "dBx", (dA, dBx[:, :4], C), {}),
+        (ValueError, "C must be", (dA, dBx, C[:, :, :2]), {}),
+        (ValueError, "h0 must be", (dA, dBx, C, h0[:1]), {}),
+        (ValueError, "block_d", (dA, dBx, C), {"block_d": 1024}),
+        (ValueError, "chunk", (dA, dBx, C), {"chunk": 100_000}),
+        (ValueError, "contiguous", (dA, dBx, C, h0.transpose(1, 2).contiguous()
+                                    .transpose(1, 2)), {}),
+        (ValueError, "aligned", (torch.empty(dA.numel() + 1)[1:].view(dA.shape),
+                                 dBx, C), {}),
+    ]
+    for exc, match, ins, tile in bad:
+        for _ in range(2):  # a refused key is not cached: refused again
+            with pytest.raises(exc, match=match):
+                mamba_scan._checked_tile(ins, tile.get("chunk"), tile.get("block_d"), limit)
+    big = tuple(torch.from_numpy(a) for a in _scan_inputs((1, 4, 8, 17)))
+    with pytest.raises(ValueError, match="ds 17"):
+        mamba_scan._checked_tile(big, None, None, limit)
+    # the good key's layout checks still run
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan._checked_tile(good[:3] + (good[3].transpose(1, 2).contiguous()
+                                             .transpose(1, 2),), None, None, limit)
+    flat = torch.empty(good[0].numel() + 1)[1:].view(good[0].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        mamba_scan._checked_tile((flat,) + good[1:], None, None, limit)
+
+
 @pytest.mark.parametrize("name", ["falcon-mamba-7b", "jamba-1.5-large-398b"])
 def test_the_planner_tile_is_the_kernels_default_and_fits_a_block(name):
     cfg = configs.REGISTRY[name]
