@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's three main paths through the entry points a user calls,
+Drives the port's four main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -23,44 +23,54 @@ PyTorch version.  Phases, one line each:
                kernel, against the plain forward;
    phases 3-5 are the first main path: the launch counts are zeroed just
    before and read just after it;
-6. plan        plan_model for all 11 registry configs at 4096 tokens; every
+6. dag_search  the grouping search on DAGs -- the fourth main path, counts
+               zeroed just before and read just after (it launches none of
+               the four kernels): resnet18_ir (224x224), residual_block_ir
+               and encoder_decoder_ir, the frontier DP's locked optima with
+               their host ms, run_flow(groupings="search") on ResNet-18 over
+               the default space and compare_fusion at the DP's cuts, and
+               the exhaustive sweep of the encoder-decoder graph (320 x
+               262,144 = 83,886,080 candidates), re-timed with CUDA events,
+               a seeded 4,096-cell sample held bit for bit to the scalar
+               oracles and its least bandwidth to the DP optimum's;
+7. plan        plan_model for all 11 registry configs at 4096 tokens; every
                chosen tile (the selective scan's too, for the configs with
                Mamba layers) fits the card's opt-in shared memory;
-7. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
+8. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16): 8 requests, prompt 512, 32
                generated tokens -- the second main path, counts zeroed just
                before and read just after: flash_attention once per layer
                in the prefill, fused_mlp once per layer per forward;
-8. serve_time  prefill ms, decode ms per token and tokens/s through the
+9. serve_time  prefill ms, decode ms per token and tokens/s through the
                kernels and, for comparison, through their plain versions;
                prefill logits through the kernels against the plain path in
                bfloat16 and in float32; a profiled prefill and four decode
                steps;
-9. serve_ssm   ``serve.main`` on falcon-mamba-7b at full width and depth (64
+10. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
                layers, bfloat16), 8 requests, prompt 512, 32 generated
                tokens -- the third main path, counts zeroed just before and
                read just after: selective_scan once per layer in the prefill
                and once per layer per decode step, no flash_attention or
                fused_mlp;
-10. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
+11. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
                cut depth, printed);
-11. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+12. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-12. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+13. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes and at the shapes of tests/test_kernels.py
                (masks, the planner's tiles, float32 and bfloat16), with the
                same four times, and every built tile at the serving shapes;
                kernel phases time a launch over runs of CALLS launches and
                also one call alone;
-13. scan       selective_scan vs its plain version at falcon-mamba's prefill
+14. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-14. the kernels line, then the result line.
+15. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -148,6 +158,20 @@ SSM_PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # logits of the same kind of noise.  The float32 check keeps its fixed
 # tolerance; the scan phase holds the kernel itself to 1e-4.
 SSM_CONTROL_FACTOR = 2.0
+
+# The DAG search's locks (the reference's optima, tests/test_frontier_dp.py
+# and tests/test_torch_search.py): (builder, SRAM budget words, group cost
+# words, groups or None).
+DAG_LOCKS = [("residual_block_ir", float("inf"), 200704.0, None),
+             ("residual_block_ir", 150_000.0, 501760.0, None),
+             ("encoder_decoder_ir", float("inf"), 720896.0, None),
+             ("encoder_decoder_ir", 300_000.0, 11206656.0, None),
+             ("resnet18_ir", float("inf"), 151528.0, 1),
+             ("resnet18_ir", 200_000.0, 5670888.0, 11)]
+# compare_fusion on ResNet-18 at the frontier DP's cuts, as the reference
+# computes it: bandwidth, latency and energy reductions (within 1e-12).
+RESNET_REDUCTIONS = (0.39744620408283005, 0.33105833902675863,
+                     0.3235805468798656)
 
 
 def fail(msg: str) -> None:
@@ -377,7 +401,27 @@ def phase_exhaustive(torch, np, vgg, seed: int) -> dict:
         holder["raw"] = M._evaluate_batch_graph(*tensors)
 
     device_ms = time_ms(torch, {"sweep": sweep}, reps=3)["sweep"]
-    raw = holder["raw"]
+    check_sampled_cells(torch, np, g, cuts, space, holder["raw"], seed)
+    print(f"phase exhaustive: {n} candidates, {res.n_feasible} feasible, "
+          f"best {res.best_hw.describe()} groups {list(res.group_sizes)} "
+          f"(= scalar oracle; {SAMPLE_CELLS} sampled raw cells = oracles); "
+          f"run_flow {wall:.3f} s = set-up {res.compile_seconds:.3f} s + "
+          f"sweep {res.sweep_seconds:.3f} s ({res.candidates_per_second:.6g}"
+          f" candidates/s) + host; device sweep {device_ms:.3f} ms "
+          f"({n / device_ms * 1e3:.6g} candidates/s); device peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    return {"candidates": n, "n_feasible": res.n_feasible,
+            "run_flow_s": wall, "setup_s": res.compile_seconds,
+            "sweep_s": res.sweep_seconds,
+            "candidates_per_s": res.candidates_per_second,
+            "device_sweep_ms": device_ms, "device_peak_bytes": peak}
+
+
+def check_sampled_cells(torch, np, g, cuts, space, raw, seed: int) -> None:
+    """Hold SAMPLE_CELLS seeded cells of the raw (H, C, 5) plane ``raw`` (on
+    the card) bit for bit to the scalar oracles."""
+    from repro_torch.core import metrics as M
+
     rng = np.random.default_rng(seed)
     hs = rng.integers(0, len(space), SAMPLE_CELLS)
     cs = rng.integers(0, cuts.shape[0], SAMPLE_CELLS)
@@ -393,20 +437,131 @@ def phase_exhaustive(torch, np, vgg, seed: int) -> dict:
                 c_sram, c_pb[h], M.area_ref(g, cuts[c], hw))
         have = tuple(float(v) for v in got[i])
         check(have == want,
-              f"raw cell (h={h}, c={c}) = {have} != oracles {want}")
-    print(f"phase exhaustive: {n} candidates, {res.n_feasible} feasible, "
-          f"best {res.best_hw.describe()} groups {list(res.group_sizes)} "
-          f"(= scalar oracle; {SAMPLE_CELLS} sampled raw cells = oracles); "
-          f"run_flow {wall:.3f} s = set-up {res.compile_seconds:.3f} s + "
-          f"sweep {res.sweep_seconds:.3f} s ({res.candidates_per_second:.6g}"
-          f" candidates/s) + host; device sweep {device_ms:.3f} ms "
+              f"{g.name}: raw cell (h={h}, c={c}) = {have} != oracles {want}")
+
+
+def phase_dag_search(torch, np, seed: int) -> dict:
+    """The grouping search on DAGs and its sweeps on the card: the graph
+    builders, the frontier DP's locked optima (host ms each), ResNet-18's
+    ``run_flow(groupings="search")`` and ``compare_fusion``, and the
+    exhaustive sweep of the encoder-decoder graph (320 configurations x
+    262,144 valid groupings), re-timed with CUDA events and held bit for bit
+    to the scalar oracles."""
+    from repro_torch.core import fusion, ir
+    from repro_torch.core import metrics as M
+    from repro_torch.core.arch import (PAPER_OPTIMAL_CONFIG, DLAConfig,
+                                       default_config_space)
+    from repro_torch.core.flow import compare_fusion, run_flow, sweep_args
+
+    out = {"searches": []}
+    resnet = ir.resnet18_ir()
+    rb, ed = ir.residual_block_ir(), ir.encoder_decoder_ir()
+    width = ir.topo_frontier_width(resnet, ir.min_width_topo_order(resnet))
+    check((len(resnet.nodes), resnet.n_edges, width) == (31, 38, 2),
+          f"resnet18_ir: {len(resnet.nodes)} nodes, {resnet.n_edges} edges, "
+          f"frontier width {width}; expected 31, 38, 2")
+    t0 = time.perf_counter()
+    ed_cuts = fusion.enumerate_valid_edge_cuts(ed)
+    enum_s = time.perf_counter() - t0
+    check(rb.n_edges == 4 and ed.n_edges == 21 and ed_cuts.shape == (262_144, 21),
+          f"residual block {rb.n_edges} edges, encoder-decoder {ed.n_edges} edges "
+          f"and {ed_cuts.shape[0]} valid cut vectors; expected 4, 21, 262144")
+    print(f"phase dag_search: resnet18_ir 31 nodes, 38 edges, frontier width 2; "
+          f"residual block 4 edges; encoder-decoder 21 edges, 262144 valid cut "
+          f"vectors (enumerated on the host in {enum_s:.3f} s)")
+
+    graphs = {"residual_block_ir": rb, "encoder_decoder_ir": ed, "resnet18_ir": resnet}
+    dp = {}
+    for name, budget, cost, n_groups in DAG_LOCKS:
+        t0 = time.perf_counter()
+        res = fusion.optimal_cuts(graphs[name], sram_budget_words=budget)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(res.engine == "frontier_dp" and res.exact
+              and res.group_cost_words == cost
+              and n_groups in (None, res.n_groups),
+              f"{name} at {budget} words: {res.engine}, exact={res.exact}, "
+              f"{res.group_cost_words} words, {res.n_groups} groups; expected "
+              f"frontier_dp, {cost}, {n_groups} groups")
+        dp[name, budget] = res
+        out["searches"].append({"graph": name, "budget": budget, "cost": cost,
+                                "n_groups": res.n_groups, "host_ms": ms})
+        print(f"dag_search {name} budget {budget:g}: {res.engine} exact, "
+              f"{res.group_cost_words:.1f} words, {res.n_groups} groups, "
+              f"{ms:.3f} ms on the host")
+
+    space = default_config_space()
+    t0 = time.perf_counter()
+    res = run_flow(resnet, config_space=space, groupings="search", device="cuda")
+    wall = time.perf_counter() - t0
+    check((res.n_candidates, res.n_feasible) == (960, 788),
+          f"resnet18 search flow: {res.n_candidates} candidates, {res.n_feasible} "
+          "feasible; expected 960, 788")
+    check(res.best_hw == DLAConfig("hsiao", 8, 2, 2, 4) and res.group_sizes == (31,)
+          and res.search_engine == "frontier_dp",
+          f"resnet18 search flow: best {res.best_hw.describe()} groups "
+          f"{list(res.group_sizes)} [{res.search_engine}]; expected hsiao (8,2,2,4), "
+          "[31], frontier_dp")
+    oracle = M.evaluate_ref(resnet, res.best_cuts, res.best_hw)
+    check(oracle == res.best_metrics,
+          f"resnet18 best point {res.best_metrics} != scalar oracle {oracle}")
+    cmp = compare_fusion(resnet, PAPER_OPTIMAL_CONFIG,
+                         fused_cuts=dp["resnet18_ir", float("inf")].cuts)
+    got = (cmp.bw_reduction, cmp.latency_reduction, cmp.energy_reduction)
+    check(all(abs(a - b) <= 1e-12 for a, b in zip(got, RESNET_REDUCTIONS)),
+          f"resnet18 compare_fusion reductions {got} != {RESNET_REDUCTIONS}")
+    print(f"dag_search resnet18 run_flow(groupings='search'): {res.n_candidates} "
+          f"candidates, {res.n_feasible} feasible, best {res.best_hw.describe()} "
+          f"groups {list(res.group_sizes)} [{res.search_engine}] (= scalar oracle) "
+          f"in {wall:.3f} s; fusion at the DP's cuts cuts bandwidth {got[0]!r}, "
+          f"latency {got[1]!r}, energy {got[2]!r}")
+    out["resnet18_flow"] = {"wall_s": wall, "n_candidates": res.n_candidates,
+                            "n_feasible": res.n_feasible, "reductions": got}
+
+    # The largest DAG sweep: every valid grouping of the encoder-decoder.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_flow(ed, config_space=space, groupings="exhaustive", device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = len(space) * ed_cuts.shape[0]
+    check(res.n_candidates == n,
+          f"encoder-decoder sweep scored {res.n_candidates} candidates, not {n}")
+    oracle = M.evaluate_ref(ed, res.best_cuts, res.best_hw)
+    check(oracle == res.best_metrics,
+          f"encoder-decoder best point {res.best_metrics} != scalar oracle {oracle}")
+    tensors = M.sweep_tensors(sweep_args(ed, ed_cuts, space), torch.device("cuda"))
+    holder = {}
+
+    def sweep():
+        holder["raw"] = M._evaluate_batch_graph(*tensors)
+
+    device_ms = time_ms(torch, {"sweep": sweep}, reps=3)["sweep"]
+    raw = holder["raw"][:, :ed_cuts.shape[0]]
+    check_sampled_cells(torch, np, ed, ed_cuts, space, raw, seed)
+    least = float(raw[..., 0].min())
+    want = M.bandwidth_ref(ed, dp["encoder_decoder_ir", float("inf")].cuts)
+    check(least == want,
+          f"encoder-decoder plane's least bandwidth {least} != the DP optimum's {want}")
+    host = wall - res.compile_seconds - res.sweep_seconds
+    print(f"dag_search encoder-decoder exhaustive: {n} candidates, {res.n_feasible} "
+          f"feasible, best {res.best_hw.describe()} groups {list(res.group_sizes)} "
+          f"(= scalar oracle; {SAMPLE_CELLS} sampled raw cells = oracles; least "
+          f"bandwidth {least:.1f} = the DP optimum's); enumeration {enum_s:.3f} s + "
+          f"run_flow {wall:.3f} s = set-up {res.compile_seconds:.3f} s + sweep "
+          f"{res.sweep_seconds:.3f} s ({res.candidates_per_second:.6g} candidates/s) "
+          f"+ host {host:.3f} s; device sweep {device_ms:.3f} ms "
           f"({n / device_ms * 1e3:.6g} candidates/s); device peak "
           f"{peak / 2 ** 30:.3f} GiB")
-    return {"candidates": n, "n_feasible": res.n_feasible,
-            "run_flow_s": wall, "setup_s": res.compile_seconds,
-            "sweep_s": res.sweep_seconds,
-            "candidates_per_s": res.candidates_per_second,
-            "device_sweep_ms": device_ms, "device_peak_bytes": peak}
+    del holder, tensors, raw
+    torch.cuda.empty_cache()
+    out["encoder_decoder"] = {
+        "candidates": n, "n_feasible": res.n_feasible, "enumeration_s": enum_s,
+        "run_flow_s": wall, "setup_s": res.compile_seconds,
+        "sweep_s": res.sweep_seconds, "host_s": host,
+        "candidates_per_s": res.candidates_per_second, "device_sweep_ms": device_ms,
+        "device_peak_bytes": peak, "least_bandwidth": least}
+    return out
 
 
 def phase_forward(torch, seed: int):
@@ -1245,6 +1400,15 @@ def main(argv=None) -> int:
     del model, x
     torch.cuda.empty_cache()
 
+    # ---- main path 4, the grouping search on DAGs: counts zeroed just
+    # before, read just after (it runs no kernel of K1-K4) ----
+    zero_counts()
+    dag = phase_dag_search(torch, np, args.seed)
+    dag_counts = read_counts()
+    check(not any(dag_counts.values()),
+          f"the DAG search path launched kernels: {dag_counts}")
+    print(f"phase main_path dag_search: launches {dag_counts}")
+
     # ---- main path 2, serving qwen3-0.6b: counts zeroed just before, read
     # just after ----
     plans = phase_plan(spec)
@@ -1315,7 +1479,8 @@ def main(argv=None) -> int:
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
         "card": card, "build": build, "paper_flow": paper,
-        "exhaustive": exhaustive, "forward": forward, "layers": layer_rows,
+        "exhaustive": exhaustive, "forward": forward, "dag_search": dag,
+        "dag_search_counts": dag_counts, "layers": layer_rows,
         "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
         "serve_time": serve_time, "serve_ssm": ssm_run, "serve_ssm_counts": ssm_counts,
         "serve_ssm_time": ssm_time, "attention": att_rows, "mlp": mlp_rows,

@@ -67,8 +67,9 @@ class InfeasibleConstraintsError(EvaluatorError, ValueError):
 
 
 class SearchDeclined(EvaluatorError, ValueError):
-    """A search engine refused the instance (for example a DAG handed to
-    the chain-only search of this package)."""
+    """A search engine refused the instance (e.g. the exact frontier DP's
+    width/state caps tripped).  Dispatchers absorb this and fall back; it
+    only escapes when the caller pinned a specific engine."""
 
 
 class PoisonedResultError(EvaluatorError, ArithmeticError):

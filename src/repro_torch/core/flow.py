@@ -396,13 +396,16 @@ def groupings_batch(
 
     ``"exhaustive"`` — all valid edge cuts (2^(L-1) on a chain);
     ``"pool"``       — the paper's pool-boundary policy + layer-by-layer;
-    ``"search"``/``"dp"`` — the chain DP optimum + layer-by-layer + pool
-    boundaries (a DAG raises
-    :class:`~repro_torch.core.errors.SearchDeclined`);
+    ``"search"``/``"dp"`` — the grouping search optimum (chain DP fast path,
+    frontier DP — exact even on ResNet-scale DAGs — or beam fallback) +
+    layer-by-layer + pool boundaries;
     or an explicit (C, E) bool array.  ``sram_budget_words`` is threaded
-    into the search so a budget-constrained flow searches under the budget
-    its prefilter enforces.  With ``with_provenance`` the batch comes back
-    paired with the grouping provenance string.
+    into the search strategies so a budget-constrained flow searches under
+    the same budget its prefilter enforces (a budget-blind optimum would
+    just be pruned afterwards).  With ``with_provenance`` the batch comes
+    back paired with the grouping provenance string (for "search"/"dp"
+    the engine that produced the optimum, see
+    :attr:`repro_torch.core.fusion.DPResult.engine`).
     """
 
     def _ret(batch: np.ndarray, provenance: str):

@@ -12,15 +12,28 @@ layer abstraction plus two network representations:
 
 Fusion groups on a graph are described by a boolean vector over *edges*: a
 cut edge crosses a group boundary (its tensor round-trips through DRAM), an
-uncut edge stays inside a group (its tensor lives in on-chip SRAM).  A valid
-group must be weakly connected and convex (no dataflow may leave the group
-and re-enter), which on the quotient graph means acyclicity — see
-:mod:`repro_torch.core.fusion`.
+uncut edge stays inside a group (its tensor lives in on-chip SRAM).  For a
+residual basic block the cut space looks like::
+
+        in ──e0──> conv_a ──e1──> conv_b ──e2──> add ──e4──> out
+         │                                        ^
+         └────────────────e3 (skip)───────────────┘
+
+  cutting {e0,e1,e2,e3,e4}  = layer-by-layer (every tensor hits DRAM);
+  cutting {e0,e4} only      = the whole block is one fusion group — the
+  skip tensor e3 *and* both conv intermediates stay in SRAM, a grouping a
+  chain IR cannot even express (e3 is a second consumer of ``in``'s output).
+  A valid group must be weakly connected and convex (no dataflow may leave
+  the group and re-enter), which on the quotient graph means acyclicity —
+  see :mod:`repro_torch.core.fusion`.
 
 :func:`vgg16_ir` builds the paper's own Sec. III workload directly from
 :data:`VGG16_CONV_PLAN`; :func:`transformer_block_ir` and :func:`lm_ir`
-build the transformer chains the planner prices.  Everything here is plain Python + numpy feature
-extraction; the batched metric sweep lives in :mod:`repro_torch.core.metrics`.
+build the transformer chains the planner prices; :func:`resnet18_ir`
+(residual DAG), :func:`residual_block_ir` and :func:`encoder_decoder_ir`
+(cross-attention DAG) build the graphs the DAG search runs on.  Everything
+here is plain Python + numpy feature extraction; the batched metric sweep
+lives in :mod:`repro_torch.core.metrics`.
 """
 from __future__ import annotations
 
@@ -810,6 +823,38 @@ def _min_label_reps_batch(
             return lab
 
 
+def canonicalize_labels_batch(labels: np.ndarray) -> np.ndarray:
+    """Relabel every row of a (C, L) label batch to consecutive ints in order
+    of first appearance — the canonical form :func:`uncut_component_labels`
+    returns (and the dedup key the merge searches use)."""
+    labels = np.atleast_2d(np.asarray(labels))
+    C, L = labels.shape
+    if L == 0 or C == 0:
+        return labels.astype(np.int16)
+    rows = np.arange(C)
+    first = np.full((C, L), L, dtype=np.int16)  # first[c, v]: first col of v
+    for i in range(L - 1, -1, -1):
+        first[rows, labels[:, i]] = i
+    fp = np.take_along_axis(first, labels.astype(np.int64), axis=1)
+    is_first = fp == np.arange(L, dtype=np.int16)[None, :]
+    rank = np.cumsum(is_first, axis=1, dtype=np.int16)
+    return np.take_along_axis(rank, fp.astype(np.int64), axis=1) - 1
+
+
+def uncut_component_labels_batch(
+    n_nodes: int, edges: tuple[EdgeSpec, ...], cuts_batch: np.ndarray
+) -> np.ndarray:
+    """Batched :func:`uncut_component_labels`: (C, E) cut batch -> (C, L)
+    canonical group labels, with no per-candidate Python (lock-step with the
+    scalar union-find, asserted in tests)."""
+    cuts_batch = np.atleast_2d(np.asarray(cuts_batch, dtype=bool))
+    esrc = np.asarray([e.src for e in edges], dtype=np.int64)
+    edst = np.asarray([e.dst for e in edges], dtype=np.int64)
+    return canonicalize_labels_batch(
+        _min_label_reps_batch(n_nodes, esrc, edst, cuts_batch)
+    )
+
+
 def quotient_acyclic_batch(
     n_nodes: int,
     esrc: np.ndarray,
@@ -899,6 +944,109 @@ def scc_labels(n: int, arcs: set[tuple[int, int]]) -> list[int]:
     return comp
 
 
+# ---------------------------------------------------------------------------
+# Topological elimination orders and frontier width (for the frontier DP)
+# ---------------------------------------------------------------------------
+#
+# The frontier-state fusion DP (:func:`repro_torch.core.fusion.frontier_dp_min_bw`)
+# sweeps nodes in a topological order; its state space is governed by the
+# *frontier width* — the largest number of already-processed nodes that still
+# have an edge into the unprocessed suffix at any point of the sweep.  Any
+# topological order yields the same optimum (cost accounting is
+# order-independent); a narrower order just keeps the DP small, so the
+# search picks the better of the natural node order and a greedy
+# width-minimising order.
+
+
+def topo_frontier_sets(
+    g: GraphIR, order: Sequence[int] | None = None
+) -> list[list[int]]:
+    """Frontier after each step of a topological sweep.
+
+    ``out[t]`` lists (ascending node ids) the nodes among ``order[: t + 1]``
+    that still have >= 1 edge to a node outside that prefix — exactly the
+    nodes whose pending out-edges the frontier DP has yet to decide.  The
+    last entry is always empty.  ``order`` defaults to the natural node
+    order (topological by construction: every edge has ``src < dst``) and
+    must itself be topological.
+    """
+    L = len(g.nodes)
+    order = list(range(L)) if order is None else [int(i) for i in order]
+    if sorted(order) != list(range(L)):
+        raise ValueError("order must be a permutation of the node ids")
+    pos = [0] * L
+    for t, v in enumerate(order):
+        pos[v] = t
+    succs: list[list[int]] = [[] for _ in range(L)]
+    for e in g.edges:
+        if pos[e.src] >= pos[e.dst]:
+            raise ValueError(
+                f"order is not topological: edge {e.src}->{e.dst}"
+            )
+        succs[e.src].append(e.dst)
+    out: list[list[int]] = []
+    for t in range(L):
+        frontier = [
+            u
+            for u in sorted(order[: t + 1])
+            if any(pos[w] > t for w in succs[u])
+        ]
+        out.append(frontier)
+    return out
+
+
+def topo_frontier_width(g: GraphIR, order: Sequence[int] | None = None) -> int:
+    """Largest frontier of a topological sweep (0 for a single node)."""
+    return max((len(f) for f in topo_frontier_sets(g, order)), default=0)
+
+
+def min_width_topo_order(g: GraphIR) -> list[int]:
+    """Greedy width-minimising topological order.
+
+    At each step, among the ready nodes (all predecessors processed), pick
+    the one whose processing leaves the smallest frontier, tie-broken by
+    node id — deterministic, and never worse than fanning out breadth-first.
+    A heuristic (minimum-width elimination ordering is NP-hard); callers
+    compare its width against the natural order and keep the narrower.
+    """
+    L = len(g.nodes)
+    succs: list[list[int]] = [[] for _ in range(L)]
+    n_pred = [0] * L
+    for e in g.edges:
+        succs[e.src].append(e.dst)
+        n_pred[e.dst] += 1
+    ready = sorted(i for i in range(L) if n_pred[i] == 0)
+    pending_out = [len(s) for s in succs]  # edges into the unprocessed suffix
+    frontier: set[int] = set()
+    order: list[int] = []
+    preds: list[list[int]] = [[] for _ in range(L)]
+    for e in g.edges:
+        preds[e.dst].append(e.src)
+
+    def width_after(v: int) -> int:
+        w = len(frontier) + (1 if pending_out[v] else 0)
+        for u in preds[v]:
+            if pending_out[u] == 1:  # (u, v) was u's last pending edge
+                w -= 1
+        return w
+
+    while ready:
+        v = min(ready, key=lambda u: (width_after(u), u))
+        ready.remove(v)
+        order.append(v)
+        for u in preds[v]:
+            pending_out[u] -= 1
+            if pending_out[u] == 0:
+                frontier.discard(u)
+        if pending_out[v]:
+            frontier.add(v)
+        for w in succs[v]:
+            n_pred[w] -= 1
+            if n_pred[w] == 0:
+                ready.append(w)
+    return order
+
+
 def _repair_partition_cuts(
     n_nodes: int, edges: tuple[EdgeSpec, ...], cuts: np.ndarray
 ) -> np.ndarray:
@@ -954,3 +1102,175 @@ def graph_ir(
         else:
             specs.append(EdgeSpec(e[0], e[1], e[2]))
     return GraphIR(name, nodes, tuple(specs))
+
+
+# ---------------------------------------------------------------------------
+# DAG builders
+# ---------------------------------------------------------------------------
+
+RESNET18_STAGE_PLAN = (
+    # (stage, n_blocks, channels, first_block_stride)
+    (1, 2, 64, 1),
+    (2, 2, 128, 2),
+    (3, 2, 256, 2),
+    (4, 2, 512, 2),
+)
+
+@functools.lru_cache(maxsize=None)
+def resnet18_ir(*, input_hw: int = 224) -> GraphIR:
+    """ResNet-18 as a residual DAG (He et al., 2016; ImageNet geometry).
+
+    Built node by node from :data:`RESNET18_STAGE_PLAN`: a 7x7/2 stem conv
+    and a 3x3/2 max-pool, eight basic blocks, global average pooling and
+    the 1000-way classifier.  Each basic block is ``conv3x3 -> conv3x3 ->
+    add`` with a skip edge from the block input to the add node; stride-2
+    blocks project the skip through a 1x1 conv.  The skip edges are exactly
+    what a chain cannot represent: fusing a whole block keeps the skip
+    tensor on-chip, which the edge-cut metrics reward with one saved
+    store+load pair.
+    """
+    nodes: list[LayerSpec] = []
+    edges: list[EdgeSpec] = []
+
+    def add_node(spec: LayerSpec) -> int:
+        nodes.append(spec)
+        return len(nodes) - 1
+
+    def connect(src: int, dst: int) -> None:
+        edges.append(EdgeSpec(src, dst, nodes[src].out_words))
+
+    conv1 = add_node(LayerSpec("conv1", "conv", 3, 64, input_hw, input_hw, 7, 7, 2))
+    pool1 = add_node(
+        LayerSpec("pool1", "pool", 64, 64, input_hw // 2, input_hw // 2, 3, 3, 2)
+    )
+    connect(conv1, pool1)
+    cur, c_in, hw = pool1, 64, input_hw // 4
+    for stage, n_blocks, c_out, stride0 in RESNET18_STAGE_PLAN:
+        for b in range(n_blocks):
+            stride = stride0 if b == 0 else 1
+            cin_blk = c_in if b == 0 else c_out
+            tag = f"s{stage}b{b}"
+            ca = add_node(LayerSpec(
+                f"{tag}.conv_a", "conv", cin_blk, c_out, hw, hw, 3, 3, stride))
+            connect(cur, ca)
+            hw_out = hw // stride
+            cb = add_node(LayerSpec(
+                f"{tag}.conv_b", "conv", c_out, c_out, hw_out, hw_out, 3, 3, 1))
+            connect(ca, cb)
+            skip = cur
+            if stride != 1 or cin_blk != c_out:
+                skip = add_node(LayerSpec(
+                    f"{tag}.downsample", "conv", cin_blk, c_out, hw, hw, 1, 1, stride))
+                connect(cur, skip)
+            add = add_node(LayerSpec(
+                f"{tag}.add", "elementwise", c_out, c_out, hw_out, hw_out))
+            connect(cb, add)
+            connect(skip, add)
+            cur, hw = add, hw_out
+        c_in = c_out
+    gap = add_node(LayerSpec("avgpool", "pool", 512, 512, hw, hw, hw, hw, hw))
+    connect(cur, gap)
+    fc = add_node(LayerSpec("fc", "fc", 512, 1000, 1, 1))
+    connect(gap, fc)
+    return GraphIR("resnet18", tuple(nodes), tuple(edges))
+
+
+def residual_block_ir(
+    *, channels: int = 128, hw: int = 28, name: str = "resblock"
+) -> GraphIR:
+    """One ResNet basic block (identity skip) — the minimal DAG exhibiting a
+    fusion group the chain IR cannot express (see the module docstring)."""
+    nodes = (
+        LayerSpec(f"{name}.in", "conv", channels, channels, hw, hw, 1, 1, 1),
+        LayerSpec(f"{name}.conv_a", "conv", channels, channels, hw, hw, 3, 3, 1),
+        LayerSpec(f"{name}.conv_b", "conv", channels, channels, hw, hw, 3, 3, 1),
+        LayerSpec(f"{name}.add", "elementwise", channels, channels, hw, hw),
+    )
+    edges = (
+        EdgeSpec(0, 1, nodes[0].out_words),
+        EdgeSpec(1, 2, nodes[1].out_words),
+        EdgeSpec(2, 3, nodes[2].out_words),
+        EdgeSpec(0, 3, nodes[0].out_words),  # skip
+    )
+    return GraphIR(name, nodes, edges)
+
+
+def encoder_decoder_ir(
+    *,
+    name: str = "encdec",
+    d_model: int = 512,
+    n_heads: int = 8,
+    d_ff: int = 2048,
+    seq_enc: int = 512,
+    seq_dec: int = 128,
+) -> GraphIR:
+    """One encoder layer + one decoder layer with cross-attention.
+
+    The encoder output ("memory") fans out to the decoder's cross-attention
+    K/V projection — a long-range branch the chain IR cannot express.  If
+    the memory edge is left uncut, the encoder output never round-trips
+    through DRAM between the encoder and the decoder's cross-attention.
+    """
+    nodes: list[LayerSpec] = []
+    edges: list[EdgeSpec] = []
+
+    def add_node(spec: LayerSpec) -> int:
+        nodes.append(spec)
+        return len(nodes) - 1
+
+    def connect(src: int, dst: int, words: int | None = None):
+        edges.append(EdgeSpec(src, dst, nodes[src].out_words if words is None else words))
+
+    def attn_chain(prefix: str, seq: int, prev: int | None) -> int:
+        q = add_node(LayerSpec(f"{prefix}.q", "matmul", d_model, d_model, seq, 1))
+        if prev is not None:
+            connect(prev, q)
+        kv = add_node(LayerSpec(f"{prefix}.kv", "matmul", d_model, 2 * d_model, seq, 1))
+        if prev is not None:
+            connect(prev, kv)
+        qk = add_node(
+            LayerSpec(f"{prefix}.qk", "actmul", d_model, n_heads * seq, seq, 1)
+        )
+        connect(q, qk)
+        connect(kv, qk)
+        pv = add_node(
+            LayerSpec(f"{prefix}.pv", "actmul", n_heads * seq, d_model, seq, 1)
+        )
+        connect(qk, pv)
+        connect(kv, pv)
+        o = add_node(LayerSpec(f"{prefix}.o", "matmul", d_model, d_model, seq, 1))
+        connect(pv, o)
+        return o
+
+    def ffn(prefix: str, seq: int, prev: int) -> int:
+        w1 = add_node(LayerSpec(f"{prefix}.w1", "matmul", d_model, d_ff, seq, 1))
+        connect(prev, w1)
+        w2 = add_node(LayerSpec(f"{prefix}.w2", "matmul", d_ff, d_model, seq, 1))
+        connect(w1, w2)
+        return w2
+
+    # Encoder layer: self-attention + FFN; w2 output is the memory.
+    enc_o = attn_chain(f"{name}.enc.self", seq_enc, None)
+    memory = ffn(f"{name}.enc", seq_enc, enc_o)
+
+    # Decoder layer: self-attention over seq_dec ...
+    dec_o = attn_chain(f"{name}.dec.self", seq_dec, None)
+    # ... then cross-attention: Q from the decoder, K/V from the encoder memory.
+    xq = add_node(LayerSpec(f"{name}.dec.xq", "matmul", d_model, d_model, seq_dec, 1))
+    connect(dec_o, xq)
+    xkv = add_node(LayerSpec(f"{name}.dec.xkv", "matmul", d_model, 2 * d_model, seq_enc, 1))
+    connect(memory, xkv)  # the cross-link branch
+    xqk = add_node(
+        LayerSpec(f"{name}.dec.xqk", "actmul", d_model, n_heads * seq_enc, seq_dec, 1)
+    )
+    connect(xq, xqk)
+    connect(xkv, xqk)
+    xpv = add_node(
+        LayerSpec(f"{name}.dec.xpv", "actmul", n_heads * seq_enc, d_model, seq_dec, 1)
+    )
+    connect(xqk, xpv)
+    connect(xkv, xpv)
+    xo = add_node(LayerSpec(f"{name}.dec.xo", "matmul", d_model, d_model, seq_dec, 1))
+    connect(xpv, xo)
+    ffn(f"{name}.dec", seq_dec, xo)
+    return GraphIR(name, tuple(nodes), tuple(edges))

@@ -52,6 +52,28 @@ from .ir import GraphIR, NetworkIR, as_graph
 STAGING_WORDS = 4096.0
 
 
+def group_masks(cuts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(start, end) boolean masks of shape (L,) from a chain cut vector (L-1,)."""
+    cuts = np.asarray(cuts, dtype=bool)
+    L = cuts.shape[0] + 1
+    start = np.concatenate([[True], cuts])
+    end = np.concatenate([cuts, [True]])
+    assert start.shape == (L,) and end.shape == (L,)
+    return start, end
+
+
+def groups_from_cuts(cuts: np.ndarray) -> list[list[int]]:
+    """Explicit group index lists (for printing / brute-force tests)."""
+    start, _ = group_masks(cuts)
+    groups: list[list[int]] = []
+    for i, s in enumerate(start):
+        if s:
+            groups.append([i])
+        else:
+            groups[-1].append(i)
+    return groups
+
+
 def edge_io_masks(g: GraphIR, cuts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(reads_input, writes_output) node masks of shape (L,) for a cut vector.
 
@@ -262,6 +284,7 @@ class GraphArrays:
     sink_mask: np.ndarray  # (L,) bool
     inc_src: np.ndarray  # (E, L) 1.0 at [k, esrc[k]]
     win_dst: np.ndarray  # (E, L) ewords[k] at [k, edst[k]]
+    out_edges: tuple[np.ndarray, ...]  # per node: its outgoing edge indices
     base_bw: float  # weights + unconditional source-frame reads
 
 
@@ -279,6 +302,7 @@ def graph_arrays(g: GraphIR) -> GraphArrays:
     inc_src[np.arange(E), esrc] = 1.0
     win_dst = np.zeros((E, L))
     win_dst[np.arange(E), edst] = ewords
+    out_edges = tuple(np.flatnonzero(esrc == i) for i in range(L))
     src_mask, sink_mask = g.source_mask, g.sink_mask
     base_bw = float(
         feat[:, F_W].sum() + feat[:, F_EXT].sum() + feat[src_mask, F_IN].sum()
@@ -286,10 +310,69 @@ def graph_arrays(g: GraphIR) -> GraphArrays:
     ga = GraphArrays(
         feat=feat, esrc=esrc, edst=edst, ewords=ewords, src_mask=src_mask,
         sink_mask=sink_mask, inc_src=inc_src, win_dst=win_dst,
-        base_bw=base_bw,
+        out_edges=out_edges, base_bw=base_bw,
     )
     object.__setattr__(g, "_graph_arrays", ga)
     return ga
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixCostTables:
+    """Per-node views of the grouping-dependent Eq. (1) terms, organised so
+    the cost of a *prefix* of edge decisions is exactly decomposable.
+
+    Sweeping nodes in any topological order and deciding each node's
+    incoming edges as it arrives, Eq. (1) bandwidth (minus the
+    grouping-independent weights, captured in ``const_words``) accumulates
+    in exact per-decision increments:
+
+    * a cut edge adds its ``words`` (the consumer's DRAM read-back), plus
+      the producer's ``out_words`` **iff** this is the producer's first cut
+      out-edge (the output frame is written once however many cut
+      consumers it feeds);
+    * a sink node adds its ``sink_charge`` unconditionally when processed;
+    * an uncut edge adds nothing — but its words join the consumer's
+      internal-input sum and put the producer's ``prepool_words`` frame on
+      chip, the two Eq. (4)-style terms ``graph_max_intermediate`` bounds.
+
+    This is the table set behind the frontier-state DP
+    (:func:`repro_torch.core.fusion.frontier_dp_min_bw`): all quantities are
+    integer-valued float64 words, so the accumulated cost is bit-identical
+    to :func:`bandwidth_ref` minus the weights, not approximately equal.
+    """
+
+    in_edges: tuple[np.ndarray, ...]  # per node: incoming edge indices
+    in_srcs: tuple[np.ndarray, ...]  # per node: those edges' producers
+    in_words: tuple[np.ndarray, ...]  # per node: those edges' words
+    out_words: np.ndarray  # (L,) output frame (post-pool) words
+    prepool_words: np.ndarray  # (L,) on-chip pre-pool frame words
+    sink_charge: np.ndarray  # (L,) out_words where sink else 0.0
+    const_words: float  # sources + ext reads (Eq. (1) minus weights)
+    state_words: np.ndarray  # (L,) recurrent carry held in SRAM per node
+
+
+def graph_prefix_tables(g: GraphIR) -> PrefixCostTables:
+    """Per-instance memo of :class:`PrefixCostTables` (same discipline as
+    :func:`graph_arrays`: GraphIR is immutable, so this can never go
+    stale)."""
+    pt = g.__dict__.get("_prefix_tables")
+    if pt is not None:
+        return pt
+    ga = graph_arrays(g)
+    L = len(g.nodes)
+    in_edges = tuple(np.flatnonzero(ga.edst == i) for i in range(L))
+    pt = PrefixCostTables(
+        in_edges=in_edges,
+        in_srcs=tuple(ga.esrc[ks] for ks in in_edges),
+        in_words=tuple(ga.ewords[ks] for ks in in_edges),
+        out_words=ga.feat[:, F_OUT].copy(),
+        prepool_words=ga.feat[:, F_OUT_PRE].copy(),
+        sink_charge=np.where(ga.sink_mask, ga.feat[:, F_OUT], 0.0),
+        const_words=ga.base_bw - float(ga.feat[:, F_W].sum()),
+        state_words=ga.feat[:, F_STATE].copy(),
+    )
+    object.__setattr__(g, "_prefix_tables", pt)
+    return pt
 
 
 def bandwidth_batch_graph(

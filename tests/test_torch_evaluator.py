@@ -379,11 +379,19 @@ def test_run_flow_on_dag_matches_reference():
     _assert_same_flow(port, ref)
 
 
-def test_optimal_cuts_on_dag_declines():
-    with pytest.raises(TE.SearchDeclined, match="frontier-state DP"):
-        TFu.optimal_cuts(_diamond(TI))
-    with pytest.raises(ValueError):
-        TF.run_flow(_diamond(TI), groupings="search", device="cpu")
+def test_optimal_cuts_and_search_flow_on_dag_match_reference():
+    rg, pg = _diamond(RI), _diamond(TI)
+    ref = RFu.optimal_cuts(rg)
+    port = TFu.optimal_cuts(pg)
+    assert port.engine == ref.engine == "frontier_dp" and port.exact
+    assert np.array_equal(port.cuts, ref.cuts)
+    assert (port.group_cost_words, port.n_groups) == (
+        ref.group_cost_words, ref.n_groups)
+    kw = dict(groupings="search", constraints=RA.Constraints(
+        *[float("inf")] * 4))
+    _assert_same_flow(
+        TF.run_flow(pg, config_space=TA.paper_config_space(), device="cpu", **kw),
+        RF.run_flow(rg, config_space=RA.paper_config_space(), **kw))
 
 
 # ---------------------------------------------------------------------------

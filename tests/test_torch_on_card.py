@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs import resolve, run_config, scaled_down
-from repro_torch.core import arch, flow, ir, metrics
+from repro_torch.core import arch, flow, fusion, ir, metrics
 from repro_torch.kernels import (builder, fused_attention, fused_conv, fused_mlp,
                                  mamba_scan, ops, ref)
 from repro_torch.models import model as M
@@ -148,6 +148,30 @@ def test_run_flow_on_the_card_equals_the_cpu(cuda):
     assert a.best_hw == b.best_hw and a.best_metrics == b.best_metrics
     assert np.array_equal(a.best_cuts, b.best_cuts)
     assert np.array_equal(a.pareto.metrics, b.pareto.metrics)
+
+
+@pytest.mark.parametrize("case", ["resnet18_search", "residual_block_every_cut"])
+def test_dag_sweep_on_the_card_equals_the_cpu_and_the_oracles(cuda, case):
+    # joins sum two edges into one slot: index_add's atomics on the card add
+    # them in no fixed order, exact only because every word is an integer
+    if case == "resnet18_search":
+        g = ir.resnet18_ir()
+        cuts = flow.groupings_batch(g, "search")
+    else:
+        g = ir.residual_block_ir()
+        cuts = fusion.enumerate_valid_edge_cuts(g)
+    space = arch.default_config_space()
+    args = flow.sweep_args(g, cuts, space)
+    on_card = metrics.evaluate_raw_graph(*args, device="cuda").cpu().numpy()
+    on_cpu = metrics.evaluate_raw_graph(*args, device="cpu").numpy()
+    assert np.array_equal(on_card, on_cpu)
+    c_sram = metrics.sram_accesses_ref(g)
+    for h, hw in enumerate(space):
+        c_pb = metrics.pe_energy_count_ref(g, hw)
+        for c, cut in enumerate(cuts):
+            want = (metrics.bandwidth_ref(g, cut), metrics.latency_ref(g, cut, hw),
+                    c_sram, c_pb, metrics.area_ref(g, cut, hw))
+            assert tuple(on_card[h, c].tolist()) == want, (h, c)
 
 
 def test_vgg_forward_through_the_kernel_matches_plain(cuda):
@@ -395,6 +419,93 @@ def test_prefill_and_decode_through_the_kernels_match_plain(cuda):
     assert fused_attention.flash_attention.launches == a0 + n
     assert fused_mlp.fused_mlp.launches == m0 + 4 * n
     torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
+
+
+# The tensor cores add each product to the accumulator with truncation
+# (found in K1's float32 body, which now sums each chunk into a zeroed
+# partial).  K2 sums P.V over Skv and K3 x.w1 over d and h.w2 over a block's
+# share of d_ff straight into their accumulators.  Measured at several K:
+# the error against a float64 computation on the same bfloat16 inputs,
+# as a relative RMS (stable over the 10^5-10^7 outputs, where a maximum is
+# not), beside the float32 oracle's own; a sum biased by truncation would
+# make the kernel's error grow with K faster than the oracle's.  The signed
+# mean error (in units of the result's RMS) is printed: truncation's mark.
+GROWTH_SLACK = 1.25  # the ratio's change over K that rounding alone gives
+
+
+def _rms_errors(got, want32, want64) -> dict:
+    """The kernel's and the oracle's relative RMS errors against the float64
+    result, and the kernel's signed mean error, all over its RMS."""
+    rms = float(want64.pow(2).mean().sqrt())
+    diff = got.double() - want64
+    return {"kernel": float(diff.pow(2).mean().sqrt()) / rms,
+            "oracle": float((want32.double() - want64).pow(2).mean().sqrt()) / rms,
+            "bias": float((diff * want64.sign()).mean()) / rms,
+            "max_abs_err": float((got.float() - want32.float()).abs().max())}
+
+
+def _assert_no_growth(what: str, rows: dict) -> None:
+    """The kernel's error over the oracle's grows by at most GROWTH_SLACK
+    from the smallest K to every larger one."""
+    ks = sorted(rows)
+    base = rows[ks[0]]["kernel"] / rows[ks[0]]["oracle"]
+    for k in ks:
+        r = rows[k]
+        print(f"truncation {what} K={k}: kernel rms {r['kernel']:.4g}, float32 "
+              f"oracle rms {r['oracle']:.4g} (ratio {r['kernel'] / r['oracle']:.4g}), "
+              f"kernel signed mean {r['bias']:.3g}, max |kernel - oracle| "
+              f"{r['max_abs_err']:.4g}")
+        assert r["kernel"] / r["oracle"] <= GROWTH_SLACK * base, (what, k, rows)
+
+
+@pytest.mark.parametrize("T", [1024, 8], ids=["prefill_tile", "decode_tile"])
+@pytest.mark.parametrize("sweep", ["d_ff", "d"])
+def test_mlp_bf16_sums_do_not_grow_their_error_at_granite_width(cuda, T, sweep):
+    cfg = resolve("granite")
+    d, ff = cfg.d_model, cfg.d_ff  # 6144, 24,576
+    ks = (ff // 8, ff // 4, ff // 2, ff) if sweep == "d_ff" else (d // 4, d // 2, d)
+    assert fused_mlp.default_tile(T) == ((16, 32) if T <= 16 else (128, 256))
+    rows = {}
+    for k in ks:
+        dk, fk = (d, k) if sweep == "d_ff" else (k, ff)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        x = _randn(gen, T, dk, dtype=torch.bfloat16)
+        w1, w3 = (_randn(gen, dk, fk, dtype=torch.bfloat16, std=dk ** -0.5)
+                  for _ in range(2))
+        w2 = _randn(gen, fk, dk, dtype=torch.bfloat16, std=fk ** -0.5)
+        got = fused_mlp.fused_mlp(x, w1, w2, w3)
+        want32 = ref.fused_mlp_ref(x, w1, w2, w3)
+        torch.testing.assert_close(got.float(), want32.float(),
+                                   atol=MLP_TOL[torch.bfloat16],
+                                   rtol=MLP_TOL[torch.bfloat16])
+        xd = x.double()
+        h = torch.nn.functional.silu(xd @ w1.double()) * (xd @ w3.double())
+        rows[k] = _rms_errors(got, want32, h @ w2.double())
+        del x, w1, w2, w3, h, xd
+    _assert_no_growth(f"fused_mlp T={T} d={d if sweep == 'd_ff' else 'K'} "
+                      f"d_ff={ff if sweep == 'd' else 'K'}", rows)
+
+
+def test_attention_bf16_sums_do_not_grow_their_error_at_long_prefill(cuda):
+    # qwen3's serve prefill (8 x 512, 16 / 8 heads, 128) and 2x, 4x its length
+    rows = {}
+    for S in (512, 1024, 2048):
+        q, k, v = _att_inputs((8, S, S, 16, 8, 128), torch.bfloat16, seed=13)
+        got = fused_attention.flash_attention(q, k, v)
+        want32 = ref.flash_attention_ref(q, k, v)
+        _assert_att(got, want32, torch.bfloat16)
+        idx = torch.arange(16, device="cuda") // 2
+        kd = k.index_select(2, idx).double()
+        vd = v.index_select(2, idx).double()
+        scores = torch.einsum("bqhd,bchd->bhqc", q.double(), kd) / 128 ** 0.5
+        mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+        del scores
+        want64 = torch.einsum("bhqc,bchd->bqhd", probs, vd)
+        rows[S] = _rms_errors(got, want32, want64)
+        del probs, want64, want32, kd, vd
+        torch.cuda.empty_cache()
+    _assert_no_growth("flash_attention causal (8, S, 16/8, 128) S", rows)
 
 
 # ---------------------------------------------------------------------------
