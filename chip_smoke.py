@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's four main paths through the entry points a user calls,
+Drives the port's five main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -33,44 +33,59 @@ PyTorch version.  Phases, one line each:
                262,144 = 83,886,080 candidates), re-timed with CUDA events,
                a seeded 4,096-cell sample held bit for bit to the scalar
                oracles and its least bandwidth to the DP optimum's;
-7. plan        plan_model for all 11 registry configs at 4096 tokens; every
+7. frontend    the tracing frontend -- the fifth main path, counts zeroed
+               just before and read just after (it launches none of the
+               four kernels): every model traced at full width over meta
+               tensors on the host (VGG-16 both modes, ResNet-18 224x224,
+               MobileNet 112x112, one superblock of each of the 11 registry
+               configs at 512 tokens, falcon-mamba's mixer at 1 and 2
+               chunks, the MoE FFN of the 4 MoE configs), each equal to the
+               reference's trace and VGG-16 / ResNet-18 equal to the
+               hand-built IRs, with nodes, edges and host seconds;
+               run_flow(groupings="search") on the card over the traced
+               ResNet-18, MobileNet, qwen3 block, falcon-mamba mixer and
+               mixtral MoE FFN, each equal to the reference's best point,
+               ResNet-18's bit for bit to the sweep of ir.resnet18_ir; the
+               ResNet-18 forward (batch 8, float32 against float64) and one
+               mixtral MoE layer at full width (bfloat16 against float32);
+8. plan        plan_model for all 11 registry configs at 4096 tokens; every
                chosen tile (the selective scan's too, for the configs with
                Mamba layers) fits the card's opt-in shared memory;
-8. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
+9. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16): 8 requests, prompt 512, 32
                generated tokens -- the second main path, counts zeroed just
                before and read just after: flash_attention once per layer
                in the prefill, fused_mlp once per layer per forward;
-9. serve_time  prefill ms, decode ms per token and tokens/s through the
+10. serve_time prefill ms, decode ms per token and tokens/s through the
                kernels and, for comparison, through their plain versions;
                prefill logits through the kernels against the plain path in
                bfloat16 and in float32; a profiled prefill and four decode
                steps;
-10. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
+11. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
                layers, bfloat16), 8 requests, prompt 512, 32 generated
                tokens -- the third main path, counts zeroed just before and
                read just after: selective_scan once per layer in the prefill
                and once per layer per decode step, no flash_attention or
                fused_mlp;
-11. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
+12. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
                cut depth, printed);
-12. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+13. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-13. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+14. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes and at the shapes of tests/test_kernels.py
                (masks, the planner's tiles, float32 and bfloat16), with the
                same four times, and every built tile at the serving shapes;
                kernel phases time a launch over runs of CALLS launches and
                also one call alone;
-14. scan       selective_scan vs its plain version at falcon-mamba's prefill
+15. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-15. the kernels line, then the result line.
+16. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -172,6 +187,70 @@ DAG_LOCKS = [("residual_block_ir", float("inf"), 200704.0, None),
 # computes it: bandwidth, latency and energy reductions (within 1e-12).
 RESNET_REDUCTIONS = (0.39744620408283005, 0.33105833902675863,
                      0.3235805468798656)
+
+# The tracing frontend's locks: the reference frontend's traces of the same
+# builders at full width (src/repro/core/frontend.py, run on the CPU), as
+# (nodes, edges, the first 16 hex digits of the sha256 of the repr of the
+# node and edge rows, each row a dataclasses.astuple).  VGG-16's traces are
+# chains (no edges).
+FRONTEND_LOCKS = {
+    "vgg16_network(separate)": (18, 0, "9d9e8059cf1f1d9c"),
+    "vgg16_network(absorbed)": (13, 0, "bd84f6d8e6e42525"),
+    "resnet18_graph(224)": (31, 38, "041e85d9bf7bf0fe"),
+    "mobilenet_graph(112)": (17, 18, "adb761095b08049c"),
+    "transformer_graph(llama4-maverick-400b-a17b)": (1071, 1600, "8627e02c6222552e"),
+    "transformer_graph(arctic-480b)": (528, 787, "69173b6bb08013bb"),
+    "transformer_graph(internvl2-1b)": (12, 13, "f1b5f230828cc188"),
+    "transformer_graph(granite-34b)": (10, 10, "b53377011e5dc5cc"),
+    "transformer_graph(phi3-mini-3.8b)": (12, 13, "c3bee9bad2631855"),
+    "transformer_graph(gemma3-27b)": (72, 98, "06ed0f606637d01f"),
+    "transformer_graph(qwen3-0.6b)": (12, 13, "85726b5669ecb75c"),
+    "transformer_graph(seamless-m4t-large-v2)": (10, 10, "bbc03910cfdb035f"),
+    "transformer_graph(jamba-1.5-large-398b)": (372, 569, "b52633f25ed015c0"),
+    "transformer_graph(falcon-mamba-7b)": (10, 15, "bc6681e0dc103eb1"),
+    "transformer_graph(mixtral-8x7b)": (43, 60, "0a9a9201070f8011"),
+    "mamba_graph(falcon-mamba-7b,1)": (9, 14, "dd4fdbc4e2ec1c50"),
+    "mamba_graph(falcon-mamba-7b,2)": (20, 33, "88ca8a0d94fb5acf"),
+    "moe_block_graph(llama4-maverick-400b-a17b)": (515, 770, "60299df2cee8b579"),
+    "moe_block_graph(arctic-480b)": (520, 775, "b87ddab376dcf88d"),
+    "moe_block_graph(jamba-1.5-large-398b)": (67, 98, "864d9ffc8b8b41b4"),
+    "moe_block_graph(mixtral-8x7b)": (35, 50, "d041c4991de02cc7"),
+}
+FRONTEND_SEQ = 512  # tokens of every zoo trace (benchmarks/bench_zoo.py)
+# The reference's run_flow(groupings="search") over its own traces of these
+# graphs (default space; the zoo blocks under the loose constraints of
+# benchmarks/bench_zoo.py, the CNNs under the paper's): best (style, f1,
+# f2, f3, f4), group sizes, candidates, feasible, and the best point's
+# (bandwidth words, latency cycles, energy nJ, area um^2).
+FRONTEND_SWEEPS = {
+    "resnet18_graph(224)": (("hsiao", 8, 2, 2, 4), (31,), 960, 788,
+                            (11830440.0, 4754842.0, 16093645.28, 10772720.0)),
+    "mobilenet_graph(112)": (("hsiao", 8, 2, 2, 2), (17,), 640, 570,
+                             (69760.0, 245660.0, 398238.72, 1518960.0)),
+    "transformer_graph(qwen3-0.6b)": (
+        ("hsiao", 16, 8, 16, 16), (12,), 640, 640,
+        (18350080.0, 5357760.0, 283314749.44, 213469680.0)),
+    "mamba_graph(falcon-mamba-7b,1)": (
+        ("hsiao", 16, 16, 16, 16), (9,), 640, 640,
+        (109314048.0, 28149904.0, 704205127.68, 1035311600.0)),
+    "moe_block_graph(mixtral-8x7b)": (
+        ("hsiao", 8, 16, 16, 16), (35,), 640, 640,
+        (1415610368.0, 365175856.0, 5273031557.120001, 373377520.0)),
+}
+# ResNet-18's float32 logits on the card against its float64 forward,
+# relative to the largest |logit|: LOGIT_TOL, the float32 tolerance of the
+# VGG-16 forward (cuDNN with TF32 off sums each conv's products in its own
+# order; 21 convs here against 13 there, each a few float32 ulps).
+RESNET_F32_TOL = LOGIT_TOL
+RESNET_BATCH = 8
+# One mixtral-8x7b MoE layer at full width in bfloat16 against the same
+# layer in float32, relative to the largest |y|, as PREFILL_TOL's bfloat16:
+# both runs take the same bfloat16 input and the float32 router, so they
+# route every token alike, and the bfloat16 run rounds the expert weights,
+# h, the gated product, the expert outputs, the combine weights and y
+# (2^-9 relative each).
+MOE_BF16_TOL = 5e-2
+MOE_TOKENS = 4096
 
 
 def fail(msg: str) -> None:
@@ -561,6 +640,220 @@ def phase_dag_search(torch, np, seed: int) -> dict:
         "sweep_s": res.sweep_seconds, "host_s": host,
         "candidates_per_s": res.candidates_per_second, "device_sweep_ms": device_ms,
         "device_peak_bytes": peak, "least_bandwidth": least}
+    return out
+
+
+def graph_digest(g) -> str:
+    """The first 16 hex digits of the sha256 of a traced graph's node and
+    edge rows (FRONTEND_LOCKS)."""
+    import dataclasses
+    import hashlib
+
+    nodes = g.nodes if hasattr(g, "nodes") else g.layers
+    rows = ([dataclasses.astuple(n) for n in nodes],
+            [dataclasses.astuple(e) for e in getattr(g, "edges", ())])
+    return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
+
+
+def frontend_builders() -> dict:
+    """name -> zero-argument builder of every trace FRONTEND_LOCKS holds."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core import frontend as F
+
+    out = {
+        "vgg16_network(separate)": lambda: F.vgg16_network(pool_mode="separate"),
+        "vgg16_network(absorbed)": lambda: F.vgg16_network(pool_mode="absorbed"),
+        "resnet18_graph(224)": lambda: F.resnet18_graph(input_hw=224),
+        "mobilenet_graph(112)": lambda: F.mobilenet_graph(input_hw=112),
+    }
+    for name, cfg in REGISTRY.items():
+        out[f"transformer_graph({name})"] = (
+            lambda cfg=cfg: F.transformer_graph(cfg, seq_len=FRONTEND_SEQ))
+    for chunks in (1, 2):
+        out[f"mamba_graph(falcon-mamba-7b,{chunks})"] = (
+            lambda chunks=chunks: F.mamba_graph(REGISTRY["falcon-mamba-7b"],
+                                                seq_len=FRONTEND_SEQ, chunks=chunks))
+    for name, cfg in REGISTRY.items():
+        if cfg.n_experts > 1:
+            out[f"moe_block_graph({name})"] = (
+                lambda cfg=cfg: F.moe_block_graph(cfg, seq_len=FRONTEND_SEQ))
+    return out
+
+
+def phase_frontend_traces() -> dict:
+    """Every model traced at full width over meta tensors, on the host:
+    nodes, edges and seconds of each, each graph equal to the reference's
+    (FRONTEND_LOCKS), VGG-16 and ResNet-18 equal to the hand-built IRs."""
+    from repro_torch.core import ir
+
+    graphs, rows = {}, []
+    for name, build in frontend_builders().items():
+        t0 = time.perf_counter()
+        g = build()
+        secs = time.perf_counter() - t0
+        nodes = g.nodes if hasattr(g, "nodes") else g.layers
+        got = (len(nodes), len(getattr(g, "edges", ())), graph_digest(g))
+        check(got == FRONTEND_LOCKS[name],
+              f"frontend {name}: {got} != the reference's {FRONTEND_LOCKS[name]}")
+        graphs[name] = g
+        rows.append({"graph": name, "nodes": got[0], "edges": got[1],
+                     "host_s": secs})
+        print(f"frontend trace {name}: {got[0]} nodes, {got[1]} edges, "
+              f"{secs:.3f} s on the host (= the reference's trace)")
+    for mode in ("separate", "absorbed"):
+        check(graphs[f"vgg16_network({mode})"] == ir.vgg16_ir(pool_mode=mode),
+              f"traced VGG-16 ({mode}) != ir.vgg16_ir")
+    hand = ir.resnet18_ir()
+    traced = graphs["resnet18_graph(224)"]
+    check(traced.nodes == hand.nodes and traced.edges == hand.edges,
+          "traced ResNet-18 != ir.resnet18_ir")
+    scan = next(n for n in graphs["mamba_graph(falcon-mamba-7b,1)"].nodes
+                if n.kind == "scan")
+    check((scan.n_in, scan.h_in, scan.w_in, scan.state_words)
+          == (8192, 1, FRONTEND_SEQ, 131072),
+          f"falcon-mamba scan node {scan}")
+    total = sum(r["host_s"] for r in rows)
+    print(f"phase frontend traces: {len(rows)} graphs in {total:.3f} s on the "
+          f"host; VGG-16 (both modes) = ir.vgg16_ir, ResNet-18 = "
+          f"ir.resnet18_ir; falcon-mamba's scan node {scan.n_in} channels, "
+          f"frame 1 x {scan.w_in}, {scan.state_words} state words")
+    return {"graphs": graphs, "rows": rows}
+
+
+def flows_equal(np, a, b) -> bool:
+    """Two FlowResults agree bit for bit (best point, counts, front)."""
+    fa, fb = a.pareto, b.pareto
+    return (a.best_hw == b.best_hw and np.array_equal(a.best_cuts, b.best_cuts)
+            and a.best_metrics == b.best_metrics and a.group_sizes == b.group_sizes
+            and (a.n_candidates, a.n_feasible, a.n_pruned, a.search_engine)
+            == (b.n_candidates, b.n_feasible, b.n_pruned, b.search_engine)
+            and np.array_equal(fa.metrics, fb.metrics)
+            and np.array_equal(fa.cuts, fb.cuts) and fa.configs == fb.configs)
+
+
+def phase_frontend_sweeps(np, graphs: dict) -> list:
+    """run_flow(groupings="search") on the card over the traced ResNet-18,
+    MobileNet, one attention block, one Mamba block and one MoE block, each
+    held to the reference's result (FRONTEND_SWEEPS); the traced ResNet-18
+    bit for bit to the same sweep over ir.resnet18_ir()."""
+    from repro_torch.core import ir
+    from repro_torch.core import metrics as M
+    from repro_torch.core.arch import Constraints
+    from repro_torch.core.flow import run_flow
+
+    loose = Constraints(*[float("inf")] * 4)
+    rows = []
+    for name, (hw, groups, n_cand, n_feas, metrics) in FRONTEND_SWEEPS.items():
+        g = graphs[name]
+        kw = {} if name.startswith(("resnet", "mobilenet")) else {"constraints": loose}
+        t0 = time.perf_counter()
+        res = run_flow(g, groupings="search", pareto=True, device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        b = res.best_hw
+        m = res.best_metrics
+        got = ((b.style, b.f1, b.f2, b.f3, b.f4), tuple(res.group_sizes),
+               res.n_candidates, res.n_feasible,
+               (m.bandwidth_words, m.latency_cycles, m.energy_nj, m.area_um2))
+        check(got == (hw, groups, n_cand, n_feas, metrics),
+              f"frontend sweep {name}: {got} != the reference's "
+              f"{(hw, groups, n_cand, n_feas, metrics)}")
+        check(M.evaluate_ref(g, res.best_cuts, res.best_hw) == m,
+              f"frontend sweep {name}: best point != the scalar oracle")
+        row = {"graph": name, "wall_s": wall, "setup_s": res.compile_seconds,
+               "sweep_s": res.sweep_seconds, "n_candidates": res.n_candidates,
+               "n_feasible": res.n_feasible, "engine": res.search_engine,
+               "best_hw": list(got[0]), "groups": list(got[1]),
+               "best": list(got[4]), "pareto_points": res.pareto.size}
+        if name == "resnet18_graph(224)":
+            hand = run_flow(ir.resnet18_ir(), groupings="search", pareto=True,
+                            device="cuda")
+            check(flows_equal(np, res, hand),
+                  "the traced ResNet-18's sweep differs from ir.resnet18_ir's")
+            row["equals_hand_built"] = True
+        rows.append(row)
+        print(f"frontend sweep {name}: {res.n_candidates} candidates, "
+              f"{res.n_feasible} feasible, best {b.describe()} groups "
+              f"{list(res.group_sizes)} [{res.search_engine}], bandwidth "
+              f"{m.bandwidth_words!r} words, energy {m.energy_nj!r} nJ (= the "
+              f"reference's and the scalar oracle's"
+              + ("; = ir.resnet18_ir's sweep bit for bit" if "equals_hand_built" in row
+                 else "")
+              + f"); run_flow {wall * 1e3:.3f} ms = set-up "
+              f"{res.compile_seconds * 1e3:.3f} ms + sweep "
+              f"{res.sweep_seconds * 1e3:.3f} ms + host")
+    return rows
+
+
+def phase_frontend_forwards(torch, seed: int) -> dict:
+    """The traced models' own forwards on the card: ResNet-18 (batch 8,
+    224x224, float32) against its float64 forward, and one mixtral-8x7b MoE
+    layer at full width on MOE_TOKENS tokens, bfloat16 against float32."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import moe, resnet
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = resnet.init_params(gen)
+    x = torch.randn((RESNET_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    params64 = pytree.tree_map(lambda t: t.double(), params)
+    with torch.inference_mode():
+        y = resnet.forward(params, x)
+        y64 = resnet.forward(params64, x.double())
+        ms = time_ms(torch, {"f32": lambda: resnet.forward(params, x),
+                             "f64": lambda: resnet.forward(params64, x.double())}, REPS)
+    check(tuple(y.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(y).all()),
+          f"ResNet-18 logits {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+    err = float((y.double() - y64).abs().max())
+    scale = float(y64.abs().max())
+    check(err <= RESNET_F32_TOL * scale,
+          f"ResNet-18 float32 logits differ from float64 by {err} > "
+          f"{RESNET_F32_TOL} x {scale}")
+    print(f"phase frontend forward: ResNet-18 224x224 batch {RESNET_BATCH} "
+          f"float32 {ms['f32']:.3f} ms, float64 {ms['f64']:.3f} ms; logits max "
+          f"|float32 - float64| = {err:.6g} (max |logit| {scale:.6g}, tolerance "
+          f"{RESNET_F32_TOL} x max)")
+    out = {"resnet18": {"batch": RESNET_BATCH, "ms_float32": ms["f32"],
+                        "ms_float64": ms["f64"], "max_abs_err": err,
+                        "max_abs_logit": scale}}
+    del params, params64, x, y, y64
+    torch.cuda.empty_cache()
+
+    cfg = REGISTRY["mixtral-8x7b"]
+    p32 = moe.init_moe(gen, cfg, torch.float32)
+    p16 = {k: v if k == "router" else v.to(torch.bfloat16) for k, v in p32.items()}
+    x16 = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    x32 = x16.float()
+    with torch.inference_mode():
+        y16, aux16 = moe.moe_block(p16, x16, cfg)
+        y32, aux32 = moe.moe_block(p32, x32, cfg)
+        ms = time_ms(torch, {"bf16": lambda: moe.moe_block(p16, x16, cfg),
+                             "f32": lambda: moe.moe_block(p32, x32, cfg)}, REPS)
+    check(y16.dtype == torch.bfloat16 and tuple(y16.shape) == tuple(x16.shape)
+          and bool(torch.isfinite(y16).all()),
+          f"MoE output {y16.dtype} {tuple(y16.shape)}")
+    err = float((y16.float() - y32).abs().max())
+    scale = float(y32.abs().max())
+    aux_diff = abs(float(aux16) - float(aux32))
+    check(err <= MOE_BF16_TOL * scale,
+          f"MoE bfloat16 output differs from float32 by {err} > "
+          f"{MOE_BF16_TOL} x {scale}")
+    check(aux_diff <= 1e-6 * abs(float(aux32)),
+          f"MoE aux loss {float(aux16)} (bfloat16) != {float(aux32)} (float32)")
+    weights = sum(v.numel() * v.element_size() for v in p16.values())
+    print(f"phase frontend forward: mixtral-8x7b MoE layer (d {cfg.d_model}, ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts, top-{cfg.top_k}, "
+          f"{weights / 1e9:.3f} GB of bfloat16 weights) on {MOE_TOKENS} tokens: "
+          f"bfloat16 {ms['bf16']:.3f} ms, float32 {ms['f32']:.3f} ms; max "
+          f"|bfloat16 - float32| = {err:.6g} (max |y| {scale:.6g}, tolerance "
+          f"{MOE_BF16_TOL} x max); aux loss {float(aux16)!r} / {float(aux32)!r}")
+    out["moe"] = {"tokens": MOE_TOKENS, "weight_bytes_bf16": weights,
+                  "ms_bfloat16": ms["bf16"], "ms_float32": ms["f32"],
+                  "max_abs_err": err, "max_abs_y": scale,
+                  "aux": [float(aux16), float(aux32)]}
+    del p32, p16, x16, x32, y16, y32
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1409,6 +1702,19 @@ def main(argv=None) -> int:
           f"the DAG search path launched kernels: {dag_counts}")
     print(f"phase main_path dag_search: launches {dag_counts}")
 
+    # ---- main path 5, the tracing frontend: counts zeroed just before, read
+    # just after (its traces, sweeps and forwards run no kernel of K1-K4) ----
+    zero_counts()
+    traces = phase_frontend_traces()
+    frontend = {"traces": traces["rows"],
+                "sweeps": phase_frontend_sweeps(np, traces["graphs"]),
+                "forwards": phase_frontend_forwards(torch, args.seed)}
+    del traces
+    frontend_counts = read_counts()
+    check(not any(frontend_counts.values()),
+          f"the frontend path launched kernels: {frontend_counts}")
+    print(f"phase main_path frontend: launches {frontend_counts}")
+
     # ---- main path 2, serving qwen3-0.6b: counts zeroed just before, read
     # just after ----
     plans = phase_plan(spec)
@@ -1480,7 +1786,8 @@ def main(argv=None) -> int:
     REPORT.write_text(json.dumps({
         "card": card, "build": build, "paper_flow": paper,
         "exhaustive": exhaustive, "forward": forward, "dag_search": dag,
-        "dag_search_counts": dag_counts, "layers": layer_rows,
+        "dag_search_counts": dag_counts, "frontend": frontend,
+        "frontend_counts": frontend_counts, "layers": layer_rows,
         "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
         "serve_time": serve_time, "serve_ssm": ssm_run, "serve_ssm_counts": ssm_counts,
         "serve_ssm_time": ssm_time, "attention": att_rows, "mlp": mlp_rows,

@@ -117,10 +117,10 @@ def _check_args(x, w1, w2, w3, act: str) -> None:
     """Shapes and activations both versions take."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r} (one of {tuple(ACTS)})")
-    if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
-        raise ValueError("x must be (T, d), w1 (d, ff), w2 (ff, d)")
+    if x.dim() < 1 or w1.dim() != 2 or w2.dim() != 2:
+        raise ValueError("x must be (..., d), w1 (d, ff), w2 (ff, d)")
     d, ff = w1.shape
-    if x.shape[1] != d or tuple(w2.shape) != (ff, d):
+    if x.shape[-1] != d or tuple(w2.shape) != (ff, d):
         raise ValueError(f"x {tuple(x.shape)}, w1 {tuple(w1.shape)} and w2 "
                          f"{tuple(w2.shape)} do not chain")
     if act in GATED and (w3 is None or w3.shape != w1.shape):
@@ -152,9 +152,10 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               w3: torch.Tensor | None = None, *, act: str = "swiglu",
               block_m: int | None = None,
               block_f: int | None = None) -> torch.Tensor:
-    """``act(x @ w1) [* (x @ w3)] @ w2`` for ``x`` (T, d), in float32, the
-    result in ``x.dtype``; acts swiglu, geglu (gated, need ``w3``), gelu
-    (tanh form, as ``jax.nn.gelu``) and relu.
+    """``act(x @ w1) [* (x @ w3)] @ w2`` for ``x`` (..., d), in float32,
+    the result in ``x.dtype`` and ``x``'s shape; acts swiglu, geglu (gated,
+    need ``w3``), gelu (tanh form, as ``jax.nn.gelu``) and relu.  The kernel
+    takes the T rows of ``x``; the plain version any leading shape.
 
     A CPU tensor takes the plain version (tiles ignored); a CUDA tensor
     launches the kernel (counted in ``fused_mlp.launches``) at the tile
@@ -165,6 +166,8 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         return ref.fused_mlp_ref(x, w1, w2, w3, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cuda or cpu tensors, got {x.device}")
+    shape = x.shape
+    x = x.reshape(-1, shape[-1])
     T, d = x.shape
     ff = w1.shape[1]
     dm, df = default_tile(T, x.dtype)
@@ -175,7 +178,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     _check_cuda(x, ws, bm, bf)
     y = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y
+        return y.reshape(shape)
     # float32 sums go straight into y; bfloat16 ones into a float32 buffer
     acc = y if x.dtype == torch.float32 else torch.empty(
         (T, d), dtype=torch.float32, device=x.device)
@@ -192,7 +195,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             f"fused_mlp launch failed with CUDA error {err} (T {T}, d {d}, "
             f"ff {ff}, {act}, tile {bm}x{bf}, {smem_bytes(bm, bf, x.dtype)} B shared)")
     fused_mlp.launches += 1
-    return y
+    return y.reshape(shape)
 
 
 fused_mlp.launches = 0

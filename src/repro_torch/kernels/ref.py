@@ -92,22 +92,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                   w3: torch.Tensor | None = None, *,
                   act: str = "swiglu") -> torch.Tensor:
-    """``act(x @ w1) [* (x @ w3)] @ w2`` in float32, the result in
-    ``x.dtype``.  gelu is the tanh form (``jax.nn.gelu``'s default), not
-    PyTorch's default erf form."""
-    xf = x.float()
-    h = xf @ w1.float()
+    """``act(x @ w1) [* (x @ w3)] @ w2`` in float32 (float64 for float64
+    inputs), the result in ``x.dtype``.  gelu is the tanh form
+    (``jax.nn.gelu``'s default), not PyTorch's default erf form."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    h = xf @ w1.to(acc)
     if act == "swiglu":
-        h = F.silu(h) * (xf @ w3.float())
+        h = F.silu(h) * (xf @ w3.to(acc))
     elif act == "geglu":
-        h = F.gelu(h, approximate="tanh") * (xf @ w3.float())
+        h = F.gelu(h, approximate="tanh") * (xf @ w3.to(acc))
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")
     elif act == "relu":
         h = torch.relu(h)
     else:
         raise ValueError(f"unknown act {act!r}")
-    return (h @ w2.float()).to(x.dtype)
+    return (h @ w2.to(acc)).to(x.dtype)
 
 
 def selective_scan_ref(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,

@@ -28,8 +28,11 @@ Conventions
 from __future__ import annotations
 
 import math
+from typing import Any, Callable
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..kernels import ops
 
@@ -59,6 +62,34 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
 def rmsnorm_init(d: int, dtype, device) -> torch.Tensor:
     """(d,) ones."""
     return torch.ones((d,), dtype=dtype, device=device)
+
+
+def to_torch(a) -> torch.Tensor:
+    """A numpy (or array-like) value as a CPU tensor; bfloat16 arrays go
+    through their 16-bit pattern, which numpy cannot hand to torch."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree):
+    """A reference parameter tree (dicts and lists of numpy or jax arrays)
+    as CPU tensors of the same structure; every leaf keeps its dtype."""
+    return pytree.tree_map(to_torch, tree)
+
+
+def param_specs_of(init: Callable[[torch.Generator], Any]) -> Any:
+    """The tree ``init(generator)`` returns, as ``device="meta"`` tensors of
+    the same shapes and dtypes — the counterpart of the reference's
+    ``jax.eval_shape`` hooks.  ``init`` runs under a fake-tensor mode, so
+    nothing is allocated (arctic's experts cost nothing to spec)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        tree = init(torch.Generator().manual_seed(0))
+    return pytree.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +182,17 @@ def attention_reference(q, k, v, *, q_pos, kv_pos, mixer: str = "attn",
     H, hd = q.shape[2], q.shape[3]
     kr = repeat_kv(k, H).float()
     vr = repeat_kv(v, H).float()
-    scores = torch.einsum("bqhd,bchd->bhqc", q.float(), kr) * (1.0 / math.sqrt(hd))
+    # The two products take their operands in the order of the reference's
+    # dot_generals (q then k; v then the probabilities), so a traced graph
+    # gives each actmul the reference's frame.
+    scores = (q.float().transpose(1, 2) @ kr.permute(0, 2, 3, 1)) * (1.0 / math.sqrt(hd))
     scores = softcap(scores, logit_cap)
     bias = attention_bias(q_pos, kv_pos, mixer=mixer, causal=causal,
                           window=window, chunk=chunk, kv_len=kv_len,
                           device=q.device)
-    probs = torch.softmax(scores + bias[None, None], dim=-1)
-    return torch.einsum("bhqc,bchd->bqhd", probs, vr).to(q.dtype)
+    probs = torch.softmax(scores + bias[None, None], dim=-1)  # (B, H, Sq, Skv)
+    out = vr.permute(0, 2, 3, 1) @ probs.transpose(-1, -2)  # (B, H, hd, Sq)
+    return out.permute(0, 3, 1, 2).to(q.dtype)
 
 
 def attention_decode(q, k, v, *, q_pos, kv_pos, mixer: str = "attn",
@@ -284,8 +319,13 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
                     positions, cache: dict | None = None,
                     cross_kv: tuple | None = None, causal: bool = True,
                     kv_block: int = 1024, ring: bool = False,
-                    flash=None) -> tuple[torch.Tensor, dict | None]:
+                    flash=None, impl: str = "chunked"
+                    ) -> tuple[torch.Tensor, dict | None]:
     """Self- (or cross-) attention sub-layer.  Returns (out, new_cache).
+
+    ``impl="reference"`` computes the scores whole
+    (:func:`attention_reference`), as the reference's tracing hook does;
+    the default ``"chunked"`` goes through :func:`attention_chunked`.
 
     ``cache``: ``{"k", "v": (B, max_seq, KV, hd), "len": int}``.  The new
     keys and values are written into the cache's buffers in place (the
@@ -336,10 +376,13 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     else:
         kv_pos, kv_len = positions, None
 
-    out = attention_chunked(
-        q, k, v, q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,
-        window=cfg.window_size, chunk=cfg.chunk_size, kv_len=kv_len,
-        logit_cap=cfg.logit_softcap, kv_block=kv_block, flash=flash)
+    kw = dict(q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,
+              window=cfg.window_size, chunk=cfg.chunk_size, kv_len=kv_len,
+              logit_cap=cfg.logit_softcap)
+    if impl == "reference":
+        out = attention_reference(q, k, v, **kw)
+    else:
+        out = attention_chunked(q, k, v, **kw, kv_block=kv_block, flash=flash)
     return out.reshape(B, S, H * hd) @ params["wo"], new_cache
 
 
@@ -357,13 +400,12 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str, dtype) -> dict:
 
 
 def mlp_block(params: dict, x: torch.Tensor, act: str, *, fused=None) -> torch.Tensor:
-    """``act(x @ w1) [* (x @ w3)] @ w2`` over the T = B * S rows of ``x``,
-    through ``fused(x2d, w1, w2, w3, act=)`` (default: the K3 wrapper — the
-    kernel on a CUDA tensor, its plain float32 version on a CPU one)."""
+    """``act(x @ w1) [* (x @ w3)] @ w2`` over the rows of ``x`` (..., d),
+    through ``fused(x, w1, w2, w3, act=)`` (default: the K3 wrapper — the
+    kernel on a CUDA tensor, its plain float32 version on a CPU one).  ``x``
+    keeps its leading shape, as in the reference, so a traced gate has the
+    reference's frame."""
     if act not in ACTS:
         raise ValueError(act)
     fused = ops.KERNELS.mlp if fused is None else fused
-    shape = x.shape
-    y = fused(x.reshape(-1, shape[-1]), params["w1"], params["w2"],
-              params.get("w3"), act=act)
-    return y.reshape(shape)
+    return fused(x, params["w1"], params["w2"], params.get("w3"), act=act)

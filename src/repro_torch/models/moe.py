@@ -1,0 +1,136 @@
+"""Mixture-of-Experts FFN with GShard-style group-limited capacity routing
+— the port of the JAX package's ``models/moe.py``, forward only.
+
+Tokens are reshaped to ``(groups, group_size)`` and each group dispatches
+independently to per-expert capacity slots.  The dispatch and combine
+one-hots are ``(G, Sg, E, C)`` with ``C = ceil(top_k * Sg / E *
+capacity_factor)``; over-capacity tokens are dropped (combine weight 0),
+earlier tokens and lower k winning the slots.  One-hots are built as
+``idx[..., None] == arange(E)``, which is what ``jax.nn.one_hot`` computes.
+The reference's sharding hints have no counterpart on one device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+from .layers import params_from_jax  # noqa: F401  (the reference tree as tensors)
+
+
+def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
+    """One MoE FFN's parameters drawn from ``gen`` with the reference's
+    scales: the router ``(d, E)`` in float32, experts ``w1``/``w3`` ``(E, d,
+    ff)`` and ``w2`` ``(E, ff, d)`` in ``dtype``, and arctic's parallel
+    dense MLP when ``cfg.dense_residual_ff``."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = gen.device
+    scale = 1.0 / math.sqrt(d)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    p = {
+        "router": normal(d, E) * scale,  # fp32: routing is precision-sensitive
+        "w1": (normal(E, d, ff) * scale).to(dtype),
+        "w2": (normal(E, ff, d) / math.sqrt(ff)).to(dtype),
+    }
+    if cfg.ffn_act in L.GATED_ACTS:
+        p["w3"] = (normal(E, d, ff) * scale).to(dtype)
+    if cfg.dense_residual_ff:
+        p["dense_residual"] = L.init_mlp(gen, d, cfg.dense_residual_ff,
+                                         cfg.ffn_act, dtype)
+    return p
+
+
+def moe_param_specs(cfg, *, dtype=torch.float32) -> dict:
+    """:func:`init_moe`'s tree as ``device="meta"`` tensors (nothing
+    materialised; the tracing frontend's hook)."""
+    return L.param_specs_of(lambda gen: init_moe(gen, cfg, dtype))
+
+
+def _capacity(cfg, group_size: int) -> int:
+    c = math.ceil(cfg.top_k * group_size / cfg.n_experts * cfg.capacity_factor)
+    return max(c, 1)
+
+
+def route_topk(router_logits: torch.Tensor, top_k: int):
+    """(..., E) logits -> (gates, indices, probs); gates and indices are
+    (..., top_k) and the gates sum to 1."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    gates, idx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return gates, idx, probs
+
+
+def _act(h: torch.Tensor, act: str) -> torch.Tensor:
+    if act in ("gelu", "geglu"):
+        return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    if act == "swiglu":
+        return F.silu(h)
+    return torch.relu(h)
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN.  x: (B, S, d) -> (y (B, S, d), aux load-balance loss).
+
+    ``mlp`` is the fusion group of arctic's dense residual, as
+    ``layers.mlp_block``'s ``fused`` (default: the fused-MLP wrapper)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    Sg = min(cfg.moe_group_size, T)
+    G = T // Sg
+    if G * Sg != T:
+        raise ValueError(f"tokens {T} not divisible by group size {Sg}")
+    dev, dt = x.device, x.dtype
+    xg = x.reshape(G, Sg, d)
+
+    router = params["router"]  # float32 x float32, promoted as jnp does
+    logits = xg.float().to(torch.promote_types(torch.float32, router.dtype)) @ router
+    gates, idx, probs = route_topk(logits, K)  # (G, Sg, K)
+
+    # Load-balance aux loss (Switch): E * sum_e f_e * p_e.
+    experts = torch.arange(E, device=dev)
+    me = probs.mean(dim=(0, 1))
+    fe = (idx[..., 0, None] == experts).float().mean(dim=(0, 1))
+    aux = E * torch.sum(fe * me)
+
+    C = _capacity(cfg, Sg)
+    # Position of each (token, k) claim within its expert's capacity, the
+    # (Sg, K) claims flattened token-major so earlier tokens win slots.
+    claims = (idx[..., None] == experts).to(dt)  # (G, Sg, K, E)
+    flat = claims.reshape(G, Sg * K, E)
+    pos = torch.cumsum(flat.float(), dim=1).to(dt) - flat
+    keep = torch.where(pos < C, flat, torch.zeros((), dtype=dt, device=dev))
+    slots = torch.arange(C, device=dev)
+    pos_oh = (pos.to(torch.int32)[..., None] == slots).to(dt) * keep[..., None]
+    disp_flat = pos_oh.reshape(G, Sg, K, E, C)
+
+    dispatch = disp_flat.sum(dim=2)  # (G, Sg, E, C): <= 1 slot per expert
+    combine = torch.einsum("gskec,gsk->gsec", disp_flat, gates.to(dt))
+
+    # The products are written out so that each takes its operands in the
+    # order of the reference's dot_generals (the one-hots on the left): a
+    # traced graph then gives the dispatch and combine actmuls the
+    # reference's frames, whatever path torch.einsum would choose.
+    xe = (dispatch.permute(0, 2, 3, 1).reshape(G, E * C, Sg) @ xg).reshape(G, E, C, d)
+
+    def per_expert(a, w):  # (G, E, C, i) x (E, i, o) -> (G, E, C, o)
+        o = a.transpose(0, 1).reshape(E, G * C, a.shape[-1]) @ w
+        return o.reshape(E, G, C, w.shape[-1]).transpose(0, 1)
+
+    h = per_expert(xe, params["w1"])
+    if cfg.ffn_act in L.GATED_ACTS:
+        h = _act(h, cfg.ffn_act) * per_expert(xe, params["w3"])
+    else:
+        h = _act(h, cfg.ffn_act)
+    ye = per_expert(h, params["w2"])
+    y = combine.reshape(G, Sg, E * C) @ ye.reshape(G, E * C, d)
+
+    if "dense_residual" in params:  # arctic: parallel dense MLP
+        y = y + L.mlp_block(params["dense_residual"], xg, cfg.ffn_act, fused=mlp)
+    return y.reshape(B, S, d), aux

@@ -11,8 +11,10 @@ sequential oracle) and :func:`selective_scan_chunked` (chunk-recurrent; the
 in-chunk scan is a log-depth doubling loop, since PyTorch has no
 ``associative_scan``).
 
-The reference's ``mamba_param_specs`` (a ``jax.eval_shape`` hook of the
-tracing frontend) waits for the frontend's port.
+:func:`mamba_param_specs` is the tracing frontend's hook: the parameter
+shapes as meta tensors.  The frontend passes its own ``scan`` (one marker
+op, so the recurrence traces to a single graph node); the model's path
+keeps ``ops.KERNELS.ssm_scan``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
+from . import layers as L
 from .layers import dense_init
 
 
@@ -50,6 +53,12 @@ def init_mamba(gen: torch.Generator, cfg, dtype) -> dict:
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": dense_init(gen, di, d, dtype),
     }
+
+
+def mamba_param_specs(cfg, *, dtype=torch.float32) -> dict:
+    """:func:`init_mamba`'s tree as ``device="meta"`` tensors (nothing
+    materialised)."""
+    return L.param_specs_of(lambda gen: init_mamba(gen, cfg, dtype))
 
 
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

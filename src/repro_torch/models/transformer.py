@@ -11,9 +11,11 @@ prefill (cache write) and decode (cache read-extend).  The cache's length
 is a Python int, so that no layer waits on the device to read it.
 
 Each sublayer is a mixer (attention, or a Mamba-1 SSM) followed by a
-dense FFN, or by nothing when ``d_ff == 0`` (falcon-mamba's blocks are
-mixer-only).  MoE sublayers and encoder-decoder models raise
-``NotImplementedError`` (ROADMAP Queue 1).
+dense FFN, an MoE FFN, or nothing when ``d_ff == 0`` (falcon-mamba's blocks
+are mixer-only).  :func:`block_forward` (the tracing frontend's hook) runs
+every kind; the serving path (:func:`forward`) raises
+``NotImplementedError`` for MoE sublayers and encoder-decoder models
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from ..kernels import ops
 from . import layers as L
+from . import moe as MOE
 from . import ssm as SSM
 
 
@@ -64,14 +67,17 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(gen: torch.Generator, cfg, mixer: str, dtype) -> dict:
+def _init_sublayer(gen: torch.Generator, cfg, mixer: str, is_moe: bool,
+                   dtype) -> dict:
     sub: dict = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
                  "norm2": L.rmsnorm_init(cfg.d_model, dtype, gen.device)}
     if mixer == "mamba":
         sub["mamba"] = SSM.init_mamba(gen, cfg, dtype)
     else:
         sub["attn"] = L.init_attention(gen, cfg, dtype)
-    if cfg.d_ff > 0:
+    if is_moe:
+        sub["moe"] = MOE.init_moe(gen, cfg, dtype)
+    elif cfg.d_ff > 0:
         sub["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype)
     else:
         del sub["norm2"]  # mamba-1 blocks: mixer only, no FFN sublayer
@@ -87,8 +93,8 @@ def init_params(gen: torch.Generator, cfg) -> dict:
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": L.rmsnorm_init(cfg.d_model, dtype, gen.device),
         "segments": [
-            [{f"sub{j}": _init_sublayer(gen, cfg, mixer, dtype)
-              for j, (mixer, _) in enumerate(spec.kinds)}
+            [{f"sub{j}": _init_sublayer(gen, cfg, mixer, is_moe, dtype)
+              for j, (mixer, is_moe) in enumerate(spec.kinds)}
              for _ in range(spec.repeats)]
             for spec in segments_of(cfg)
         ],
@@ -96,15 +102,6 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
     return params
-
-
-def _to_torch(a) -> torch.Tensor:
-    """A numpy (or array-like) value as a CPU tensor; bfloat16 arrays go
-    through their 16-bit pattern, which numpy cannot hand to torch."""
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 def params_from_jax(tree: dict) -> dict:
@@ -117,9 +114,9 @@ def params_from_jax(tree: dict) -> dict:
     def layer(node, r):
         if isinstance(node, dict):
             return {k: layer(v, r) for k, v in node.items()}
-        return _to_torch(np.asarray(node)[r])
+        return L.to_torch(np.asarray(node)[r])
 
-    out = {k: _to_torch(v) for k, v in tree.items() if k != "segments"}
+    out = {k: L.to_torch(v) for k, v in tree.items() if k != "segments"}
     out["segments"] = []
     for seg in tree["segments"]:
         repeats = len(np.asarray(next(iter(_leaves(seg)))))
@@ -170,8 +167,10 @@ def init_cache(cfg, batch: int, max_seq: int, n_layers: int | None = None, *,
 # ---------------------------------------------------------------------------
 
 
-def _sublayer(sub, x, cfg, rc, mixer, positions, cache, cache_len, kernels):
-    """One (mixer + FFN) sublayer.  Returns (x, new_cache)."""
+def _sublayer(sub, x, cfg, rc, mixer, is_moe, positions, cache, cache_len,
+              aux, kernels, attn_impl="chunked"):
+    """One (mixer + FFN) sublayer.  Returns (x, new_cache, aux): an MoE
+    sublayer adds its load-balance loss to ``aux``."""
     h = L.rmsnorm(sub["norm1"], x, cfg.rmsnorm_eps)
     if mixer == "mamba":
         out, new_cache = SSM.mamba_block(sub["mamba"], h, cfg, cache,
@@ -184,14 +183,48 @@ def _sublayer(sub, x, cfg, rc, mixer, positions, cache, cache_len, kernels):
             sub["attn"], h, cfg, mixer=mixer, positions=positions,
             cache=attn_cache, kv_block=rc.attn_chunk_kv,
             ring=(rc.local_ring_cache and mixer == "attn_local"),
-            flash=kernels.attention,
+            flash=kernels.attention, impl=attn_impl,
         )
         new_cache = None if nc is None else {"k": nc["k"], "v": nc["v"]}
     x = x + out
     if "norm2" not in sub:
-        return x, new_cache
+        return x, new_cache, aux
     h = L.rmsnorm(sub["norm2"], x, cfg.rmsnorm_eps)
-    return x + L.mlp_block(sub["mlp"], h, cfg.ffn_act, fused=kernels.mlp), new_cache
+    if is_moe:
+        out, a = MOE.moe_block(sub["moe"], h, cfg, mlp=kernels.mlp)
+        aux = aux + a
+        return x + out, new_cache, aux
+    return x + L.mlp_block(sub["mlp"], h, cfg.ffn_act, fused=kernels.mlp), new_cache, aux
+
+
+def block_forward(params, x, cfg, kinds, *, rc=None, attn_impl="reference",
+                  kernels: ops.FusedKernels = ops.KERNELS) -> torch.Tensor:
+    """A Python loop over ``kinds`` (as from ``cfg.sublayer_kinds``) of
+    :func:`_sublayer` bodies, one parameter dict per sublayer, no cache,
+    positions from 0 — the evaluator's tracing hook.  Every sublayer kind
+    runs here, MoE included.  ``attn_impl="reference"`` computes each
+    attention's scores whole, so only the SSM's scan (through ``kernels``'
+    ``ssm_scan``) is a recurrence."""
+    if rc is None:
+        from ..configs.base import RunConfig
+
+        rc = RunConfig()
+    positions = range(x.shape[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sub, (mixer, is_moe) in zip(params, kinds):
+        x, _, aux = _sublayer(sub, x, cfg, rc, mixer, is_moe, positions, None,
+                              None, aux, kernels, attn_impl=attn_impl)
+    return x
+
+
+def sublayer_param_specs(cfg, kinds=None, *, dtype=torch.float32) -> list:
+    """:func:`block_forward`'s parameters, one tree per sublayer, as
+    ``device="meta"`` tensors shaped by the real initialiser (granite-34B
+    costs nothing to spec)."""
+    if kinds is None:
+        kinds = cfg.sublayer_kinds(0, cfg.pattern_period)
+    return L.param_specs_of(lambda gen: [
+        _init_sublayer(gen, cfg, m, e, dtype) for m, e in kinds])
 
 
 def embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
@@ -223,10 +256,11 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
         for r in range(spec.repeats):
             layer_params = params["segments"][i][r]
             new_layer = {}
-            for j, (mixer, _) in enumerate(spec.kinds):
+            for j, (mixer, is_moe) in enumerate(spec.kinds):
                 sub_cache = None if cache is None else cache["segments"][i][r][f"sub{j}"]
-                x, nc = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
-                                  positions, sub_cache, start, kernels)
+                x, nc, _ = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
+                                     is_moe, positions, sub_cache, start, None,
+                                     kernels)
                 if nc is not None:
                     new_layer[f"sub{j}"] = nc
             new_seg.append(new_layer)

@@ -62,20 +62,47 @@ class VGG16(nn.Module):
         self.fc_b = nn.ParameterList(zeros(o) for _i, o in fc_dims)
 
     def forward(self, x: torch.Tensor, fused_conv_fn=None) -> torch.Tensor:
-        """``x``: (B, H, W, 3) NHWC -> logits (B, n_classes).
+        """``x``: (B, H, W, 3) NHWC -> logits (B, n_classes); see
+        :func:`forward`."""
+        params = {"conv_w": self.conv_w, "conv_b": self.conv_b,
+                  "fc_w": self.fc_w, "fc_b": self.fc_b}
+        return forward(params, x, fused_conv_fn=fused_conv_fn)
 
-        ``fused_conv_fn(x, w, b, pool=...)`` runs each conv + ReLU (+ pool)
-        fusion group; ``None`` takes the group's plain PyTorch version.
-        """
-        conv = fused_conv_fn if fused_conv_fn is not None else ref.fused_conv3x3_ref
-        for i, (_name, _n_in, _n_out, _hw, pooled) in enumerate(VGG16_CONV_PLAN):
-            x = conv(x, self.conv_w[i], self.conv_b[i], pool=pooled)
-        x = x.reshape(x.shape[0], -1)  # NHWC flatten, as the reference
-        for i, (w, b) in enumerate(zip(self.fc_w, self.fc_b)):
-            x = x @ w + b
-            if i < 2:
-                x = torch.relu(x)
-        return x
+
+def param_specs(*, in_hw: int = 224, n_classes: int = 1000,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """:class:`VGG16`'s parameters as ``device="meta"`` tensors in the tree
+    :func:`forward` takes — lets the tracing frontend trace VGG-16 without
+    materialising its ~138M parameters."""
+    def spec(*s):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    s = in_hw // 32
+    fc_dims = ((512 * s * s, 4096), (4096, 4096), (4096, n_classes))
+    return {
+        "conv_w": [spec(3, 3, n_in, n_out) for _, n_in, n_out, _, _ in VGG16_CONV_PLAN],
+        "conv_b": [spec(n_out) for _, _, n_out, _, _ in VGG16_CONV_PLAN],
+        "fc_w": [spec(i, o) for i, o in fc_dims],
+        "fc_b": [spec(o) for _, o in fc_dims],
+    }
+
+
+def forward(params: dict, x: torch.Tensor, fused_conv_fn=None) -> torch.Tensor:
+    """``x``: (B, H, W, 3) NHWC -> logits (B, n_classes) under ``params``
+    (``conv_w``, ``conv_b``, ``fc_w``, ``fc_b``: one entry per layer).
+
+    ``fused_conv_fn(x, w, b, pool=...)`` runs each conv + ReLU (+ pool)
+    fusion group; ``None`` takes the group's plain PyTorch version.
+    """
+    conv = fused_conv_fn if fused_conv_fn is not None else ref.fused_conv3x3_ref
+    for i, (_name, _n_in, _n_out, _hw, pooled) in enumerate(VGG16_CONV_PLAN):
+        x = conv(x, params["conv_w"][i], params["conv_b"][i], pool=pooled)
+    x = x.reshape(x.shape[0], -1)  # NHWC flatten, as the reference
+    for i, (w, b) in enumerate(zip(params["fc_w"], params["fc_b"])):
+        x = x @ w + b
+        if i < 2:
+            x = torch.relu(x)
+    return x
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
 flash_attention, fused_mlp and selective-scan CUDA kernels, the evaluator
-sweep and the transformer and Mamba serving paths on the card.
+sweep, the transformer and Mamba serving paths, and the traced ResNet-18's
+sweep and the MoE layer at full width on the card.
 
 Every test here carries the ``cuda`` marker and skips without CUDA (the
 kernel has no CPU mode).  On a machine with a GPU and ``nvcc``, from the
@@ -635,3 +636,44 @@ def test_mamba_prefill_and_decode_through_the_kernel_match_plain(cuda):
             out[name] = torch.cat(steps, dim=1)
     assert mamba_scan.selective_scan.launches == s0 + 4 * cfg.n_layers
     torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The tracing frontend's graphs and models on the card
+# ---------------------------------------------------------------------------
+
+
+def test_traced_resnet18_sweeps_on_the_card_as_the_hand_built_one(cuda):
+    from repro_torch.core import frontend
+
+    traced = frontend.resnet18_graph()
+    a = flow.run_flow(traced, groupings="search", pareto=True, device="cuda")
+    b = flow.run_flow(ir.resnet18_ir(), groupings="search", pareto=True, device="cuda")
+    assert a.best_hw == b.best_hw and a.best_metrics == b.best_metrics
+    np.testing.assert_array_equal(a.best_cuts, b.best_cuts)
+    assert (a.group_sizes, a.n_candidates, a.n_feasible, a.search_engine) == \
+        (b.group_sizes, b.n_candidates, b.n_feasible, b.search_engine)
+    np.testing.assert_array_equal(a.pareto.metrics, b.pareto.metrics)
+    np.testing.assert_array_equal(a.pareto.cuts, b.pareto.cuts)
+    assert metrics.evaluate_ref(traced, a.best_cuts, a.best_hw) == a.best_metrics
+
+
+def test_moe_layer_at_full_width_in_bfloat16_matches_float32(cuda):
+    """One mixtral-8x7b MoE layer (d 4096, ff 14336, 8 experts, top-2) on
+    4096 tokens: bfloat16 against float32 from the same bfloat16 input,
+    within 5e-2 of the largest |y| (chip_smoke.py's MOE_BF16_TOL)."""
+    from repro_torch.models import moe
+
+    cfg = resolve("mixtral")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p32 = moe.init_moe(gen, cfg, torch.float32)
+    p16 = {k: v if k == "router" else v.to(torch.bfloat16) for k, v in p32.items()}
+    x16 = torch.randn((1, 4096, cfg.d_model), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        y16, aux16 = moe.moe_block(p16, x16, cfg)
+        y32, aux32 = moe.moe_block(p32, x16.float(), cfg)
+    assert y16.dtype == torch.bfloat16 and y16.shape == x16.shape
+    assert torch.isfinite(y16).all()
+    assert float((y16.float() - y32).abs().max()) <= 5e-2 * float(y32.abs().max())
+    assert abs(float(aux16) - float(aux32)) <= 1e-6 * abs(float(aux32))

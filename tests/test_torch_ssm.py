@@ -37,6 +37,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import mamba_scan, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -212,7 +213,7 @@ def _ssm_cfg(**kw):
 
 def _mamba_pair(r_cfg, seed):
     r_p = r_ssm.init_mamba(jax.random.key(seed), r_cfg, jnp.float32)
-    return r_p, {k: T._to_torch(np.asarray(v)) for k, v in r_p.items()}
+    return r_p, L.params_from_jax(r_p)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
