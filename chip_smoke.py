@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's five main paths through the entry points a user calls,
+Drives the port's seven main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -48,44 +48,72 @@ PyTorch version.  Phases, one line each:
                ResNet-18's bit for bit to the sweep of ir.resnet18_ir; the
                ResNet-18 forward (batch 8, float32 against float64) and one
                mixtral MoE layer at full width (bfloat16 against float32);
-8. plan        plan_model for all 11 registry configs at 4096 tokens; every
+8. fleet       the fleet sweep -- the sixth main path, counts zeroed just
+               before and read just after (it launches none of the four
+               kernels): run_fleet over VGG-16 and the encoder-decoder with
+               every valid grouping (one (2, 320, 262144, 5) float64 plane,
+               125,829,120 candidates), each member equal to its run_flow of
+               phases exhaustive and dag_search, the device sweep re-timed
+               with CUDA events, sampled raw cells held to the scalar
+               oracles; benchmarks/bench_shard.py's co-search (four
+               workloads x 2,560 configurations, Pareto fronts) unsplit, split
+               over the card twice (and every card), in 10 chunks, killed at
+               each of the 9 inner chunk boundaries and resumed from its sweep
+               checkpoint, and under faults (a split failing every sweep
+               degrades to one device; a poisoned winning cell is quarantined
+               at its global index) -- every answer equal to the reference's
+               (FLEET_LOCKS);
+9. service     the planning service -- the seventh main path, counts zeroed
+               just before and read just after (no kernel launches):
+               benchmarks/bench_serve.py's traffic (the MLP block, the
+               residual block, the encoder-decoder, ResNet-18; three budgets;
+               deadline 0.06 s) on the 320-point space, 80 requests at 25 QPS
+               clean, under injected transient failures and eviction storms,
+               and through the async transport; journaled, its first 40
+               requests in a burst, killed with some in flight, recovered,
+               and the other 40 paced; then 200 chaos requests.  Every
+               request gets one typed response and every exact-rung plan
+               equals an offline run_fleet bit for bit; p50 / p99 ms,
+               achieved QPS, degradation and plan-cache hit rates, the outcome
+               taxonomy and the recovery ms;
+10. plan       plan_model for all 11 registry configs at 4096 tokens; every
                chosen tile (the selective scan's too, for the configs with
                Mamba layers) fits the card's opt-in shared memory;
-9. serve       ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
+11. serve      ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16): 8 requests, prompt 512, 32
                generated tokens -- the second main path, counts zeroed just
                before and read just after: flash_attention once per layer
                in the prefill, fused_mlp once per layer per forward;
-10. serve_time prefill ms, decode ms per token and tokens/s through the
+12. serve_time prefill ms, decode ms per token and tokens/s through the
                kernels and, for comparison, through their plain versions;
                prefill logits through the kernels against the plain path in
                bfloat16 and in float32; a profiled prefill and four decode
                steps;
-11. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
+13. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
                layers, bfloat16), 8 requests, prompt 512, 32 generated
                tokens -- the third main path, counts zeroed just before and
                read just after: selective_scan once per layer in the prefill
                and once per layer per decode step, no flash_attention or
                fused_mlp;
-12. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
+14. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
                cut depth, printed);
-13. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+15. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-14. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+16. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes and at the shapes of tests/test_kernels.py
                (masks, the planner's tiles, float32 and bfloat16), with the
                same four times, and every built tile at the serving shapes;
                kernel phases time a launch over runs of CALLS launches and
                also one call alone;
-15. scan       selective_scan vs its plain version at falcon-mamba's prefill
+17. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-16. the kernels line, then the result line.
+18. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -98,6 +126,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -237,6 +266,18 @@ FRONTEND_SWEEPS = {
         ("hsiao", 8, 16, 16, 16), (35,), 640, 640,
         (1415610368.0, 365175856.0, 5273031557.120001, 373377520.0)),
 }
+# The fleet co-search of benchmarks/bench_shard.py: four workloads over
+# config_space_grid() (2,560 points), groupings="pool", Pareto fronts, no
+# constraints.  The reference's result (src/repro/core/flow.py::run_fleet on
+# the CPU), per workload: (candidates, feasible, Pareto points, flow_digest),
+# held by tests/test_torch_fleet.py against the reference and the port.
+FLEET_LOCKS = {
+    "resnet18": (5120, 5120, 39, "441b82a6f502351f"),
+    "residual_block": (5120, 5120, 37, "331e65f55cb8fde9"),
+    "vgg16": (5120, 5120, 41, "b8a8088b2485da3c"),
+    "encoder_decoder": (5120, 5120, 42, "c0f5e8e8d97da618"),
+}
+FLEET_CHUNK = 256  # hw_chunk of the co-search's resumed runs: 10 chunks
 # ResNet-18's float32 logits on the card against its float64 forward,
 # relative to the largest |logit|: LOGIT_TOL, the float32 tolerance of the
 # VGG-16 forward (cuDNN with TF32 off sums each conv's products in its own
@@ -251,6 +292,22 @@ RESNET_BATCH = 8
 # (2^-9 relative each).
 MOE_BF16_TOL = 5e-2
 MOE_TOKENS = 4096
+
+
+def flow_digest(res) -> str:
+    """The first 16 hex digits of the sha256 of a FlowResult's answer: the
+    best hardware row, cuts and metrics, the counts, the grouping
+    provenance and the Pareto front (FLEET_LOCKS)."""
+    import hashlib
+
+    m, f = res.best_metrics, res.pareto
+    row = (res.best_hw.as_row().tolist(), res.best_cuts.tolist(),
+           (m.bandwidth_words, m.latency_cycles, m.energy_nj, m.area_um2),
+           tuple(int(s) for s in res.group_sizes), res.n_candidates,
+           res.n_feasible, res.n_pruned, res.search_engine,
+           None if f is None else (f.metrics.tolist(), f.hw_indices.tolist(),
+                                   f.cut_indices.tolist(), f.cuts.tolist()))
+    return hashlib.sha256(repr(row).encode()).hexdigest()[:16]
 
 
 def fail(msg: str) -> None:
@@ -447,8 +504,9 @@ def phase_paper_flow(vgg) -> dict:
             "energy_reduction": cmp.energy_reduction}
 
 
-def phase_exhaustive(torch, np, vgg, seed: int) -> dict:
-    """The exhaustive sweep, held bit for bit to the scalar oracles."""
+def phase_exhaustive(torch, np, vgg, seed: int) -> tuple:
+    """The exhaustive sweep, held bit for bit to the scalar oracles; the
+    phase's numbers and its FlowResult (phase fleet holds its own to it)."""
     from repro_torch.core import metrics as M
     from repro_torch.core.arch import default_config_space
     from repro_torch.core.flow import groupings_batch, run_flow, sweep_args
@@ -493,7 +551,7 @@ def phase_exhaustive(torch, np, vgg, seed: int) -> dict:
             "run_flow_s": wall, "setup_s": res.compile_seconds,
             "sweep_s": res.sweep_seconds,
             "candidates_per_s": res.candidates_per_second,
-            "device_sweep_ms": device_ms, "device_peak_bytes": peak}
+            "device_sweep_ms": device_ms, "device_peak_bytes": peak}, res
 
 
 def check_sampled_cells(torch, np, g, cuts, space, raw, seed: int) -> None:
@@ -519,13 +577,14 @@ def check_sampled_cells(torch, np, g, cuts, space, raw, seed: int) -> None:
               f"{g.name}: raw cell (h={h}, c={c}) = {have} != oracles {want}")
 
 
-def phase_dag_search(torch, np, seed: int) -> dict:
+def phase_dag_search(torch, np, seed: int) -> tuple:
     """The grouping search on DAGs and its sweeps on the card: the graph
     builders, the frontier DP's locked optima (host ms each), ResNet-18's
     ``run_flow(groupings="search")`` and ``compare_fusion``, and the
     exhaustive sweep of the encoder-decoder graph (320 configurations x
     262,144 valid groupings), re-timed with CUDA events and held bit for bit
-    to the scalar oracles."""
+    to the scalar oracles.  Returns the phase's numbers and that sweep's
+    FlowResult (phase fleet holds its own to it)."""
     from repro_torch.core import fusion, ir
     from repro_torch.core import metrics as M
     from repro_torch.core.arch import (PAPER_OPTIMAL_CONFIG, DLAConfig,
@@ -640,7 +699,7 @@ def phase_dag_search(torch, np, seed: int) -> dict:
         "sweep_s": res.sweep_seconds, "host_s": host,
         "candidates_per_s": res.candidates_per_second, "device_sweep_ms": device_ms,
         "device_peak_bytes": peak, "least_bandwidth": least}
-    return out
+    return out, res
 
 
 def graph_digest(g) -> str:
@@ -721,14 +780,16 @@ def phase_frontend_traces() -> dict:
 
 
 def flows_equal(np, a, b) -> bool:
-    """Two FlowResults agree bit for bit (best point, counts, front)."""
+    """Two FlowResults agree bit for bit (best point, counts, front if any)."""
     fa, fb = a.pareto, b.pareto
     return (a.best_hw == b.best_hw and np.array_equal(a.best_cuts, b.best_cuts)
             and a.best_metrics == b.best_metrics and a.group_sizes == b.group_sizes
             and (a.n_candidates, a.n_feasible, a.n_pruned, a.search_engine)
             == (b.n_candidates, b.n_feasible, b.n_pruned, b.search_engine)
-            and np.array_equal(fa.metrics, fb.metrics)
-            and np.array_equal(fa.cuts, fb.cuts) and fa.configs == fb.configs)
+            and (fa is None) == (fb is None)
+            and (fa is None or (np.array_equal(fa.metrics, fb.metrics)
+                                and np.array_equal(fa.cuts, fb.cuts)
+                                and fa.configs == fb.configs)))
 
 
 def phase_frontend_sweeps(np, graphs: dict) -> list:
@@ -854,6 +915,407 @@ def phase_frontend_forwards(torch, seed: int) -> dict:
                   "aux": [float(aux16), float(aux32)]}
     del p32, p16, x16, x32, y16, y32
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fleet sweep and the planning service (main paths 6 and 7)
+# ---------------------------------------------------------------------------
+
+
+def fleet_tensors(torch, np, graphs, space):
+    """The exhaustive fleet's padded sweep arguments on the card, built as
+    ``run_fleet`` builds them, and each graph's valid cut vectors."""
+    from repro_torch.core import flow, ir
+    from repro_torch.core import metrics as M
+
+    e_b = ir.bucket_size(max(g.n_edges for g in graphs), flow.EDGE_BUCKET_FLOOR)
+    l_b = ir.bucket_size(max(g.n_nodes for g in graphs), flow.NODE_BUCKET_FLOOR)
+    pgs = [ir.pad_graph(g, n_nodes=l_b, n_edges=e_b) for g in graphs]
+    cuts = [flow.groupings_batch(g, "exhaustive") for g in graphs]
+    c_b = ir.bucket_size(max(len(c) for c in cuts), flow.CUT_BUCKET_FLOOR)
+    args = (np.stack([p.feat for p in pgs]), np.stack([p.esrc for p in pgs]),
+            np.stack([p.edst for p in pgs]), np.stack([p.ewords for p in pgs]),
+            np.stack([p.src_mask for p in pgs]), np.stack([p.sink_mask for p in pgs]),
+            np.stack([ir.pad_cuts_batch(c, e_b, c_b) for c in cuts]),
+            np.stack([c.as_row() for c in space]), M.area_consts_of_space(space),
+            np.stack([p.node_mask for p in pgs]), np.stack([p.edge_mask for p in pgs]))
+    return M.sweep_tensors(args, torch.device("cuda")), cuts
+
+
+def phase_fleet_exhaustive(torch, np, flows: dict, seed: int) -> dict:
+    """``run_fleet([VGG-16, encoder-decoder], groupings="exhaustive")`` over
+    the 320-point space: one (2, 320, 262144, 5) float64 plane, each
+    member's answer equal to its run_flow of phases exhaustive and
+    dag_search; the device sweep re-timed with CUDA events and a seeded
+    sample of each member's raw cells held to the scalar oracles."""
+    from repro_torch.core import ir
+    from repro_torch.core import metrics as M
+    from repro_torch.core.arch import default_config_space
+    from repro_torch.core.flow import run_fleet
+
+    space = default_config_space()
+    graphs = {"vgg16_ir": ir.as_graph(ir.vgg16_ir(pool_mode="separate")),
+              "encoder_decoder_ir": ir.encoder_decoder_ir()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fl = run_fleet(list(graphs.values()), config_space=space, groupings="exhaustive",
+                   device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = len(space) * (2 ** 17 + 262_144)
+    check(fl.n_candidates == n,
+          f"exhaustive fleet scored {fl.n_candidates} candidates, not {n}")
+    for (name, g), res in zip(graphs.items(), fl.results):
+        check(flows_equal(np, res, flows[name]),
+              f"exhaustive fleet's {name} answer {res.best_hw.describe()} "
+              f"{res.best_metrics} ({res.n_feasible} feasible) != its run_flow's "
+              f"{flows[name].best_hw.describe()} {flows[name].best_metrics} "
+              f"({flows[name].n_feasible} feasible)")
+    tensors, cuts = fleet_tensors(torch, np, list(graphs.values()), space)
+    holder = {}
+
+    def sweep():
+        holder["raw"] = M._evaluate_fleet_graph(*tensors)
+
+    device_ms = time_ms(torch, {"sweep": sweep}, reps=3)["sweep"]
+    plane_bytes = holder["raw"].numel() * 8
+    for gi, (g, c) in enumerate(zip(graphs.values(), cuts)):
+        check_sampled_cells(torch, np, g, c, space, holder["raw"][gi][:, :len(c)],
+                            seed + gi)
+    host = wall - fl.compile_seconds - fl.sweep_seconds
+    print(f"phase fleet exhaustive: VGG-16 + encoder-decoder, {n} candidates in one "
+          f"(2, {len(space)}, {cuts[1].shape[0]}, 5) float64 plane "
+          f"({plane_bytes / 1e9:.3f} GB); each member = its run_flow (best point, "
+          f"cuts, metrics, {fl.results[0].n_feasible} / {fl.results[1].n_feasible} "
+          f"feasible; {SAMPLE_CELLS} sampled raw cells each = oracles); run_fleet "
+          f"{wall:.3f} s = set-up {fl.compile_seconds:.3f} s + sweep "
+          f"{fl.sweep_seconds:.3f} s ({fl.candidates_per_second:.6g} candidates/s) + "
+          f"host {host:.3f} s; device sweep {device_ms:.3f} ms "
+          f"({n / device_ms * 1e3:.6g} candidates/s); device peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    del holder, tensors
+    torch.cuda.empty_cache()
+    return {"candidates": n, "plane_bytes": plane_bytes, "run_fleet_s": wall,
+            "setup_s": fl.compile_seconds, "sweep_s": fl.sweep_seconds,
+            "host_s": host, "candidates_per_s": fl.candidates_per_second,
+            "device_sweep_ms": device_ms, "device_peak_bytes": peak}
+
+
+class _Killed(Exception):
+    """The co-search's simulated kill between two chunks."""
+
+
+def _killer(n_allowed: int):
+    """An abort_check letting ``n_allowed`` boundary checks pass."""
+    calls = [0]
+
+    def check_boundary():
+        calls[0] += 1
+        if calls[0] > n_allowed:
+            raise _Killed(calls[0])
+
+    return check_boundary
+
+
+def check_fleet_locks(fl, what: str) -> None:
+    """Every workload of a co-search run against FLEET_LOCKS."""
+    for name, res in zip(FLEET_LOCKS, fl.results):
+        got = (res.n_candidates, res.n_feasible, res.pareto.size, flow_digest(res))
+        check(got == FLEET_LOCKS[name],
+              f"co-search {what}: {name} {got} != the reference's {FLEET_LOCKS[name]}")
+
+
+def phase_fleet_cosearch(torch, np, tmp: Path) -> dict:
+    """benchmarks/bench_shard.py's co-search (four workloads x 2,560
+    configurations, groupings="pool", Pareto fronts) on one device, split
+    over the card twice (and every card, if more), chunked, killed at each
+    inner chunk boundary and resumed, under injected faults — every answer
+    equal to the reference's (FLEET_LOCKS)."""
+    from repro_torch.core import ir
+    from repro_torch.core.arch import Constraints, config_space_grid
+    from repro_torch.core.errors import RetryPolicy
+    from repro_torch.core.flow import groupings_batch, run_fleet
+    from repro_torch.testing.faults import FaultInjector
+
+    gs = [ir.resnet18_ir(), ir.residual_block_ir(),
+          ir.as_graph(ir.vgg16_ir(pool_mode="separate")), ir.encoder_decoder_ir()]
+    space = config_space_grid()
+    kw = dict(config_space=space, constraints=Constraints(*[float("inf")] * 4),
+              groupings="pool", pareto=True)
+    rows = []
+
+    def run(what, **extra):
+        t0 = time.perf_counter()
+        fl = run_fleet(gs, **kw, **extra)
+        wall = time.perf_counter() - t0
+        check_fleet_locks(fl, what)
+        rows.append({"run": what, "wall_s": wall, "setup_s": fl.compile_seconds,
+                     "sweep_s": fl.sweep_seconds, "device_count": fl.device_count,
+                     "chunks_computed": fl.chunks_computed,
+                     "chunks_restored": fl.chunks_restored,
+                     "stragglers": list(fl.straggler_chunks),
+                     "mesh_degraded": fl.mesh_degraded})
+        return fl
+
+    one = run("devices=None", device="cuda")
+    layouts = [("cuda:0", "cuda:0")]
+    if torch.cuda.device_count() > 1:
+        layouts.append(tuple(f"cuda:{i}" for i in range(torch.cuda.device_count())))
+    for layout in layouts:
+        fl = run(f"devices={layout}", devices=layout)
+        check(fl.device_count == len(layout), f"split over {layout}: {fl.device_count}")
+    n_chunks = -(-len(space) // FLEET_CHUNK)
+    chunked = run(f"hw_chunk={FLEET_CHUNK}", device="cuda", hw_chunk=FLEET_CHUNK)
+    check(chunked.chunks_computed == n_chunks, f"{chunked.chunks_computed} chunks")
+    restored = []
+    for k in range(1, n_chunks):
+        d = tmp / f"cosearch_kill_{k}"
+        try:
+            run_fleet(gs, **kw, device="cuda", hw_chunk=FLEET_CHUNK, checkpoint_dir=d,
+                      abort_check=_killer(k))
+            fail(f"the co-search was not killed at boundary {k}")
+        except _Killed:
+            pass
+        fl = run(f"resumed after a kill at boundary {k}", device="cuda",
+                 hw_chunk=FLEET_CHUNK, checkpoint_dir=d)
+        check((fl.chunks_restored, fl.chunks_computed) == (k, n_chunks - k),
+              f"resume after boundary {k}: {fl.chunks_restored} restored, "
+              f"{fl.chunks_computed} computed")
+        restored.append(fl.chunks_restored)
+
+    # Faults on the card: a split whose every sweep fails degrades to its
+    # first device; a poisoned cell is quarantined with its global index.
+    sick = FaultInjector(mesh_fail_sweeps=10 ** 6)
+    fl = run("sick split, degraded", devices=("cuda:0", "cuda:0"), hooks=sick,
+             retry_policy=RetryPolicy(max_retries=2, backoff_seconds=0.0))
+    check(fl.mesh_degraded and fl.device_count == 1
+          and sick.counts["injected_mesh_failures"] == 3,
+          f"sick split: degraded={fl.mesh_degraded}, {sick.counts}")
+    g_i = 3  # the encoder-decoder: poison its winning cell
+    best = one.results[g_i]
+    h = next(i for i, c in enumerate(space) if c == best.best_hw)
+    c = next(i for i, row in enumerate(groupings_batch(gs[g_i], "pool"))
+             if np.array_equal(row, best.best_cuts))
+    inj = FaultInjector(poison_cell=(g_i, h, c))
+    fl = run_fleet(gs, **kw, device="cuda", hw_chunk=FLEET_CHUNK, hooks=inj)
+    cells = [(q.graph, q.hw, q.cut, q.reason) for q in fl.quarantine.cells]
+    res = fl.results[g_i]
+    check(cells == [(g_i, h, c, "nan")] and inj.counts["poisoned_cells"] == 1,
+          f"poisoned cell {(g_i, h, c)}: quarantined {cells}")
+    check(not (res.best_hw == best.best_hw and np.array_equal(res.best_cuts, best.best_cuts))
+          and res.n_feasible == best.n_feasible - 1 and np.isfinite(res.pareto.metrics).all(),
+          "the poisoned winner was chosen again")
+    for gi, (a, b) in enumerate(zip(fl.results, one.results)):
+        check(gi == g_i or flows_equal(np, a, b), f"poisoning moved workload {gi}")
+    setup = [r["setup_s"] for r in rows]
+    print(f"phase fleet co-search: 4 workloads x {len(space)} configurations "
+          f"(groupings=pool, Pareto fronts of "
+          f"{[r.pareto.size for r in one.results]} points): devices=None, "
+          f"{', '.join(str(lay) for lay in layouts)}, hw_chunk={FLEET_CHUNK} and "
+          f"{len(restored)} kill-and-resume runs (chunks restored {restored}) all = "
+          f"FLEET_LOCKS; sick split degraded to one device after "
+          f"{sick.counts['injected_mesh_failures']} failures, = FLEET_LOCKS; "
+          f"the encoder-decoder's winning cell (g={g_i}, h={h}, c={c}) poisoned "
+          f"with NaN: quarantined at its global index, not chosen; run_fleet "
+          f"{rows[0]['wall_s'] * 1e3:.3f} ms unsplit, "
+          f"{rows[1]['wall_s'] * 1e3:.3f} ms split over {layouts[0]}, "
+          f"{rows[len(layouts) + 1]['wall_s'] * 1e3:.3f} ms in {n_chunks} chunks; "
+          f"set-up {min(setup) * 1e3:.3f}-{max(setup) * 1e3:.3f} ms")
+    return {"runs": rows, "pareto_points": [r.pareto.size for r in one.results],
+            "poisoned": [g_i, h, c]}
+
+
+SERVICE_N = 80  # requests per stream (benchmarks/bench_serve.py)
+SERVICE_QPS = 25.0  # offered load of the paced streams
+SERVICE_DEADLINE_S = 0.06  # per-request deadline (bench_serve.DEADLINE_S)
+SERVICE_BUDGETS = (float("inf"), 4e6, 1e6)  # SRAM budgets, cycled
+SERVICE_KILL_AT = 40  # the journaled stream's crash, after this many submissions
+SERVICE_CHAOS = 200  # chaos_requests in the chaos stream
+
+
+def _percentile(xs: list, q: float) -> float:
+    ys = sorted(xs)
+    return ys[min(len(ys) - 1, int(round(q * (len(ys) - 1))))] if ys else float("nan")
+
+
+def _paced(svc, requests) -> list:
+    """Submit ``requests`` at SERVICE_QPS to a synchronous service, ticking
+    while waiting for the next arrival; returns their request ids."""
+    interval, t_start, rids = 1.0 / SERVICE_QPS, time.perf_counter(), []
+    for i, req in enumerate(requests):
+        target = t_start + i * interval
+        while time.perf_counter() < target:
+            if svc.queue_depth:
+                svc.tick()
+            else:
+                time.sleep(min(1e-4, max(0.0, target - time.perf_counter())))
+        rids.append(svc.submit(req))
+    return rids
+
+
+def stream_stats(np, requests, resps, latencies, wall, offline: dict) -> dict:
+    """A stream's numbers, its contract checked: one typed response per
+    request, and every ok exact-rung plan equal, bit for bit, to an offline
+    ``run_fleet(groupings="search")`` of its graph and budget on the card."""
+    from repro_torch.core.arch import Constraints
+    from repro_torch.core.errors import EvaluatorError
+    from repro_torch.core.flow import run_fleet
+
+    check(len(resps) == len(requests) and all(
+        r is not None and (r.ok or isinstance(r.error, EvaluatorError)) for r in resps),
+        "a request got no typed response")
+    outcomes: dict = {}
+    n_exact = 0
+    for req, r in zip(requests, resps):
+        key = f"ok:{r.rung}" if r.ok else r.error_type
+        outcomes[key] = outcomes.get(key, 0) + 1
+        if not (r.ok and r.rung == "exact"):
+            continue
+        k = (req.graph, req.sram_budget_words)
+        if k not in offline:
+            offline[k] = run_fleet([req.graph], constraints=Constraints(*[float("inf")] * 4),
+                                   groupings="search", device="cuda",
+                                   sram_budget_words=req.sram_budget_words).results[0]
+        check(flows_equal(np, r.plan, offline[k]),
+              f"exact plan for {req.graph.name} at budget {req.sram_budget_words} != "
+              "the offline run_fleet")
+        n_exact += 1
+    n_ok = sum(r.ok for r in resps)
+    return {"n": len(resps), "achieved_qps": len(resps) / wall,
+            "p50_ms": _percentile(latencies, 0.5) * 1e3,
+            "p99_ms": _percentile(latencies, 0.99) * 1e3, "ok_rate": n_ok / len(resps),
+            "degradation_rate": sum(r.ok and r.degraded for r in resps) / max(n_ok, 1),
+            "cache_hit_rate": sum(r.ok and r.from_cache for r in resps) / max(n_ok, 1),
+            "exact_plans_checked": n_exact, "outcomes": outcomes}
+
+
+def print_stream(name: str, st: dict, extra: str = "") -> None:
+    print(f"phase service {name}: {st['n']} requests at {SERVICE_QPS:g} QPS offered, "
+          f"{st['achieved_qps']:.3f} achieved; p50 {st['p50_ms']:.3f} ms, p99 "
+          f"{st['p99_ms']:.3f} ms; ok {st['ok_rate']:.4f}, degraded "
+          f"{st['degradation_rate']:.4f}, plan-cache hits {st['cache_hit_rate']:.4f}; "
+          f"{st['exact_plans_checked']} exact plans = the offline run_fleet; "
+          f"outcomes {st['outcomes']}{extra}")
+
+
+def phase_service(torch, np, tmp: Path, seed: int) -> dict:
+    """benchmarks/bench_serve.py's traffic through the planning service on
+    the card: four graphs x three budgets, deadline 0.06 s, 80 requests at
+    25 QPS — clean, under injected faults, through the async transport, and
+    journaled, killed after a burst of 40 submissions and recovered — then
+    the chaos stream.  Every request gets exactly one typed response."""
+    import concurrent.futures
+
+    from repro_torch.core.arch import Constraints
+    from repro_torch.core.ir import resnet18_ir
+    from repro_torch.core.service import (AsyncPlanningService, PlanningService,
+                                          PlanRequest)
+    from repro_torch.testing.faults import FaultInjector, _valid_graphs, chaos_requests
+
+    graphs = _valid_graphs() + [resnet18_ir()]
+    requests = [PlanRequest(graph=graphs[i % len(graphs)],
+                            sram_budget_words=SERVICE_BUDGETS[i % len(SERVICE_BUDGETS)],
+                            deadline_seconds=SERVICE_DEADLINE_S)
+                for i in range(SERVICE_N)]
+    kw = dict(constraints=Constraints(*[float("inf")] * 4), backoff_seconds=0.0,
+              max_batch=16, max_queue_depth=4 * SERVICE_N, device="cuda")
+    offline, out = {}, {}
+    for name, faults in (("clean", None),
+                         ("faults", FaultInjector(transient_every=3, evict_every=5))):
+        svc = PlanningService(faults=faults, **kw)
+        check(svc.plan(PlanRequest(graph=graphs[0])).ok, "the warm-up plan failed")
+        t0 = time.perf_counter()
+        rids = _paced(svc, requests)
+        svc.drain()
+        wall = time.perf_counter() - t0
+        resps = [svc.collect(rid) for rid in rids]
+        st = stream_stats(np, requests, resps, [r.latency_seconds for r in resps],
+                          wall, offline)
+        st["transient_retries"] = svc.stats()["counters"].get("transient_retries", 0)
+        extra = ""
+        if faults is not None:
+            st["injected"] = dict(faults.counts)
+            check(faults.counts["injected_transients"] > 0
+                  and faults.counts["evict_storms"] > 0, f"no fault fired: {faults.counts}")
+            extra = (f"; injected {faults.counts['injected_transients']} transient sweep "
+                     f"failures ({st['transient_retries']} retries), "
+                     f"{faults.counts['evict_storms']} eviction storms")
+        out[name] = st
+        print_stream(name, st, extra)
+
+    asvc = AsyncPlanningService(**kw)
+    check(asvc.plan(PlanRequest(graph=graphs[0]), timeout=300).ok, "async warm-up failed")
+    latencies, futs = [], []
+    interval, t0 = 1.0 / SERVICE_QPS, time.perf_counter()
+    for i, req in enumerate(requests):
+        while time.perf_counter() < t0 + i * interval:
+            time.sleep(min(1e-4, max(0.0, t0 + i * interval - time.perf_counter())))
+        t_sub = time.perf_counter()
+        fut = asvc.submit(req)
+        fut.add_done_callback(lambda f, t=t_sub: latencies.append(time.perf_counter() - t))
+        futs.append(fut)
+    concurrent.futures.wait(futs, timeout=300)
+    wall = time.perf_counter() - t0
+    asvc.shutdown(drain=True, timeout=300)
+    check(all(f.done() for f in futs), "an async future never resolved")
+    out["async"] = stream_stats(np, requests, [f.result() for f in futs], latencies,
+                                wall, offline)
+    print_stream("async", out["async"], " (submit to future resolution, shut down with "
+                 "drain=True)")
+
+    # Journaled: the first SERVICE_KILL_AT requests arrive as a burst (one
+    # tick per 10 arrivals, none after the last), so the crash right after
+    # them leaves answered and in-flight requests; recovery replays the WAL,
+    # re-runs what was in flight, and serves the rest of the stream paced.
+    jdir = tmp / "service_journal"
+    svc = PlanningService(journal_dir=jdir, journal_fsync=True, snapshot_every=0, **kw)
+    t0 = time.perf_counter()
+    rids = []
+    for i, req in enumerate(requests[:SERVICE_KILL_AT]):
+        rids.append(svc.submit(req))
+        if i % 10 == 9 and i + 1 < SERVICE_KILL_AT:
+            svc.tick()
+    in_flight = svc.queue_depth
+    check(in_flight > 0, "nothing was in flight at the crash")
+    svc.close()  # the crash: everything in memory is gone
+    t1 = time.perf_counter()
+    rec = PlanningService.recover(jdir, journal_fsync=True, snapshot_every=0, **kw)
+    replay_s = time.perf_counter() - t1
+    restored = len(rec._responses)
+    check(rec.queue_depth == in_flight,
+          f"recovery re-enqueued {rec.queue_depth} requests, {in_flight} were in flight")
+    t2 = time.perf_counter()
+    rec.drain()
+    rerun_s = time.perf_counter() - t2
+    rids += _paced(rec, requests[SERVICE_KILL_AT:])
+    rec.drain()
+    wall = time.perf_counter() - t0
+    check(rids == list(range(SERVICE_N)), f"request ids after recovery: {rids}")
+    resps = [rec.collect(rid) for rid in rids]
+    rec.close()
+    st = stream_stats(np, requests, resps, [r.latency_seconds for r in resps], wall,
+                      offline)
+    st.update(in_flight_at_crash=in_flight, responses_restored=restored,
+              replay_ms=replay_s * 1e3, rerun_ms=rerun_s * 1e3)
+    out["recovered"] = st
+    print_stream("recovered", st, f"; a burst of {SERVICE_KILL_AT}, killed with "
+                 f"{in_flight} in flight and {restored} answered: WAL replay "
+                 f"{replay_s * 1e3:.3f} ms, re-run {rerun_s * 1e3:.3f} ms")
+
+    svc = PlanningService(**dict(kw, max_queue_depth=SERVICE_CHAOS))
+    labelled = list(chaos_requests(SERVICE_CHAOS, seed=seed))
+    t0 = time.perf_counter()
+    rids = [svc.submit(req) for _, req in labelled]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    resps = [svc.collect(rid) for rid in rids]
+    st = stream_stats(np, [req for _, req in labelled], resps,
+                      [r.latency_seconds for r in resps], wall, {})
+    out["chaos"] = st
+    print(f"phase service chaos: chaos_requests({SERVICE_CHAOS}, seed={seed}) in "
+          f"{wall:.3f} s: 100 % typed responses, outcomes {st['outcomes']}")
     return out
 
 
@@ -1684,7 +2146,7 @@ def main(argv=None) -> int:
     # read just after ----
     zero_counts()
     paper = phase_paper_flow(vgg)
-    exhaustive = phase_exhaustive(torch, np, vgg, args.seed)
+    exhaustive, vgg_flow = phase_exhaustive(torch, np, vgg, args.seed)
     model, x, forward = phase_forward(torch, args.seed)
     vgg_counts = read_counts()
     check(vgg_counts["fused_conv3x3"] > 0, "the VGG-16 path never launched fused_conv3x3")
@@ -1696,7 +2158,7 @@ def main(argv=None) -> int:
     # ---- main path 4, the grouping search on DAGs: counts zeroed just
     # before, read just after (it runs no kernel of K1-K4) ----
     zero_counts()
-    dag = phase_dag_search(torch, np, args.seed)
+    dag, ed_flow = phase_dag_search(torch, np, args.seed)
     dag_counts = read_counts()
     check(not any(dag_counts.values()),
           f"the DAG search path launched kernels: {dag_counts}")
@@ -1714,6 +2176,30 @@ def main(argv=None) -> int:
     check(not any(frontend_counts.values()),
           f"the frontend path launched kernels: {frontend_counts}")
     print(f"phase main_path frontend: launches {frontend_counts}")
+
+    # ---- main path 6, the fleet sweep: counts zeroed just before, read just
+    # after (float64 torch code and host numpy; no kernel of K1-K4) ----
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        fleet = {"exhaustive": phase_fleet_exhaustive(
+                     torch, np, {"vgg16_ir": vgg_flow, "encoder_decoder_ir": ed_flow},
+                     args.seed),
+                 "cosearch": phase_fleet_cosearch(torch, np, Path(tmp))}
+    del vgg_flow, ed_flow
+    fleet_counts = read_counts()
+    check(not any(fleet_counts.values()),
+          f"the fleet path launched kernels: {fleet_counts}")
+    print(f"phase main_path fleet: launches {fleet_counts}")
+
+    # ---- main path 7, the planning service: counts zeroed just before, read
+    # just after (it sweeps through run_fleet; no kernel of K1-K4) ----
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as tmp:
+        service = phase_service(torch, np, Path(tmp), args.seed)
+    service_counts = read_counts()
+    check(not any(service_counts.values()),
+          f"the service path launched kernels: {service_counts}")
+    print(f"phase main_path service: launches {service_counts}")
 
     # ---- main path 2, serving qwen3-0.6b: counts zeroed just before, read
     # just after ----
@@ -1787,7 +2273,9 @@ def main(argv=None) -> int:
         "card": card, "build": build, "paper_flow": paper,
         "exhaustive": exhaustive, "forward": forward, "dag_search": dag,
         "dag_search_counts": dag_counts, "frontend": frontend,
-        "frontend_counts": frontend_counts, "layers": layer_rows,
+        "frontend_counts": frontend_counts, "fleet": fleet,
+        "fleet_counts": fleet_counts, "service": service,
+        "service_counts": service_counts, "layers": layer_rows,
         "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
         "serve_time": serve_time, "serve_ssm": ssm_run, "serve_ssm_counts": ssm_counts,
         "serve_ssm_time": ssm_time, "attention": att_rows, "mlp": mlp_rows,

@@ -12,6 +12,9 @@ edges; chains (``NetworkIR``) are embedded losslessly via
 Argument shapes are rounded up to power-of-two *shape buckets* and swept
 through the masked path (padded rows exactly inert), as in the reference
 evaluator, so padded and unpadded sweeps stay interchangeable.
+:func:`run_fleet` stacks many padded graphs along a leading axis and
+sweeps the whole ``(G, H, C)`` cross-product — the entire model fleet —
+at once, optionally split over several devices, in resumable chunks.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import hardware_mesh
 from . import fusion
 from . import metrics as M
 from .arch import Constraints, DLAConfig, default_config_space
@@ -31,6 +35,8 @@ from .errors import (
     InfeasibleBudgetError,
     InfeasibleConstraintsError,
     PoisonedResultError,
+    RetryPolicy,
+    TransientFailure,
 )
 from .ir import (
     GraphIR,
@@ -91,11 +97,12 @@ class FlowResult:
 
 
 # Sweep accounting.  The reference evaluator caches compiled XLA
-# executables per argument-shape signature; eager torch compiles nothing,
-# so there is nothing to cache: every sweep stages its inputs on the device
-# anew.  The stats keep the reference's keys with that meaning — ``misses``
-# counts sweeps run (each stages its inputs), ``hits``/``evictions`` and the
-# cache ``size``/``entries`` stay zero/empty.
+# executables per argument-shape signature and device layout; eager torch
+# compiles nothing, so there is nothing to cache: every sweep stages its
+# inputs on the device anew.  The stats keep the reference's keys with that
+# meaning — ``misses`` counts sweeps run (each stages its inputs; a chunked
+# fleet sweep counts one per chunk computed), ``hits``/``evictions`` and
+# the cache ``size``/``entries`` stay zero/empty, for every layout.
 _SWEEP_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 _SWEEP_CACHE_LOCK = threading.Lock()
 
@@ -130,6 +137,23 @@ def _run_sweep(args, device: torch.device) -> tuple[np.ndarray, float, float]:
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     raw = M._evaluate_batch_graph(*tensors).cpu().numpy()
+    return raw, t1 - t0, time.perf_counter() - t1
+
+
+def _run_fleet_sweep(args, mesh) -> tuple[np.ndarray, float, float]:
+    """(raw (G, H, C, 5) plane, set-up seconds, sweep seconds) of one fleet
+    sweep over the device layout ``mesh``: set-up stages every shard's
+    inputs on its device; the sweep runs every shard and gathers the planes
+    on the host (:func:`repro_torch.core.metrics.run_staged_fleet`)."""
+    with _SWEEP_CACHE_LOCK:
+        _SWEEP_CACHE_STATS["misses"] += 1
+    t0 = time.perf_counter()
+    staged = M.stage_fleet(args, mesh)
+    for dev in dict.fromkeys(mesh):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    raw = M.run_staged_fleet(staged)
     return raw, t1 - t0, time.perf_counter() - t1
 
 
@@ -575,6 +599,400 @@ def run_flow(
         pareto=pareto,
         poison=poison,
         quarantine=quarantine,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetResult:
+    """One multi-graph sweep: per-graph best points + the shared set-up."""
+
+    results: tuple[FlowResult, ...]  # one FlowResult per input graph
+    n_graphs: int
+    n_candidates: int  # real (graph, hw, cut) triples across the fleet
+    compile_seconds: float  # device set-up: staging the fleet's inputs
+    sweep_seconds: float  # the (G, H, C) sweep + the raw plane to host
+    candidates_per_second: float
+    # Device layout the sweep ran on: 1 for the single-device sweep, else
+    # the number of devices the hardware axis was split over.
+    device_count: int = 1
+    # Fleet-wide finite-guard report (None when every raw cell was clean).
+    quarantine: "QuarantineReport | None" = None
+    # Salvage/resume accounting: chunks actually computed this call vs
+    # restored from a sweep checkpoint (1/0 for an unchunked sweep), chunk
+    # indices the straggler detector flagged, and whether a sick layout was
+    # degraded to the single-device sweep mid-call.
+    chunks_computed: int = 1
+    chunks_restored: int = 0
+    straggler_chunks: tuple[int, ...] = ()
+    mesh_degraded: bool = False
+
+    def describe(self) -> str:
+        """One-line summary of the fleet sweep (incl. layout, if split)."""
+        mesh = (
+            f", {self.device_count}-device hardware mesh"
+            if self.device_count > 1
+            else ""
+        )
+        if self.mesh_degraded:
+            mesh = ", mesh degraded to single-device"
+        salvage = (
+            f", {self.chunks_restored} chunks restored"
+            if self.chunks_restored
+            else ""
+        )
+        lines = [
+            f"fleet of {self.n_graphs}: {self.n_candidates} candidates in "
+            f"{self.sweep_seconds*1e3:.2f} ms "
+            f"({self.candidates_per_second:,.0f} cand/s, set-up "
+            f"{self.compile_seconds*1e3:.0f} ms{mesh}{salvage})"
+        ]
+        lines += [f"  {r.describe()}" for r in self.results]
+        return "\n".join(lines)
+
+
+def run_fleet(
+    irs: Sequence[NetworkIR | GraphIR],
+    *,
+    config_space: Sequence[DLAConfig] | None = None,
+    constraints: Constraints = Constraints(),
+    groupings: str | np.ndarray | Sequence[np.ndarray] = "search",
+    sram_budget_words: float = float("inf"),
+    devices=None,
+    pareto: bool = False,
+    hw_chunk: int | None = None,
+    abort_check=None,
+    retry_policy: RetryPolicy | None = None,
+    checkpoint_dir=None,
+    hooks=None,
+    device: "str | torch.device" = "cuda",
+) -> FleetResult:
+    """Sweep many graphs' (hw x grouping) cross-products in one fleet sweep.
+
+    Every graph is zero-padded to the fleet-wide ``(L, E, C)`` bucket
+    (power-of-two, same floors as :func:`run_flow`), stacked along a new
+    leading axis, and swept into one raw (G, H, C, 5) plane
+    (:func:`repro_torch.core.metrics._evaluate_fleet_graph`).  Per-graph
+    metrics are bit-identical to :func:`run_flow` (padded rows are exactly
+    inert and sliced off before feasibility/argmin).
+
+    ``groupings`` / ``sram_budget_words`` / ``constraints`` apply to every
+    graph — except that ``groupings`` may also be a *sequence* of explicit
+    per-graph cut batches (one (C_i, E_i) bool array per input graph), the
+    form the planning service uses to sweep a micro-batch of requests
+    whose deadline ladders resolved to different engines.  The SRAM
+    prefilter runs per graph on the padded cut rows.  ``results[i]`` is
+    graph ``i``'s :class:`FlowResult`; the set-up is reported fleet-level
+    (per-graph ``compile_seconds`` is 0), and per-graph ``sweep_seconds``
+    / ``candidates_per_second`` describe the one shared sweep.
+
+    ``device`` (default ``"cuda"``, raising without CUDA; ``"cpu"`` on
+    the CPU) is the single device of the sweep.  ``devices`` overrides it
+    and splits the hardware axis over a device layout
+    (:func:`repro_torch.parallel.sharding.hardware_mesh`): an int takes
+    ``cuda:0`` .. ``cuda:N-1``, a device sequence is used as given (the
+    same card may appear twice).  H is padded to a device-count multiple
+    with copies of config 0 — inert rows sliced off before metrics
+    composition — each device sweeps its H-shard, and the shards' raw
+    planes are gathered along H on the host; the per-graph argmin/Pareto
+    then run exactly as on one device, so split results are
+    **bit-identical** at any device count.  No executable is compiled or
+    cached for any layout (``sweep_cache_stats()["entries"]`` stays
+    empty); ``compile_seconds`` is the set-up time.
+
+    ``pareto=True`` extracts each workload's feasible-sweep Pareto front
+    over (bandwidth, latency, energy, area) into ``results[i].pareto``.
+
+    ``hw_chunk`` splits the sweep into resumable slices of the hardware
+    axis, reassembled before metrics composition; every raw row is an
+    exact per-candidate float64 quantity, so the chunked sweep is
+    **bit-identical** to the unchunked one.  ``abort_check`` (a zero-arg
+    callable) is invoked before the sweep and between chunks; raising from
+    it abandons the remaining chunks — the planning service's cooperative
+    cancellation and deadline enforcement.  A chunk ends when its plane is
+    on the host, so a cancel acts within one chunk.  ``hw_chunk`` cannot
+    be combined with ``devices``.
+
+    Fault tolerance (all off by default):
+
+    * ``retry_policy`` (:class:`repro_torch.core.errors.RetryPolicy`)
+      retries each chunk's set-up + sweep on non-evaluator failures with
+      exponential backoff; exhaustion raises a typed
+      :class:`~repro_torch.core.errors.TransientFailure`.  On the
+      ``devices=`` path exhaustion instead *degrades*: the sweep falls
+      back down :func:`repro_torch.runtime.elastic.sweep_degradation_ladder`
+      to the layout's first device alone — bit-identical results, only
+      slower (``FleetResult.mesh_degraded``).  Without a policy a failure
+      propagates raw.  Nothing ever moves to the CPU.
+    * ``checkpoint_dir`` (requires ``hw_chunk``) persists every completed
+      chunk's raw plane (:class:`repro_torch.checkpoint.SweepCheckpoint`);
+      a killed sweep re-run with the same arguments restores completed
+      chunks and recomputes only the missing ones
+      (``chunks_restored``/``chunks_computed``), bit-identically.  The
+      argument arrays and the log are the JAX reference's, so a sweep log
+      written by either package resumes in the other.
+    * Per-chunk wall times, net of set-up, feed a running-median
+      straggler detector; flagged chunk indices are reported in
+      ``FleetResult.straggler_chunks``.
+    * ``hooks`` is a duck-typed fault seam (``before_chunk_compute(i,
+      device_count=...)`` may raise; ``poison_plane(plane, h0)`` may
+      corrupt a raw plane, ``h0`` the chunk's global hardware offset) used
+      by :class:`repro_torch.testing.faults.FaultInjector`; every raw plane
+      then passes the finite guard, so poisoned cells are quarantined with
+      global (g, h, c) provenance (``FleetResult.quarantine``) and can
+      never win the argmin or enter a Pareto front.
+    """
+    if not irs:
+        raise ValueError("empty fleet")
+    if hw_chunk is not None:
+        if devices is not None:
+            raise ValueError(
+                "hw_chunk cannot be combined with devices: the sharded "
+                "program already splits the hardware axis across the mesh"
+            )
+        if hw_chunk <= 0:
+            raise ValueError(f"hw_chunk must be positive, got {hw_chunk}")
+    if checkpoint_dir is not None and hw_chunk is None:
+        raise ValueError(
+            "checkpoint_dir requires hw_chunk: completed hardware-axis "
+            "chunks are the checkpoint grain"
+        )
+    # The device layout: one device, or the hardware-axis split.
+    mesh = (resolve_device(device),) if devices is None else hardware_mesh(devices)
+    if config_space is None:
+        config_space = default_config_space()
+    graphs = [as_graph(ir) for ir in irs]
+
+    if isinstance(groupings, (list, tuple)):
+        if len(groupings) != len(graphs):
+            raise ValueError(
+                f"{len(groupings)} grouping specs for {len(graphs)} graphs"
+            )
+        specs = list(groupings)
+    else:
+        specs = [groupings] * len(graphs)
+
+    # Per-graph grouping resolution + SRAM prefilter (padded-E cut rows).
+    edge_bucket = bucket_size(
+        max(g.n_edges for g in graphs), EDGE_BUCKET_FLOOR
+    )
+    node_bucket = bucket_size(
+        max(g.n_nodes for g in graphs), NODE_BUCKET_FLOOR
+    )
+    padded = [pad_graph(g, n_nodes=node_bucket, n_edges=edge_bucket)
+              for g in graphs]
+    cuts: list[np.ndarray] = []
+    pruned: list[int] = []
+    provenances: list[str] = []
+    for g, pg, spec in zip(graphs, padded, specs):
+        cb, provenance = groupings_batch(
+            g, spec, sram_budget_words=sram_budget_words,
+            with_provenance=True,
+        )
+        cb = pad_cuts_batch(cb, edge_bucket)
+        provenances.append(provenance)
+        n_pruned = 0
+        if np.isfinite(sram_budget_words):
+            max_int = fusion.padded_max_intermediate_batch(pg, cb)
+            keep = max_int <= sram_budget_words
+            n_pruned = int(cb.shape[0] - keep.sum())
+            if not keep.any():
+                raise InfeasibleBudgetError(
+                    f"{g.name}: no grouping fits the SRAM budget "
+                    f"({sram_budget_words:.0f} words; the cheapest offered "
+                    f"grouping needs {max_int.min():.0f})",
+                    min_feasible_budget_words=float(max_int.min()),
+                )
+            cb = cb[keep]
+        cuts.append(cb)
+        pruned.append(n_pruned)
+    counts = [cb.shape[0] for cb in cuts]
+    cut_bucket = bucket_size(max(counts), CUT_BUCKET_FLOOR)
+    cuts = [pad_cuts_batch(cb, edge_bucket, cut_bucket) for cb in cuts]
+
+    hw_rows = np.stack([c.as_row() for c in config_space])
+    area_consts = M.area_consts_of_space(config_space)
+    H = hw_rows.shape[0]
+
+    # A split pads H to a device-count multiple (padded rows are copies of
+    # config 0 — valid arithmetic, sliced off below before composition).
+    hw_swept = hw_rows
+    D = len(mesh)
+    H_padded = -(-H // D) * D
+    if H_padded > H:
+        hw_swept = np.concatenate(
+            [hw_rows, np.repeat(hw_rows[:1], H_padded - H, axis=0)]
+        )
+
+    args = (
+        np.stack([pg.feat for pg in padded]),
+        np.stack([pg.esrc for pg in padded]),
+        np.stack([pg.edst for pg in padded]),
+        np.stack([pg.ewords for pg in padded]),
+        np.stack([pg.src_mask for pg in padded]),
+        np.stack([pg.sink_mask for pg in padded]),
+        np.stack(cuts),
+        hw_swept,
+        area_consts,
+        np.stack([pg.node_mask for pg in padded]),
+        np.stack([pg.edge_mask for pg in padded]),
+    )
+    M.assert_exact_f64(args[0], what="fleet feature table")
+    M.assert_exact_f64(args[3], what="fleet edge words")
+    if abort_check is not None:
+        abort_check()
+
+    hook_before = (
+        getattr(hooks, "before_chunk_compute", None)
+        if hooks is not None else None
+    )
+    hook_poison = (
+        getattr(hooks, "poison_plane", None) if hooks is not None else None
+    )
+
+    def _compute(chunk_index, c_args, c_mesh, h0, d_count):
+        """One chunk's set-up + sweep, under the retry policy + hooks."""
+
+        def attempt():
+            if hook_before is not None:
+                hook_before(chunk_index, device_count=d_count)
+            return _run_fleet_sweep(c_args, c_mesh)
+
+        if retry_policy is None:
+            plane, dt_c, dt_s = attempt()
+        else:
+            plane, dt_c, dt_s = retry_policy.call(
+                attempt, describe=f"hw chunk {chunk_index}"
+            )
+        if hook_poison is not None:
+            plane = hook_poison(plane, h0)
+        return plane, dt_c, dt_s
+
+    mesh_degraded = False
+    chunks_restored = 0
+    straggler_chunks: tuple[int, ...] = ()
+    if hw_chunk is None:
+        chunks_computed = 1
+        try:
+            raw, compile_seconds, sweep_seconds = _compute(
+                0, args, mesh, 0, D
+            )
+        except TransientFailure:
+            from ..runtime.elastic import sweep_degradation_ladder
+
+            ladder = sweep_degradation_ladder(devices)[1:]
+            if not ladder:
+                raise
+            # The layout is sick (the sweep kept failing through the retry
+            # budget): degrade to the ladder's single-device rung, the
+            # layout's first device.  No raw row depends on another, so
+            # the salvaged result is bit-identical to the split sweep.
+            mesh_degraded = True
+            args = args[:7] + (hw_rows,) + args[8:]
+            raw, compile_seconds, sweep_seconds = _compute(
+                0, args, mesh[:1], 0, 1
+            )
+    else:
+        # Resumable chunked sweep: one sweep per <=hw_chunk-row slice of
+        # the config space, abort_check between slices.  With
+        # ``checkpoint_dir`` every completed plane is durable before the
+        # loop advances, so a kill at ANY boundary resumes with
+        # exactly-once recomputation.
+        from ..runtime.fault_tolerance import StragglerDetector
+
+        restored: dict[int, np.ndarray] = {}
+        ckpt = None
+        if checkpoint_dir is not None:
+            from ..checkpoint import SweepCheckpoint, sweep_fingerprint
+
+            ckpt = SweepCheckpoint(checkpoint_dir)
+            restored = ckpt.load(sweep_fingerprint(args, hw_chunk))
+        detector = StragglerDetector(min_deadline_s=0.0)
+        compile_seconds = sweep_seconds = 0.0
+        chunks_computed = 0
+        stragglers: list[int] = []
+        planes = []
+        for ci, h0 in enumerate(range(0, H, hw_chunk)):
+            if abort_check is not None and h0:
+                abort_check()
+            plane = restored.get(h0)
+            if plane is not None:
+                planes.append(plane)
+                chunks_restored += 1
+                continue
+            chunk_args = (
+                args[:7] + (hw_rows[h0:h0 + hw_chunk],) + args[8:]
+            )
+            t_chunk = time.perf_counter()
+            plane, dt_c, dt_s = _compute(
+                ci, chunk_args, mesh, h0, D
+            )
+            # Straggler detection on wall time net of set-up; the
+            # detector needs 5 samples before it flags.
+            dt_wall = time.perf_counter() - t_chunk - dt_c
+            if detector.is_straggler(dt_wall):
+                stragglers.append(ci)
+            detector.observe(dt_wall)
+            if ckpt is not None:
+                ckpt.append_chunk(h0, plane)
+            planes.append(plane)
+            chunks_computed += 1
+            compile_seconds += dt_c
+            sweep_seconds += dt_s
+        straggler_chunks = tuple(stragglers)
+        raw = np.concatenate(planes, axis=1)
+    out = M.compose_metrics(raw[:, :H], hw_rows)  # (G, H, C_b, 4)
+    # Finite guard over the whole fleet's raw plane: poisoned cells are
+    # quarantined per graph before any argmin/Pareto selection.
+    poison_all = M.poison_mask(raw[:, :H])  # (G, H, C_b)
+    any_poison = bool(poison_all.any())
+    fleet_cells: list[QuarantinedCell] = []
+    n_cand = H * sum(counts)
+    fleet_cps = n_cand / max(sweep_seconds, 1e-9)
+    results = []
+    for gi, g in enumerate(graphs):
+        C = counts[gi]
+        g_poison = None
+        g_quar = None
+        if any_poison:
+            pm = poison_all[gi, :, :C]
+            if pm.any():
+                cells = _quarantine_cells(raw[gi, :H, :C], pm, graph=gi)
+                g_quar = QuarantineReport(cells=cells)
+                fleet_cells.extend(cells)
+                g_poison = pm
+        results.append(
+            _best_flow_result(
+                out[gi, :, :C],  # padded candidate rows sliced off
+                cuts[gi][:C, : g.n_edges],
+                g, config_space, constraints,
+                n_pruned=pruned[gi],
+                compile_seconds=0.0,  # the one fleet set-up, see FleetResult
+                sweep_seconds=sweep_seconds,
+                candidates_per_second=fleet_cps,  # the shared sweep's rate
+                search_engine=provenances[gi],
+                err_prefix=f"{g.name}: ",
+                pareto=pareto,
+                poison=g_poison,
+                quarantine=g_quar,
+            )
+        )
+    return FleetResult(
+        results=tuple(results),
+        n_graphs=len(graphs),
+        n_candidates=n_cand,
+        compile_seconds=compile_seconds,
+        sweep_seconds=sweep_seconds,
+        candidates_per_second=fleet_cps,
+        device_count=1 if mesh_degraded else D,
+        quarantine=(
+            QuarantineReport(cells=tuple(fleet_cells))
+            if fleet_cells
+            else None
+        ),
+        chunks_computed=chunks_computed,
+        chunks_restored=chunks_restored,
+        straggler_chunks=straggler_chunks,
+        mesh_degraded=mesh_degraded,
     )
 
 

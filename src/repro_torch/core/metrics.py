@@ -510,9 +510,12 @@ def _evaluate_batch_graph(
     area_consts: torch.Tensor,  # (4,) float64
     node_mask: torch.Tensor | None = None,  # (L,) bool; None = no padding
     edge_mask: torch.Tensor | None = None,  # (E,) bool; None = no padding
+    out: torch.Tensor | None = None,  # (H, C, 5) to write into, or None
 ) -> torch.Tensor:
     """RAW (H, C, 5) rows [bw, lat, c_sram, c_pb, area] on the inputs'
     device; :func:`compose_metrics` turns them into [bw, lat, energy, area].
+    With ``out`` the rows are written there (the fleet sweep's per-graph
+    slice of its one (G, H, C, 5) plane) and ``out`` is returned.
 
     ``node_mask``/``edge_mask`` admit zero-padded inputs: a padded edge is
     neither cut nor internal regardless of its ``cuts`` bit, and a padded
@@ -534,7 +537,8 @@ def _evaluate_batch_graph(
     bw = t["bw"][None, :]
     sram_words = (t["if_need"] + t["w_need"] + t["of_need"])[None, :]
 
-    out = torch.empty((H, C, 5), dtype=feat.dtype, device=feat.device)
+    if out is None:
+        out = torch.empty((H, C, 5), dtype=feat.dtype, device=feat.device)
     rows = max(1, SWEEP_SLAB_BYTES // (8 * 8 * max(C, 1)))
     for h0 in range(0, H, rows):
         hw = hw_rows[h0:h0 + rows]
@@ -673,6 +677,145 @@ def evaluate_batch_graph(
         area_consts, node_mask, edge_mask, device=device,
     ).cpu().numpy()
     return compose_metrics(raw, hw_rows)
+
+
+# ---------------------------------------------------------------------------
+# The fleet sweep — many padded graphs, one (G, H, C, 5) plane
+# ---------------------------------------------------------------------------
+
+
+def _evaluate_fleet_graph(
+    feat: torch.Tensor,  # (G, L, F) float64 — padded to one fleet bucket
+    esrc: torch.Tensor,  # (G, E) int64
+    edst: torch.Tensor,  # (G, E) int64
+    ewords: torch.Tensor,  # (G, E) float64
+    src_mask: torch.Tensor,  # (G, L) bool
+    sink_mask: torch.Tensor,  # (G, L) bool
+    cuts_batch: torch.Tensor,  # (G, C, E) bool
+    hw_rows: torch.Tensor,  # (H, 11) float64 — shared across the fleet
+    area_consts: torch.Tensor,  # (4,) float64
+    node_mask: torch.Tensor,  # (G, L) bool
+    edge_mask: torch.Tensor,  # (G, E) bool
+) -> torch.Tensor:
+    """Raw rows for every (graph, hw, grouping) triple -> (G, H, C, 5) on
+    the inputs' device.
+
+    The fleet axis is a loop over :func:`_evaluate_batch_graph`, each graph
+    writing its slice of one preallocated plane in place, so no second
+    (G, H, C) temporary is built.  The JAX reference vmaps this axis to
+    compile the whole fleet once; eager torch compiles nothing, and every
+    raw row is computed the same way either way.
+    """
+    G, H, C = feat.shape[0], hw_rows.shape[0], cuts_batch.shape[1]
+    out = torch.empty((G, H, C, 5), dtype=feat.dtype, device=feat.device)
+    for g in range(G):
+        _evaluate_batch_graph(
+            feat[g], esrc[g], edst[g], ewords[g], src_mask[g], sink_mask[g],
+            cuts_batch[g], hw_rows, area_consts, node_mask[g], edge_mask[g],
+            out=out[g],
+        )
+    return out
+
+
+def stage_fleet(args, mesh) -> list[tuple[torch.Tensor, ...]]:
+    """The numpy fleet arguments (those of :func:`_evaluate_fleet_graph`)
+    staged shard by shard on the devices of ``mesh``: shard ``i`` holds the
+    ``i``-th of ``len(mesh)`` equal slices of the hardware rows on
+    ``mesh[i]``, every other argument replicated.  H must be a multiple of
+    ``len(mesh)`` (:func:`repro_torch.core.flow.run_fleet` pads it)."""
+    D, H = len(mesh), np.asarray(args[7]).shape[0]
+    if H % D:
+        raise ValueError(f"{H} hardware rows do not split over {D} devices")
+    hs = H // D
+    return [
+        sweep_tensors(args[:7] + (args[7][i * hs:(i + 1) * hs],) + args[8:],
+                      dev)
+        for i, dev in enumerate(mesh)
+    ]
+
+
+def run_staged_fleet(staged) -> np.ndarray:
+    """Sweep every staged shard and gather the raw planes along H on the
+    host -> (G, H, C, 5) numpy.  Every shard is enqueued before any plane
+    is copied back, so shards on separate cards run at once; the copies
+    wait for their devices, so the call ends when the work has."""
+    planes = [_evaluate_fleet_graph(*t) for t in staged]
+    host = [p.cpu().numpy() for p in planes]
+    return host[0] if len(host) == 1 else np.concatenate(host, axis=1)
+
+
+def sharded_fleet_kernel(mesh):
+    """The fleet sweep split over ``mesh``'s hardware axis: a callable
+    taking the numpy arguments of :func:`_evaluate_fleet_graph` and
+    returning the gathered raw (G, H, C, 5) plane as numpy.
+
+    ``mesh`` is an ordered device tuple
+    (:func:`repro_torch.parallel.sharding.hardware_mesh`).  Each device
+    sweeps its H-shard with the single-device code; no raw row depends on
+    another, so the split sweep is bit-identical to the single-device one
+    at any device count.  Callers pad H to a multiple of the device count
+    first (:func:`repro_torch.core.flow.run_fleet` pads with copies of row
+    0 and slices them off before metrics composition)."""
+    mesh = tuple(mesh)
+
+    def kernel(*args) -> np.ndarray:
+        return run_staged_fleet(stage_fleet(args, mesh))
+
+    return kernel
+
+
+def evaluate_fleet_graph(
+    feat,
+    esrc,
+    edst,
+    ewords,
+    src_mask,
+    sink_mask,
+    cuts_batch,
+    hw_rows,
+    area_consts,
+    node_mask,
+    edge_mask,
+    *,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """(G, H, C, 4) metrics of a padded fleet on ``device`` (see
+    :func:`evaluate_batch_graph` for the float64 contract)."""
+    dev = resolve_device(device)
+    raw = _evaluate_fleet_graph(*sweep_tensors(
+        (feat, esrc, edst, ewords, src_mask, sink_mask, cuts_batch, hw_rows,
+         area_consts, node_mask, edge_mask), dev)).cpu().numpy()
+    return compose_metrics(raw, hw_rows)
+
+
+def chain_edge_arrays(feat: np.ndarray):
+    """(esrc, edst, ewords, src_mask, sink_mask) for a chain's (L, F) features."""
+    L = feat.shape[0]
+    esrc = np.arange(L - 1, dtype=np.int64)
+    edst = np.arange(1, L, dtype=np.int64)
+    ewords = np.asarray(feat[1:, F_IN], dtype=np.float64)
+    src_mask = np.zeros(L, dtype=bool)
+    src_mask[0] = True
+    sink_mask = np.zeros(L, dtype=bool)
+    sink_mask[-1] = True
+    return esrc, edst, ewords, src_mask, sink_mask
+
+
+def evaluate_batch(
+    feat,  # (L, F) float
+    cuts_batch,  # (C, L-1) bool
+    hw_rows,  # (H, 11) float
+    area_consts,  # (4,) float
+    *,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """Chain-shaped wrapper around :func:`evaluate_batch_graph` -> (H, C, 4)."""
+    feat = np.asarray(feat)
+    esrc, edst, ewords, src_mask, sink_mask = chain_edge_arrays(feat)
+    return evaluate_batch_graph(
+        feat, esrc, edst, ewords, src_mask, sink_mask, np.asarray(cuts_batch),
+        np.asarray(hw_rows), np.asarray(area_consts), device=device,
+    )
 
 
 def area_consts_of(hw: DLAConfig) -> np.ndarray:

@@ -1,1 +1,2 @@
-"""Serving step builders (the train step waits for the training slice)."""
+"""Serving step builders, and the fault-tolerance pieces the fleet sweep
+uses (the train step waits for the training slice)."""

@@ -73,7 +73,7 @@ def _no_cuda():
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     _no_cuda()
     from repro_torch.configs import resolve, scaled_down
-    from repro_torch.core import arch, flow, ir, metrics
+    from repro_torch.core import arch, flow, ir, metrics, service
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model
@@ -99,7 +99,12 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
                  lambda: ops.mlp(h, w1, w2, act="relu"),
                  lambda: model.init_params(cfg),
                  lambda: model.init_cache(cfg, 1, 8),
-                 lambda: serve.main(serve_args)):
+                 lambda: serve.main(serve_args),
+                 lambda: flow.run_fleet([vgg], config_space=space, groupings="pool"),
+                 lambda: flow.run_fleet([vgg], config_space=space, groupings="pool",
+                                        devices=("cuda:0", "cuda:0")),
+                 lambda: service.PlanningService(),
+                 lambda: service.AsyncPlanningService()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # ... and run when asked for the CPU
@@ -111,6 +116,14 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     assert ops.mlp(h, w1, w2, act="relu", device="cpu").shape == h.shape
     assert model.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
     assert serve.main(serve_args + ["--device", "cpu"]).shape == (1, 2)
+    fleet = flow.run_fleet([vgg], config_space=space, groupings="pool", device="cpu")
+    assert fleet.results[0].best_hw == arch.PAPER_OPTIMAL_CONFIG
+    assert flow.run_fleet([vgg], config_space=space, groupings="pool",
+                          devices=("cpu", "cpu")).device_count == 2
+    req = service.PlanRequest(graph=ir.residual_block_ir())
+    assert service.PlanningService(config_space=space, device="cpu").plan(req).ok
+    with service.AsyncPlanningService(config_space=space, device="cpu") as svc:
+        assert svc.plan(req, timeout=120).ok
     with pytest.raises(ValueError, match="unsupported device"):
         flow.run_flow(vgg, groupings="pool", device="meta")
 

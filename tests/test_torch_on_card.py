@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
 flash_attention, fused_mlp and selective-scan CUDA kernels, the evaluator
-sweep, the transformer and Mamba serving paths, and the traced ResNet-18's
-sweep and the MoE layer at full width on the card.
+sweep, the transformer and Mamba serving paths, the traced ResNet-18's
+sweep and the MoE layer at full width, the fleet sweep split over one card
+and the planning service on the card.
 
 Every test here carries the ``cuda`` marker and skips without CUDA (the
 kernel has no CPU mode).  On a machine with a GPU and ``nvcc``, from the
@@ -677,3 +678,49 @@ def test_moe_layer_at_full_width_in_bfloat16_matches_float32(cuda):
     assert torch.isfinite(y16).all()
     assert float((y16.float() - y32).abs().max()) <= 5e-2 * float(y32.abs().max())
     assert abs(float(aux16) - float(aux32)) <= 1e-6 * abs(float(aux32))
+
+
+def _same_fleet(a, b):
+    for ra, rb in zip(a.results, b.results):
+        assert ra.best_hw == rb.best_hw and ra.best_metrics == rb.best_metrics
+        np.testing.assert_array_equal(ra.best_cuts, rb.best_cuts)
+        assert (ra.n_candidates, ra.n_feasible, ra.n_pruned, ra.group_sizes) == \
+            (rb.n_candidates, rb.n_feasible, rb.n_pruned, rb.group_sizes)
+        np.testing.assert_array_equal(ra.pareto.metrics, rb.pareto.metrics)
+        np.testing.assert_array_equal(ra.pareto.hw_indices, rb.pareto.hw_indices)
+        np.testing.assert_array_equal(ra.pareto.cut_indices, rb.pareto.cut_indices)
+
+
+def test_fleet_split_on_one_card_equals_the_single_device_sweep_and_the_cpu(cuda):
+    """bench_shard's four workloads over the 2,560-point grid: two shards on
+    one card (three: H padded) equal the one-device sweep on the card and on
+    the CPU, bit for bit."""
+    gs = [ir.resnet18_ir(), ir.residual_block_ir(),
+          ir.as_graph(ir.vgg16_ir(pool_mode="separate")), ir.encoder_decoder_ir()]
+    kw = dict(config_space=arch.config_space_grid(),
+              constraints=arch.Constraints(*[float("inf")] * 4),
+              groupings="pool", pareto=True)
+    one = flow.run_fleet(gs, device="cuda", **kw)
+    for devices in (("cuda:0", "cuda:0"), ("cuda:0",) * 3):
+        split = flow.run_fleet(gs, devices=devices, **kw)
+        assert split.device_count == len(devices)
+        _same_fleet(split, one)
+    _same_fleet(one, flow.run_fleet(gs, device="cpu", **kw))
+
+
+def test_a_service_plan_on_the_card_equals_its_plan_on_the_cpu(cuda):
+    from repro_torch.core.service import PlanRequest, PlanningService
+    from repro_torch.testing.faults import _valid_graphs
+
+    card, host = PlanningService(device="cuda"), PlanningService(device="cpu")
+    assert card.device == torch.device("cuda", torch.cuda.current_device())
+    for g in _valid_graphs() + [ir.resnet18_ir()]:
+        for budget in (float("inf"), 1e6):
+            a = card.plan(PlanRequest(graph=g, sram_budget_words=budget))
+            b = host.plan(PlanRequest(graph=g, sram_budget_words=budget))
+            assert (a.ok, a.error_type, a.engine, a.rung) == (b.ok, b.error_type,
+                                                              b.engine, b.rung)
+            if a.ok:
+                assert a.plan.best_hw == b.plan.best_hw
+                assert a.plan.best_metrics == b.plan.best_metrics
+                np.testing.assert_array_equal(a.plan.best_cuts, b.plan.best_cuts)
