@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's seven main paths through the entry points a user calls,
+Drives the port's ten main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -97,23 +97,54 @@ PyTorch version.  Phases, one line each:
                fused_mlp;
 14. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
                cut depth, printed);
-15. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+15. serve_moe  mixtral-8x7b at full width, 16 of its 32 layers (the 32-layer
+               model's 93.1 GB of bfloat16 weights do not fit the card),
+               through ``serve.run`` (runtime.steps' prefill and decode
+               steps, as ``serve.main`` calls them), 8 requests, prompt 512,
+               32 generated tokens -- the eighth main path, counts zeroed
+               just before and read just after: flash_attention once per
+               layer in the prefill (the sliding window of 4096), no
+               fused_mlp (the experts are batched products, as in the
+               reference);
+16. serve_moe_time   as serve_time, for mixtral (the float32 logits at 2
+               layers); the bfloat16 logits also against a kernel-free
+               reordering of the attention (the router's top-2 may flip);
+17. serve_encdec     ``serve.main`` on seamless-m4t-large-v2 at full width
+               and depth (24 encoder + 24 decoder layers, bfloat16), 8
+               requests of 1024 frames and a 512-token prompt, 32 generated
+               tokens -- the ninth main path, counts zeroed just before and
+               read just after: flash_attention 72 times in the prefill
+               (the encoder's non-causal self-attention, the decoder's
+               causal one, cross-attention over the frames), fused_mlp once
+               per layer per forward (48 in the prefill, 24 a decode step);
+18. serve_encdec_time   as serve_time, for seamless, both logits at full
+               depth, the bfloat16 ones also against the reordering;
+19. serve_ring gemma3-27b at full width, one superblock (5 sliding-window
+               layers of 1024 + 1 global), 8 requests, prompt 1280, 32
+               generated tokens, through runtime.steps with
+               ``local_ring_cache`` and a ring cache -- the tenth main path,
+               counts zeroed just before and read just after:
+               flash_attention once per layer in the prefill, fused_mlp
+               once per layer per forward; then the same tokens through the
+               full cache: the logits within the bfloat16 tolerance,
+               each cache's bytes;
+20. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-16. attention, mlp   flash_attention and fused_mlp vs their plain versions at
-               the serving shapes and at the shapes of tests/test_kernels.py
-               (masks, the planner's tiles, float32 and bfloat16), with the
-               same four times, and every built tile at the serving shapes;
-               kernel phases time a launch over runs of CALLS launches and
-               also one call alone;
-17. scan       selective_scan vs its plain version at falcon-mamba's prefill
+21. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+               the serving shapes of the five serving paths and at the
+               shapes of tests/test_kernels.py (masks, the planner's tiles,
+               float32 and bfloat16), with the same four times, and every
+               built tile at qwen3's serving shapes; kernel phases time a
+               launch over runs of CALLS launches and also one call alone;
+22. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-18. the kernels line, then the result line.
+23. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -194,14 +225,64 @@ SSM_PREFILL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # has moved the residual stream by a bfloat16 unit, later layers round
 # differently too, and the difference grows to bfloat16's own noise over
 # the whole depth, whatever float32 reordering started it.  So the
-# bfloat16 check also allows SSM_CONTROL_FACTOR times what a kernel-free
+# bfloat16 check also allows CONTROL_FACTOR times what a kernel-free
 # reordering moves the same logits by: the plain path with the reference
 # model's own scan (the chunk-recurrent associative scan,
 # ssm.selective_scan_chunked at RunConfig.mamba_chunk) in place of the
 # sequential one.  2: the two differences are maxima over 8 x 65,024
 # logits of the same kind of noise.  The float32 check keeps its fixed
-# tolerance; the scan phase holds the kernel itself to 1e-4.
-SSM_CONTROL_FACTOR = 2.0
+# tolerance; the scan phase holds the kernel itself to 1e-4.  The MoE and
+# encoder-decoder serves take the same rule, with the plain path's
+# attention summed over key blocks (the reference's attention_chunked
+# order, :func:`blocked_attention`) as their reordering: mixtral's router
+# picks its top-2 experts from bfloat16 states, so a flipped rounding can
+# move a token to another expert and change its FFN output wholesale, and
+# seamless runs 48 bfloat16 layers.
+CONTROL_FACTOR = 2.0
+CONTROL_KV_BLOCK = 64  # keys per block of the reordered attention (serve's attn_chunk_kv)
+# The serving run of the eighth main path: mixtral-8x7b at full width and
+# 16 of its 32 layers (all 32 hold 93.1 GB of bfloat16 weights, more than
+# the card's 80 GB; 16 hold 46.7 GB), and its float32 comparison's depth (2
+# layers, 12.1 GB, built after the bfloat16 weights are freed).
+SERVE_MOE = {"arch": "mixtral", "requests": 8, "prompt_len": 512, "gen": 32,
+             "n_layers": 16}
+MOE_F32_LAYERS = 2
+# The ninth: seamless-m4t-large-v2 at full width and depth; each request
+# also carries the stub speech encoder's 1024 frames (cfg.frontend_len).
+SERVE_ENCDEC = {"arch": "seamless", "requests": 8, "prompt_len": 512, "gen": 32}
+# The tenth: gemma3-27b at full width, one superblock (5 sliding-window
+# layers of 1024 and 1 global; 7.8 GB), with a prompt longer than the
+# window, so the ring wraps in the prefill and again in decode.
+SERVE_RING = {"arch": "gemma3", "requests": 8, "prompt_len": 1280, "gen": 32,
+              "n_layers": 6}
+# Logits through the ring against the full cache, relative to the largest
+# logit.  Both run the same kernels on the same tokens: the prefill makes
+# the same calls, but fused_mlp adds its d_ff partial sums with float
+# atomics, in an order that changes from run to run; a decode step also
+# sums attention_decode's float32 products over the cache in another order
+# (the ring's 1024 slots, rolled, against the full cache's).  A float32 sum
+# that differs in its last bit can round to the neighbouring bfloat16 value,
+# which then propagates through the later layers: PREFILL_TOL's bfloat16
+# 5e-2, argued the same way over 6 layers rather than 28.
+RING_TOL = PREFILL_TOL["bfloat16"]
+# flash_attention's bfloat16 shapes on the eighth to tenth main paths: (label,
+# (B, Sq, Skv, H, KV, hd), causal, window), with the launches a serve makes.
+SERVE_ATTENTION = [
+    ("mixtral_prefill", (8, 512, 512, 32, 8, 128), True, 4096),      # 16
+    ("seamless_encoder", (8, 1024, 1024, 16, 16, 64), False, 0),     # 24
+    ("seamless_decoder", (8, 512, 512, 16, 16, 64), True, 0),        # 24
+    ("seamless_cross", (8, 512, 1024, 16, 16, 64), False, 0),        # 24
+    ("gemma3_local", (8, 1280, 1280, 32, 16, 128), True, 1024),      # 5
+    ("gemma3_global", (8, 1280, 1280, 32, 16, 128), True, 0),        # 1
+]
+# fused_mlp's bfloat16 shapes there: (label, (T, d, ff, act)).
+SERVE_MLP = [
+    ("seamless_encoder", (8192, 1024, 8192, "relu")),   # 24 a serve
+    ("seamless_prefill", (4096, 1024, 8192, "relu")),   # 24
+    ("seamless_decode", (8, 1024, 8192, "relu")),       # 24 a step: 744
+    ("gemma3_prefill", (10240, 5376, 21504, "geglu")),  # 6
+    ("gemma3_decode", (8, 5376, 21504, "geglu")),       # 6 a step: 186
+]
 
 # The DAG search's locks (the reference's optima, tests/test_frontier_dp.py
 # and tests/test_torch_search.py): (builder, SRAM budget words, group cost
@@ -344,6 +425,17 @@ def time_ms(torch, fns: dict, reps: int, calls: int = 1) -> dict:
             e1.synchronize()
             samples[k].append(e0.elapsed_time(e1) / calls)
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def event_ms(torch, fn) -> tuple:
+    """(ms between CUDA events around one call of ``fn``, its result)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), res
 
 
 def graph_ms(torch, fn) -> float:
@@ -1537,77 +1629,208 @@ def serve_argv(run: dict, seed: int) -> list:
             "--seed", str(seed)]
 
 
+def serve_config(run: dict):
+    """A serving run's config at full width: the registry's, its depth cut
+    to ``run["n_layers"]`` where the run says so."""
+    import dataclasses
+
+    from repro_torch.configs import resolve
+
+    cfg = resolve(run["arch"])
+    if "n_layers" in run:
+        cfg = dataclasses.replace(cfg, n_layers=run["n_layers"])
+    return cfg
+
+
+def serve_rc(cfg, run: dict, **overrides):
+    """The run configuration of a serving run: ``serve.main``'s attention
+    block (its other overrides reach no serving path on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import run_config
+
+    return dataclasses.replace(run_config(cfg.name, "decode_32k"),
+                               attn_chunk_kv=min(64, run["prompt_len"]), **overrides)
+
+
+def depth_of(cfg, of_layers: int | None = None) -> str:
+    """The layers a run holds, and the cut if it holds fewer."""
+    if cfg.is_encoder_decoder:
+        return f"{cfg.n_enc_layers} + {cfg.n_layers} layers"
+    if of_layers in (None, cfg.n_layers):
+        return f"{cfg.n_layers} layers"
+    return f"{cfg.n_layers} of {of_layers} layers (depth cut), full width"
+
+
 def phase_serve(np, run: dict, seed: int, phase: str = "serve") -> dict:
-    """The port's serve entry point at full width and depth."""
+    """The port's serve entry point at full width: ``serve.main`` at full
+    depth, or ``serve.run`` (the same prefill and decode steps) on the
+    config cut to ``run["n_layers"]``."""
     from repro_torch.configs import resolve
     from repro_torch.launch import serve
 
+    full = resolve(run["arch"])
+    cfg = serve_config(run)
     t0 = time.perf_counter()
-    ids = serve.main(serve_argv(run, seed))
+    if cfg.n_layers == full.n_layers:
+        ids = serve.main(serve_argv(run, seed))
+    else:
+        ids = serve.run(cfg, serve_rc(cfg, run), requests=run["requests"],
+                        prompt_len=run["prompt_len"], gen=run["gen"], seed=seed)["ids"]
     wall = time.perf_counter() - t0
-    vocab = resolve(run["arch"]).vocab_size
     check(ids.shape == (run["requests"], run["gen"]),
           f"serve returned ids of shape {ids.shape}")
-    check(bool(((ids >= 0) & (ids < vocab)).all()), "token ids outside the vocabulary")
-    print(f"phase {phase}: {run['arch']} full width and depth, bfloat16, "
-          f"{run['requests']} requests x prompt {run['prompt_len']} + "
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          "token ids outside the vocabulary")
+    frames = f" + {cfg.frontend_len} frames" if cfg.frontend else ""
+    print(f"phase {phase}: {cfg.name} at {depth_of(cfg, full.n_layers)}, bfloat16 "
+          f"({cfg.param_counts()['total'] * 2 / 1e9:.4g} GB of weights), "
+          f"{run['requests']} requests x prompt {run['prompt_len']}{frames} + "
           f"{run['gen']} generated tokens in {wall:.3f} s (first call, "
           f"kernels loaded); {np.unique(ids).size} distinct ids")
-    return {"wall_s": wall, "ids_head": ids[0][:12].tolist()}
+    return {"wall_s": wall, "ids_head": ids[0][:12].tolist(), "n_layers": cfg.n_layers}
+
+
+def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      chunk: int = 0):
+    """The plain attention reordered, with no kernel: online softmax over
+    blocks of CONTROL_KV_BLOCK keys in float32 (the reference's
+    attention_chunked order), the result in ``q.dtype``."""
+    import math
+
+    import torch
+
+    from repro_torch.models.layers import NEG_INF
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    idx = torch.arange(H, device=q.device) // (H // KV)
+    qf = q.float().transpose(1, 2)  # (B, H, Sq, hd)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, H, Sq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, Sq, hd), device=q.device)
+    for c0 in range(0, Skv, CONTROL_KV_BLOCK):
+        kb = k[:, c0:c0 + CONTROL_KV_BLOCK].index_select(2, idx).float().transpose(1, 2)
+        vb = v[:, c0:c0 + CONTROL_KV_BLOCK].index_select(2, idx).float().transpose(1, 2)
+        s = (qf @ kb.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        kp = torch.arange(c0, c0 + kb.shape[2], device=q.device)[None, :]
+        ok = (kp <= qp) if causal else torch.ones_like(kp <= qp)
+        if window:
+            ok = ok & ((qp - kp) < window)
+            if not causal:
+                ok = ok & ((kp - qp) < window)
+        elif chunk:
+            ok = ok & ((qp // chunk) == (kp // chunk))
+        s = s + torch.where(ok, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vb
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def scan_control(rc):
+    """falcon-mamba's reordering: the plain path with the reference's
+    chunk-recurrent scan in place of the sequential one."""
+    import dataclasses
+    import functools
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm as SSM
+
+    return dataclasses.replace(ops.PLAIN, ssm_scan=functools.partial(
+        SSM.selective_scan_chunked, chunk=rc.mamba_chunk))
+
+
+def attention_control(rc):
+    """The MoE and encoder-decoder serves' reordering: the plain path with
+    :func:`blocked_attention` for the attention."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    return dataclasses.replace(ops.PLAIN, attention=blocked_attention)
+
+
+def route_flips(run_a, run_b) -> tuple:
+    """([token routes whose top-k expert set differs between ``run_a()``
+    and ``run_b()``, one count per MoE layer], routes in all): each run's
+    routing is recorded from ``moe.route_topk``."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.route_topk
+
+    def recorded(run):
+        seen = []
+
+        def route(logits, top_k):
+            gates, idx, probs = real(logits, top_k)
+            seen.append(idx.sort(dim=-1).values)
+            return gates, idx, probs
+
+        MOE.route_topk = route
+        try:
+            run()
+        finally:
+            MOE.route_topk = real
+        return seen
+
+    a, b = recorded(run_a), recorded(run_b)
+    per_layer = [int((x != y).any(dim=-1).sum()) for x, y in zip(a, b)]
+    return per_layer, sum(x[..., 0].numel() for x in a)
+
+
+def serve_batch(torch, cfg, B: int, S: int, gen):
+    """Random prompts (and, for a model with a frontend, its frames)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    if cfg.frontend:
+        batch["frontend"] = torch.randn((B, cfg.frontend_len, cfg.d_model), generator=gen,
+                                        device="cuda").to(getattr(torch, cfg.dtype))
+    return batch
 
 
 def phase_serve_time(torch, run: dict, seed: int, tols: dict,
                      f32_layers: int | None = None, phase: str = "serve_time",
-                     control: bool = False) -> dict:
+                     control=None) -> dict:
     """Prefill and decode through the kernels and through their plain
     versions (in turns), a profiled prefill and four decode steps, and the
-    prefill logits of the two held together in bfloat16 (full depth) and
-    float32 (``f32_layers`` layers at full width; ``None``: full depth)
-    within ``tols``.  ``control``: also prefill through the plain versions
-    with the reference's chunked scan in place of the sequential one, and
-    allow the bfloat16 logits SSM_CONTROL_FACTOR times that reordering's
-    difference."""
+    prefill logits of the two held together in bfloat16 (the run's depth)
+    and float32 (``f32_layers`` layers at full width; ``None``: the run's
+    depth) within ``tols``.  ``control(rc)``: a kernel-free reordering of
+    the plain path (FusedKernels); the bfloat16 logits may then also differ
+    by CONTROL_FACTOR times what it moves them by."""
     import dataclasses
-    import functools
 
-    from repro_torch.models import ssm as SSM
-
-    from repro_torch.configs import resolve, run_config
+    from repro_torch.configs import resolve
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    cfg = resolve(run["arch"])
-    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"),
-                             attn_chunk_kv=min(64, run["prompt_len"]))
+    full_depth = resolve(run["arch"]).n_layers
+    cfg = serve_config(run)
+    rc = serve_rc(cfg, run)
     B, S, n_gen = run["requests"], run["prompt_len"], run["gen"]
     max_seq = S + n_gen + 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     params = M.init_params(cfg, generator=gen)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    batch = serve_batch(torch, cfg, B, S, gen)
     paths = {"kernels": ops.KERNELS, "plain": ops.PLAIN}
-    chunked = dataclasses.replace(ops.PLAIN, ssm_scan=functools.partial(
-        SSM.selective_scan_chunked, chunk=rc.mamba_chunk))
     out = {}
 
     def prefill(p, c, name):
         cache = M.init_cache(c, B, max_seq)
-        kernels = chunked if name == "control" else paths[name]
-        return M.prefill(p, c, rc, {"tokens": tokens}, cache, kernels=kernels)
+        kernels = control(rc) if name == "control" else paths[name]
+        return M.prefill(p, c, rc, batch, cache, kernels=kernels)
 
     def control_err(p, c, want):
         """max |logits| difference of the reordered plain path from ``want``."""
-        if not control:
+        if control is None:
             return None
         return float((prefill(p, c, "control")[0] - want).abs().max())
-
-    def events(fn):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        res = fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1), res
 
     with torch.inference_mode():
         first = {name: prefill(params, cfg, name) for name in paths}
@@ -1615,7 +1838,7 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
                    for what in ("prefill", "decode")}
         for _ in range(3):
             for name in ("kernels", "plain", "plain", "kernels"):
-                ms, (logits, cache) = events(lambda: prefill(params, cfg, name))
+                ms, (logits, cache) = event_ms(torch, lambda: prefill(params, cfg, name))
                 samples[f"{name}_prefill"].append(ms)
                 tok = logits[:, -1].argmax(-1)[:, None]
 
@@ -1626,8 +1849,9 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
                         tok = lg[:, -1].argmax(-1)[:, None]
                     return tok
 
-                ms, _ = events(decode_all)
+                ms, _ = event_ms(torch, decode_all)
                 samples[f"{name}_decode"].append(ms / (n_gen - 1))
+                del logits, cache
         med = {k: statistics.median(v) for k, v in samples.items()}
         for name in paths:
             pre, dec = med[f"{name}_prefill"], med[f"{name}_decode"]
@@ -1647,8 +1871,16 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
         lk, lp = first["kernels"][0], first["plain"][0]
         del first
         out["logits"]["bfloat16"] = _logits_agree(
-            torch, "bfloat16", lk, lp, tols, phase, cfg.n_layers,
+            torch, "bfloat16", lk, lp, tols, phase, depth_of(cfg, full_depth),
             control=control_err(params, cfg, lp))
+        if cfg.n_experts:
+            flips, routes = route_flips(lambda: prefill(params, cfg, "kernels"),
+                                        lambda: prefill(params, cfg, "plain"))
+            out["logits"]["bfloat16"]["routes_flipped"] = {"per_layer": flips,
+                                                           "routes": routes}
+            print(f"phase {phase}: bfloat16 prefill, kernels vs plain: {sum(flips)} of "
+                  f"{routes} token routes ({len(flips)} MoE layers) chose another "
+                  f"top-{cfg.top_k} expert set; by layer {flips}")
         del params
         torch.cuda.empty_cache()
         n32 = cfg.n_layers if f32_layers is None else f32_layers
@@ -1658,9 +1890,88 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
         lk = prefill(params32, cfg32, "kernels")[0]
         lp = prefill(params32, cfg32, "plain")[0]
         out["logits"]["float32"] = _logits_agree(
-            torch, "float32", lk, lp, tols, phase, n32, cfg.n_layers,
+            torch, "float32", lk, lp, tols, phase, depth_of(cfg32, full_depth),
             control=control_err(params32, cfg32, lp))
         del params32
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_ring(torch, run: dict, seed: int) -> dict:
+    """Serve through runtime.steps with ``local_ring_cache`` and a ring
+    cache (the tenth main path: the caller zeroes the counts before and
+    reads them after ``out["ring"]``'s run), then the same tokens through
+    the full cache: the prefill's and each decode step's logits within
+    RING_TOL x the largest logit, the rings window-sized."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    from repro_torch.configs import resolve
+
+    full_depth = resolve(run["arch"]).n_layers
+    cfg = serve_config(run)
+    B, S, n_gen = run["requests"], run["prompt_len"], run["gen"]
+    max_seq = S + n_gen + 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    params = M.init_params(cfg, generator=gen)
+    batch = serve_batch(torch, cfg, B, S, gen)
+    out, logits, tokens = {}, {}, []
+
+    with torch.inference_mode():
+        for name, ring in (("ring", True), ("full", False)):
+            rc = serve_rc(cfg, run, local_ring_cache=ring)
+            prefill, decode = make_prefill_step(cfg, rc), make_decode_step(cfg, rc)
+            cache = M.init_cache(cfg, B, max_seq, ring=ring)
+            n_bytes = sum(t.numel() * t.element_size() for seg in cache["segments"]
+                          for layer in seg for sub in layer.values() for t in sub.values())
+            entries = sorted({sub["k"].shape[1] for seg in cache["segments"]
+                              for layer in seg for sub in layer.values()})
+            if ring:
+                check(entries == sorted({min(max_seq, cfg.window_size), max_seq}),
+                      f"the ring cache holds {entries} entries a layer, not "
+                      f"{cfg.window_size} (local) and {max_seq} (global)")
+            pre_ms, (lg, cache) = event_ms(torch, lambda: prefill(params, cache, batch))
+            steps, step_ms = [lg], []
+            for i in range(n_gen - 1):
+                if ring:
+                    tokens.append(lg[:, -1].argmax(-1)[:, None])
+                tok = tokens[i]  # the full cache is fed the ring run's tokens
+                ms, (lg, cache) = event_ms(torch, lambda: decode(params, cache, tok))
+                step_ms.append(ms)
+                steps.append(lg)
+            logits[name] = torch.cat(steps, dim=1)
+            out[name] = {"prefill_ms": pre_ms,
+                         "decode_ms_per_token": statistics.median(step_ms),
+                         "decode_ms_mean": statistics.mean(step_ms),
+                         "cache_bytes": n_bytes, "entries": entries}
+            print(f"phase serve_ring: {cfg.name} at {depth_of(cfg, full_depth)}, "
+                  f"{'ring' if ring else 'full'} cache ({entries} entries a layer, "
+                  f"{n_bytes} bytes): prefill {pre_ms:.3f} ms, decode "
+                  f"{out[name]['decode_ms_per_token']:.3f} ms/token (the median step "
+                  f"between two events; mean {out[name]['decode_ms_mean']:.3f}), "
+                  f"{B} requests x prompt {S} + {n_gen} tokens")
+            if ring:
+                out["ring_counts"] = read_counts()
+            del cache, lg, steps
+        ring_l, full_l = logits["ring"], logits["full"]
+        check(bool(torch.isfinite(ring_l).all()), "non-finite logits through the ring")
+        pre_err = float((ring_l[:, 0] - full_l[:, 0]).abs().max())
+        err = float((ring_l - full_l).abs().max())
+        scale = float(full_l.abs().max())
+        check(err <= RING_TOL * scale,
+              f"logits through the ring differ from the full cache by "
+              f"{err} > {RING_TOL} x {scale}")
+        same = float((ring_l.argmax(-1) == full_l.argmax(-1)).float().mean())
+        print(f"phase serve_ring: logits ring vs full cache, the prefill and "
+              f"{n_gen - 1} decode steps: max |diff| {err:.6g} (the prefill's "
+              f"{pre_err:.6g}; max |logit| {scale:.6g}, allowed {RING_TOL * scale:.6g}: "
+              f"{RING_TOL} x max); argmax agrees on {same:.4f} of the (request, step) "
+              f"pairs; cache bytes ring {out['ring']['cache_bytes']} vs full "
+              f"{out['full']['cache_bytes']}")
+        out["logits"] = {"max_abs_err": err, "prefill_max_abs_err": pre_err,
+                         "max_abs_logit": scale, "allowed": RING_TOL * scale,
+                         "argmax_agree": same}
+        del params, logits, ring_l, full_l
         torch.cuda.empty_cache()
     return out
 
@@ -1720,12 +2031,11 @@ def _serve_trace(torch, prefill, decode, phase: str) -> dict:
 
 
 def _logits_agree(torch, dname: str, got, want, tols: dict, phase: str,
-                  n_layers: int, of_layers: int | None = None, *,
-                  control: float | None = None) -> dict:
+                  depth: str, *, control: float | None = None) -> dict:
     """Check prefill logits through the kernels against the plain path,
     within ``tols[dname]`` x the largest logit or, in bfloat16 where
     ``control`` (the kernel-free reordering's max |diff|) is given,
-    SSM_CONTROL_FACTOR x ``control`` if that is larger."""
+    CONTROL_FACTOR x ``control`` if that is larger."""
     check(bool(torch.isfinite(got).all()), f"non-finite {dname} prefill logits")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -1733,21 +2043,18 @@ def _logits_agree(torch, dname: str, got, want, tols: dict, phase: str,
     allowed = tol * scale
     rule = f"{tol} x max"
     if control is not None and dname == "bfloat16":
-        allowed = max(allowed, SSM_CONTROL_FACTOR * control)
-        rule += f" or {SSM_CONTROL_FACTOR} x the reordering's, if larger"
-    check(err <= allowed, f"{dname} prefill logits through the kernels differ "
-          f"from plain by {err} > {allowed} ({rule})")
+        allowed = max(allowed, CONTROL_FACTOR * control)
+        rule += f" or {CONTROL_FACTOR} x the reordering's, if larger"
+    check(err <= allowed, f"{phase}: {dname} prefill logits through the kernels "
+          f"differ from plain by {err} > {allowed} ({rule})")
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    depth = (f"{n_layers} layers" if of_layers in (None, n_layers)
-             else f"{n_layers} of {of_layers} layers (depth cut), full width")
     ctl = "" if control is None else (
-        f"; plain with the reference's chunked scan vs plain: max |diff| {control:.6g}")
+        f"; the plain path reordered (no kernel) vs plain: max |diff| {control:.6g}")
     print(f"phase {phase}: {dname} prefill logits at {depth}, kernels vs plain: "
           f"max |diff| {err:.6g} (max |logit| {scale:.6g}, allowed {allowed:.6g}: "
           f"{rule}){ctl}; argmax agrees on {same:.3f} of the requests")
     return {"max_abs_err": err, "max_abs_logit": scale, "allowed": allowed,
-            "control_max_abs_err": control, "argmax_agree": same,
-            "n_layers": n_layers}
+            "control_max_abs_err": control, "argmax_agree": same, "depth": depth}
 
 
 _SDPA_NAMES: dict = {}
@@ -1820,6 +2127,8 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         ("serve", serve_shape, "float32", True, 0, 0, None),
         ("serve_plan_tile", serve_shape, "bfloat16", True, 0, 0, plan_tile),
     ]
+    cases += [(label, shape, "bfloat16", causal, window, 0, None)
+              for label, shape, causal, window in SERVE_ATTENTION]
     for shape in ((1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
                   (1, 128, 256, 4, 1, 128), (2, 384, 384, 6, 2, 32)):
         for dname in ("float32", "bfloat16"):
@@ -1841,8 +2150,13 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         if window or chunk:
             qp = torch.arange(Sq, device="cuda")[:, None]
             kp = torch.arange(Skv, device="cuda")[None, :]
-            allowed = kp <= qp
-            allowed &= ((qp - kp) < window) if window else ((qp // chunk) == (kp // chunk))
+            allowed = (kp <= qp) if causal else torch.ones_like(kp <= qp)
+            if window:
+                allowed &= (qp - kp) < window
+                if not causal:
+                    allowed &= (kp - qp) < window
+            else:
+                allowed &= (qp // chunk) == (kp // chunk)
             lib_kw = dict(attn_mask=allowed)
         else:
             lib_kw = dict(is_causal=causal)
@@ -1916,6 +2230,7 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
         ("serve_plan_tile", (T_pre, 1024, 3072, "swiglu"), "bfloat16", plan_tile),
         ("decode_one_row", (1, 1024, 3072, "swiglu"), "bfloat16", None),
     ]
+    cases += [(label, shape, "bfloat16", None) for label, shape in SERVE_MLP]
     for shape in ((128, 64, 256, "swiglu"), (256, 128, 512, "geglu"),
                   (128, 64, 128, "gelu"), (384, 96, 384, "relu")):
         for dname in ("float32", "bfloat16"):
@@ -2237,7 +2552,60 @@ def main(argv=None) -> int:
     print(f"phase main_path serve_ssm: launches {ssm_counts}")
     torch.cuda.empty_cache()
     ssm_time = phase_serve_time(torch, SERVE_SSM, args.seed, SSM_PREFILL_TOL,
-                                SSM_F32_LAYERS, "serve_ssm_time", control=True)
+                                SSM_F32_LAYERS, "serve_ssm_time", control=scan_control)
+    torch.cuda.empty_cache()
+
+    # ---- main path 8, serving mixtral-8x7b (16 of 32 layers): counts
+    # zeroed just before, read just after ----
+    moe_cfg = serve_config(SERVE_MOE)
+    zero_counts()
+    moe_run = phase_serve(np, SERVE_MOE, args.seed, "serve_moe")
+    moe_counts = read_counts()
+    check(moe_counts == {"fused_conv3x3": 0, "flash_attention": moe_cfg.n_layers,
+                         "fused_mlp": 0, "selective_scan": 0},
+          f"serving {moe_cfg.name} launched {moe_counts}, not flash_attention "
+          f"once per layer of the prefill ({moe_cfg.n_layers}) and nothing else")
+    print(f"phase main_path serve_moe: launches {moe_counts}")
+    torch.cuda.empty_cache()
+    moe_time = phase_serve_time(torch, SERVE_MOE, args.seed, PREFILL_TOL,
+                                MOE_F32_LAYERS, "serve_moe_time",
+                                control=attention_control)
+    torch.cuda.empty_cache()
+
+    # ---- main path 9, serving seamless-m4t-large-v2: counts zeroed just
+    # before, read just after ----
+    ed_cfg = resolve(SERVE_ENCDEC["arch"])
+    zero_counts()
+    encdec_run = phase_serve(np, SERVE_ENCDEC, args.seed, "serve_encdec")
+    encdec_counts = read_counts()
+    n_att = ed_cfg.n_enc_layers + 2 * ed_cfg.n_layers
+    n_mlp = ed_cfg.n_enc_layers + ed_cfg.n_layers * SERVE_ENCDEC["gen"]
+    check(encdec_counts == {"fused_conv3x3": 0, "flash_attention": n_att,
+                            "fused_mlp": n_mlp, "selective_scan": 0},
+          f"serving {ed_cfg.name} launched {encdec_counts}, not flash_attention "
+          f"{n_att} times in the prefill ({ed_cfg.n_enc_layers} encoder, "
+          f"{ed_cfg.n_layers} self and {ed_cfg.n_layers} cross) and fused_mlp "
+          f"{n_mlp} ({ed_cfg.n_enc_layers} encoder + {ed_cfg.n_layers} decoder "
+          f"layers x {SERVE_ENCDEC['gen']} forwards)")
+    print(f"phase main_path serve_encdec: launches {encdec_counts}")
+    torch.cuda.empty_cache()
+    encdec_time = phase_serve_time(torch, SERVE_ENCDEC, args.seed, PREFILL_TOL,
+                                   phase="serve_encdec_time", control=attention_control)
+    torch.cuda.empty_cache()
+
+    # ---- main path 10, serving gemma3-27b's superblock through the ring
+    # cache: counts zeroed just before, read just after its run ----
+    ring_cfg = serve_config(SERVE_RING)
+    zero_counts()
+    ring = phase_serve_ring(torch, SERVE_RING, args.seed)
+    ring_counts = ring["ring_counts"]
+    n_ring = ring_cfg.n_layers
+    check(ring_counts == {"fused_conv3x3": 0, "flash_attention": n_ring,
+                          "fused_mlp": n_ring * SERVE_RING["gen"], "selective_scan": 0},
+          f"serving {ring_cfg.name} through the ring launched {ring_counts}, not "
+          f"flash_attention once per layer of the prefill ({n_ring}) and fused_mlp "
+          f"{n_ring} layers x {SERVE_RING['gen']} forwards")
+    print(f"phase main_path serve_ring: launches {ring_counts}")
     torch.cuda.empty_cache()
 
     layer_rows = phase_layers(torch, spec, args.seed)
@@ -2278,7 +2646,10 @@ def main(argv=None) -> int:
         "service_counts": service_counts, "layers": layer_rows,
         "plans": plans, "serve": serve_run, "serve_counts": serve_counts,
         "serve_time": serve_time, "serve_ssm": ssm_run, "serve_ssm_counts": ssm_counts,
-        "serve_ssm_time": ssm_time, "attention": att_rows, "mlp": mlp_rows,
+        "serve_ssm_time": ssm_time, "serve_moe": moe_run, "serve_moe_counts": moe_counts,
+        "serve_moe_time": moe_time, "serve_encdec": encdec_run,
+        "serve_encdec_counts": encdec_counts, "serve_encdec_time": encdec_time,
+        "serve_ring": ring, "attention": att_rows, "mlp": mlp_rows,
         "scan": scan_rows, "kernels": entries,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

@@ -16,12 +16,15 @@ Conventions
   also take integer tensors.
 * On a CUDA tensor, :func:`attention_chunked` with more than one query is
   the flash-attention kernel (K2) and :func:`mlp_block` the fused-MLP
-  kernel (K3); a case K2 does not take (logit softcap, queries not starting
-  at position 0, arbitrary KV positions, cross-attention, the ring cache)
-  raises ``NotImplementedError`` there.  On a CPU tensor the plain versions
-  compute the whole reference function.  Single-query decode attention
-  (:func:`attention_decode`) is plain PyTorch on both, as the reference
-  computes it outside any Pallas kernel.
+  kernel (K3).  Every serving call reaches K2 with queries and keys at
+  positions 0..: causal or not (the encoder, cross-attention), windowed or
+  chunked, a ring-cache prefill included (it attends to the fresh keys).
+  What K2 does not take (a logit softcap, queries not starting at position
+  0, arbitrary KV positions) raises ``NotImplementedError`` there.  On a
+  CPU tensor the plain versions compute the whole reference function.
+  Single-query decode attention (:func:`attention_decode`, over a full
+  cache, a ring or the encoder's keys) is plain PyTorch on both, as the
+  reference computes it outside any Pallas kernel.
 * The reference's sharding hints are dropped (one device), as are its
   training-only options (custom-VJP flash, bf16 probability tiles).
 """
@@ -163,6 +166,39 @@ def attention_bias(q_pos, kv_pos, *, mixer: str, causal: bool, window: int,
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
+def ring_insert(buf: torch.Tensor, new: torch.Tensor, start: int) -> torch.Tensor:
+    """Write ``new`` (B, S, KV, hd) into the W-entry ring buffer ``buf``
+    (B, W, KV, hd) keyed by absolute position (slot = position % W), in
+    place, and return ``buf`` (the reference returns a new buffer).
+
+    S == 1: a decode step at position ``start`` writes slot ``start % W``.
+    S > 1: a prefill, which the reference assumes starts at position 0 (the
+    serving flow always primes the ring from scratch; ``start`` is not
+    read): S >= W keeps the last W keys, rolled by (S - W) % W so that key
+    p lands in slot p % W; S < W writes slots 0..S-1 and leaves the rest.
+    The roll reads only ``new``, which must not alias ``buf``, so no slot
+    is read after it was overwritten.
+    """
+    W, S = buf.shape[1], new.shape[1]
+    if S == 1:
+        buf[:, start % W] = new[:, 0]
+    elif S >= W:
+        shift = (S - W) % W
+        keep = new[:, S - W:]
+        buf[:, shift:] = keep[:, :W - shift]
+        buf[:, :shift] = keep[:, W - shift:]
+    else:
+        buf[:, :S] = new
+    return buf
+
+
+def ring_positions(W: int, p_last: int, device=None) -> torch.Tensor:
+    """(W,) absolute position held by each ring slot after the token at
+    ``p_last`` was written; unwritten slots come out negative, which
+    :func:`attention_bias` masks."""
+    return p_last - ((p_last - torch.arange(W, device=device)) % W)
+
+
 # ---------------------------------------------------------------------------
 # Attention: reference (materialised scores) — the oracle
 # ---------------------------------------------------------------------------
@@ -234,7 +270,7 @@ def _flash_case(q, k, *, q_pos, kv_pos, mixer, window, chunk, kv_len,
     if not isinstance(q_pos, range) or q_pos != range(Sq):
         return "queries not starting at position 0"
     if not isinstance(kv_pos, range) or kv_pos != range(Skv):
-        return "KV positions other than 0..Skv-1 (the ring cache)"
+        return "KV positions other than 0..Skv-1 (as a ring cache's)"
     if kv_len is not None and not (isinstance(kv_len, int) and kv_len >= Skv):
         return "a kv_len shorter than the keys given"
     return (window if mixer == "attn_local" else 0,
@@ -327,23 +363,25 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     (:func:`attention_reference`), as the reference's tracing hook does;
     the default ``"chunked"`` goes through :func:`attention_chunked`.
 
-    ``cache``: ``{"k", "v": (B, max_seq, KV, hd), "len": int}``.  The new
+    ``cache``: ``{"k", "v": (B, entries, KV, hd), "len": int}``.  The new
     keys and values are written into the cache's buffers in place (the
     reference returns new buffers; the port saves the copy) and
-    ``new_cache`` holds the same buffers with ``len`` advanced.  A prefill
-    that starts at position 0 attends to the fresh keys: the reference
-    attends to the whole buffer, but the slots past ``len`` are masked, so
-    the function is the same.
+    ``new_cache`` holds the same buffers with ``len`` advanced.  A full
+    cache (``ring=False``) is written at [len, len + S); a prefill that
+    starts at position 0 attends to the fresh keys: the reference attends
+    to the whole buffer, but the slots past ``len`` are masked, so the
+    function is the same.  ``ring=True``: the buffer is a window-sized ring
+    (local-attention layers, :func:`ring_insert`); a prefill attends to the
+    fresh keys and keeps only the last window, a decode step attends to the
+    ring at :func:`ring_positions`.
+
+    ``cross_kv``: the encoder's (k, v), attended to without a mask; the
+    queries take ``q_norm`` only, no RoPE (the keys were projected from the
+    encoder's states once, :func:`repro_torch.models.encdec.cross_kv`).
     """
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    if ring:
-        raise NotImplementedError("the window-sized ring cache is not ported "
-                                  "(ROADMAP Queue 1)")
-    if cross_kv is not None and x.device.type != "cpu":
-        raise NotImplementedError("cross-attention on the card waits for the "
-                                  "encoder-decoder slice (ROADMAP Queue 1)")
 
     q = (x @ params["wq"]).reshape(B, S, H, hd)
     if cross_kv is None:
@@ -362,6 +400,17 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     new_cache = None
     if cross_kv is not None:
         kv_pos, kv_len, causal = range(k.shape[1]), None, False
+    elif cache is not None and ring:
+        start = cache["len"]
+        k_ring = ring_insert(cache["k"], k, start)
+        v_ring = ring_insert(cache["v"], v, start)
+        new_cache = {"k": k_ring, "v": v_ring, "len": start + S}
+        if S == 1:
+            k, v = k_ring, v_ring
+            kv_pos = ring_positions(k.shape[1], start, device=x.device)
+            kv_len = None  # validity from kp >= 0 and the causal / window masks
+        else:
+            kv_pos, kv_len = positions, start + S
     elif cache is not None:
         start = cache["len"]
         cache["k"][:, start:start + S] = k

@@ -1,9 +1,10 @@
-"""Model dispatch: one API over the decoder-only models (attention and
-Mamba-1 sublayers: qwen3, falcon-mamba, ...).
+"""Model dispatch: one API over the decoder-only models (attention, MoE and
+Mamba-1 sublayers: qwen3, mixtral, falcon-mamba, ...) and the
+encoder-decoder (seamless).
 
-``init_params / forward / init_cache / prefill / decode``, the port of the
-JAX package's ``models/model.py``; launch scripts and tests import this
-module.  Encoder-decoder configs raise ``NotImplementedError`` (ROADMAP).
+``init_params / params_from_jax / forward / init_cache / prefill / decode``,
+the port of the JAX package's ``models/model.py``, dispatch on
+``cfg.is_encoder_decoder``; launch scripts and tests import this module.
 Entry points that create tensors default to ``device="cuda"`` and raise
 without CUDA.
 """
@@ -13,45 +14,61 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from . import encdec as ED
 from . import transformer as T
-
-
-def _decoder_only(cfg) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported (ROADMAP Queue 1)")
 
 
 def init_params(cfg, *, generator: torch.Generator | None = None,
                 device: "str | torch.device" = "cuda") -> dict:
     """Parameters on ``device`` drawn from ``generator`` (which must live on
     that device; ``None`` seeds a fresh one with 0)."""
-    _decoder_only(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator lives on {generator.device}, not {dev}")
+    if cfg.is_encoder_decoder:
+        return ED.init_params(generator, cfg)
     return T.init_params(generator, cfg)
+
+
+def params_from_jax(cfg, tree: dict) -> dict:
+    """The reference's parameter pytree (numpy arrays, layers stacked) as
+    this package's parameters (one dict per layer), on the CPU."""
+    if cfg.is_encoder_decoder:
+        return ED.params_from_jax(tree)
+    return T.params_from_jax(tree)
 
 
 def forward(params, cfg, rc, batch: dict, cache=None, *,
             kernels: ops.FusedKernels = ops.KERNELS):
-    """(hidden, new_cache | None, aux); see :func:`transformer.forward`."""
-    _decoder_only(cfg)
+    """(hidden, new_cache | None, aux); see :func:`transformer.forward` and
+    :func:`encdec.forward`."""
+    if cfg.is_encoder_decoder:
+        return ED.forward(params, cfg, rc, batch, cache, kernels=kernels)
     return T.forward(params, cfg, rc, batch, cache, kernels=kernels)
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, ring: bool = False,
                device: "str | torch.device" = "cuda") -> dict:
     """A zeroed decode cache for ``batch`` sequences of ``max_seq``: KV
-    buffers for attention sublayers, conv inputs and the float32 SSM state
-    for Mamba sublayers (their size does not grow with ``max_seq``)."""
-    _decoder_only(cfg)
-    if ring:
-        raise NotImplementedError("the window-sized ring cache is not ported "
-                                  "(ROADMAP Queue 1)")
-    return T.init_cache(cfg, batch, max_seq, device=resolve_device(device))
+    buffers for attention sublayers (window-sized rings for the local ones
+    with ``ring=True``), conv inputs and the float32 SSM state for Mamba
+    sublayers (their size does not grow with ``max_seq``); for the
+    encoder-decoder, the decoder's self-attention buffers and the
+    cross-attention buffers for ``cfg.frontend_len`` encoder frames."""
+    dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return ED.init_cache(cfg, batch, max_seq, cfg.frontend_len, device=dev)
+    return T.init_cache(cfg, batch, max_seq, ring=ring, device=dev)
+
+
+def _logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the final position, float32; the encoder-decoder's head is
+    its tied embedding."""
+    if cfg.is_encoder_decoder:
+        return (h[:, -1:, :] @ params["embed"].T).float()
+    return T.logits_last(params, cfg, rc, h)
 
 
 def prefill(params, cfg, rc, batch: dict, cache, *,
@@ -61,7 +78,7 @@ def prefill(params, cfg, rc, batch: dict, cache, *,
     Returns (last-position logits (B, 1, V) float32, new_cache).
     """
     h, new_cache, _ = forward(params, cfg, rc, batch, cache, kernels=kernels)
-    return T.logits_last(params, cfg, rc, h), new_cache
+    return _logits_last(params, cfg, rc, h), new_cache
 
 
 def decode(params, cfg, rc, tokens: torch.Tensor, cache, extras: dict | None = None,
@@ -71,4 +88,4 @@ def decode(params, cfg, rc, tokens: torch.Tensor, cache, extras: dict | None = N
     if extras:
         batch.update(extras)
     h, new_cache, _ = forward(params, cfg, rc, batch, cache, kernels=kernels)
-    return T.logits_last(params, cfg, rc, h), new_cache
+    return _logits_last(params, cfg, rc, h), new_cache

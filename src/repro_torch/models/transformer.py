@@ -1,21 +1,22 @@
 """Decoder-only transformer trunk — the port of the JAX package's
-``models/transformer.py`` for the attention and Mamba-1 sublayers,
-inference only.
+``models/transformer.py``, inference only.
 
 A model is a sequence of **segments**; each segment is ``repeats`` copies
-of a *superblock* (one period of the config's cyclic ``layer_pattern``).
-The reference stacks a segment's parameters on a leading ``repeats`` axis
-and scans over it; here a segment is a Python list of per-layer parameter
-dicts, looped over in Python.  The same trunk serves an uncached forward,
-prefill (cache write) and decode (cache read-extend).  The cache's length
-is a Python int, so that no layer waits on the device to read it.
+of a *superblock* (one period of the config's cyclic ``layer_pattern`` x
+MoE placement).  The reference stacks a segment's parameters on a leading
+``repeats`` axis and scans over it; here a segment is a Python list of
+per-layer parameter dicts, looped over in Python.  The same trunk serves an
+uncached forward, prefill (cache write) and decode (cache read-extend).
+The cache's length is a Python int, so that no layer waits on the device
+to read it.
 
-Each sublayer is a mixer (attention, or a Mamba-1 SSM) followed by a
-dense FFN, an MoE FFN, or nothing when ``d_ff == 0`` (falcon-mamba's blocks
-are mixer-only).  :func:`block_forward` (the tracing frontend's hook) runs
-every kind; the serving path (:func:`forward`) raises
-``NotImplementedError`` for MoE sublayers and encoder-decoder models
-(ROADMAP Queue 1).
+Each sublayer is a mixer (full, sliding-window or chunked attention, or a
+Mamba-1 SSM) followed by a dense FFN, an MoE FFN (with arctic's parallel
+dense residual), or nothing when ``d_ff == 0`` (falcon-mamba's blocks are
+mixer-only).  Local-attention sublayers may keep a window-sized ring cache
+(``RunConfig.local_ring_cache`` with ``init_cache(ring=True)``).  The
+encoder-decoder (seamless) runs through :mod:`repro_torch.models.encdec`;
+:func:`check_supported` refuses it here.
 """
 from __future__ import annotations
 
@@ -51,15 +52,13 @@ def segments_of(cfg, n_layers: int | None = None) -> list[SegmentSpec]:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for a config this trunk does not run:
+    the encoder-decoder, which :mod:`repro_torch.models.model` dispatches to
+    :mod:`repro_torch.models.encdec`."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported (ROADMAP Queue 1)")
-    for spec in segments_of(cfg):
-        for _mixer, is_moe in spec.kinds:
-            if is_moe:
-                raise NotImplementedError(
-                    f"{cfg.name}: MoE sublayers are not ported (ROADMAP Queue 1)")
+            f"{cfg.name}: an encoder-decoder runs through models.encdec, not "
+            "the decoder-only trunk")
 
 
 # ---------------------------------------------------------------------------
@@ -138,18 +137,24 @@ def _leaves(node):
 
 
 def init_cache(cfg, batch: int, max_seq: int, n_layers: int | None = None, *,
-               device) -> dict:
+               ring: bool = False, device) -> dict:
     """Decode cache matching the segment structure, zeros: per attention
-    sublayer ``{"k", "v": (batch, max_seq, KV, hd)}`` in ``cfg.dtype``, per
+    sublayer ``{"k", "v": (batch, entries, KV, hd)}`` in ``cfg.dtype``, per
     Mamba sublayer ``{"conv": (batch, dc-1, di)}`` in ``cfg.dtype`` and
-    ``{"h": (batch, di, ds)}`` in float32; and ``"len": 0``."""
+    ``{"h": (batch, di, ds)}`` in float32; and ``"len": 0``.  ``entries``
+    is ``max_seq``, or with ``ring=True`` ``min(max_seq, window_size)`` for
+    local-attention sublayers (the reference's decode lever: gemma3's local
+    layers hold 1024 entries, not the whole context)."""
     dtype = getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim
-    shape = (batch, max_seq, cfg.n_kv_heads, hd)
 
     def sub_cache(mixer):
         if mixer == "mamba":
             return SSM.init_mamba_cache(cfg, batch, dtype, device)
+        entries = max_seq
+        if ring and mixer == "attn_local":
+            entries = min(max_seq, cfg.window_size)
+        shape = (batch, entries, cfg.n_kv_heads, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -240,16 +245,19 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
     """Trunk forward.  batch: {"tokens": (B, S), ["frontend": (B, Lf, d)]}.
 
     With ``cache``: incremental (prefill writes at [len, len+S), decode
-    extends), positions offset by ``cache["len"]``; the KV buffers are
-    written in place, a Mamba sublayer's conv inputs and state are replaced
-    in the returned cache.  ``kernels`` names the attention, MLP and scan
-    fusion groups (default: the kernels' wrappers; ``ops.PLAIN`` for the
-    plain versions).  Returns (hidden (B, S, d), new_cache | None, aux = 0).
+    extends), positions offset by ``cache["len"]``; the KV buffers (full or
+    ring) are written in place, a Mamba sublayer's conv inputs and state are
+    replaced in the returned cache.  ``kernels`` names the attention, MLP
+    and scan fusion groups (default: the kernels' wrappers; ``ops.PLAIN``
+    for the plain versions).  Returns (hidden (B, S, d), new_cache | None,
+    aux): ``aux`` is the float32 sum of the MoE sublayers' load-balance
+    losses (0 without MoE), as the reference returns it.
     """
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     start = cache["len"] if cache is not None else 0
     positions = range(start, start + x.shape[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_segs = []
     for i, spec in enumerate(segments_of(cfg)):
         new_seg = []
@@ -258,9 +266,9 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
             new_layer = {}
             for j, (mixer, is_moe) in enumerate(spec.kinds):
                 sub_cache = None if cache is None else cache["segments"][i][r][f"sub{j}"]
-                x, nc, _ = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
-                                     is_moe, positions, sub_cache, start, None,
-                                     kernels)
+                x, nc, aux = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
+                                       is_moe, positions, sub_cache, start, aux,
+                                       kernels)
                 if nc is not None:
                     new_layer[f"sub{j}"] = nc
             new_seg.append(new_layer)
@@ -269,7 +277,7 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
     new_cache = None
     if cache is not None:
         new_cache = {"segments": new_segs, "len": start + x.shape[1]}
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
 def lm_head_matrix(params, cfg) -> torch.Tensor:

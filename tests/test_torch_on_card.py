@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
 flash_attention, fused_mlp and selective-scan CUDA kernels, the evaluator
-sweep, the transformer and Mamba serving paths, the traced ResNet-18's
+sweep, the serving paths (the transformer, Mamba, MoE and encoder-decoder
+models, the ring cache), the traced ResNet-18's
 sweep and the MoE layer at full width, the fleet sweep split over one card
 and the planning service on the card.
 
@@ -724,3 +725,110 @@ def test_a_service_plan_on_the_card_equals_its_plan_on_the_cpu(cuda):
                 assert a.plan.best_hw == b.plan.best_hw
                 assert a.plan.best_metrics == b.plan.best_metrics
                 np.testing.assert_array_equal(a.plan.best_cuts, b.plan.best_cuts)
+
+
+# ---------------------------------------------------------------------------
+# Serving the MoE and encoder-decoder models, and the ring cache
+# ---------------------------------------------------------------------------
+
+# Logits through the kernels against the plain path in float32, relative to
+# the largest logit: chip_smoke.PREFILL_TOL's float32 1e-3 (per-kernel float32
+# differences adding along the residual stream over a few layers).
+SERVE_F32_TOL = 1e-3
+SEAMLESS_SHAPES = [  # (B, Sq, Skv, H, KV, hd): cross-attention, the encoder
+    (8, 512, 1024, 16, 16, 64), (8, 1024, 1024, 16, 16, 64)]
+
+
+@pytest.mark.parametrize("shape", SEAMLESS_SHAPES, ids=["cross", "encoder"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_without_the_causal_mask_at_seamless_shapes(cuda, shape, dtype):
+    q, k, v = _att_inputs(shape, dtype, seed=3)
+    before = fused_attention.flash_attention.launches
+    got = ops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fused_attention.flash_attention.launches == before + 1
+    _assert_att(got, ref.flash_attention_ref(q, k, v, causal=False), dtype)
+
+
+def _serve_logits(cfg, rc, params, batch, *, steps: int, kernels, ring=False,
+                  tokens=None):
+    """Prefill logits and ``steps`` decode steps' (B, 1 + steps, V) and the
+    decoded tokens; ``tokens`` (a list of (B, 1)) are fed instead of the
+    greedy ones where given."""
+    B, S = batch["tokens"].shape
+    fed = [] if tokens is None else tokens
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, B, S + steps + 8, ring=ring)
+        logits, cache = M.prefill(params, cfg, rc, batch, cache, kernels=kernels)
+        out = [logits]
+        for i in range(steps):
+            if tokens is None:
+                fed.append(logits[:, -1].argmax(-1)[:, None])
+            logits, cache = M.decode(params, cfg, rc, fed[i], cache, kernels=kernels)
+            out.append(logits)
+    return torch.cat(out, dim=1), fed, cache
+
+
+def _assert_relative(got, want, tol):
+    assert bool(torch.isfinite(got).all())
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def test_mixtral_two_layers_at_full_width_through_the_kernels_match_plain(cuda):
+    cfg = dataclasses.replace(resolve("mixtral"), n_layers=2, dtype="float32")
+    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"), attn_chunk_kv=64)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = M.init_params(cfg, generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                                     device="cuda")}
+    a0, m0 = fused_attention.flash_attention.launches, fused_mlp.fused_mlp.launches
+    got, fed, _ = _serve_logits(cfg, rc, params, batch, steps=3, kernels=ops.KERNELS)
+    assert fused_attention.flash_attention.launches == a0 + cfg.n_layers
+    assert fused_mlp.fused_mlp.launches == m0  # the experts are batched products
+    want, _, _ = _serve_logits(cfg, rc, params, batch, steps=3, kernels=ops.PLAIN,
+                               tokens=fed)
+    _assert_relative(got, want, SERVE_F32_TOL)
+
+
+def test_seamless_two_plus_two_layers_through_the_kernels_match_plain(cuda):
+    cfg = dataclasses.replace(resolve("seamless"), n_layers=2, n_enc_layers=2,
+                              dtype="float32")
+    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"), attn_chunk_kv=64)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    params = M.init_params(cfg, generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                                     device="cuda"),
+             "frontend": torch.randn((2, cfg.frontend_len, cfg.d_model), generator=gen,
+                                     device="cuda")}
+    a0, m0 = fused_attention.flash_attention.launches, fused_mlp.fused_mlp.launches
+    got, fed, cache = _serve_logits(cfg, rc, params, batch, steps=3, kernels=ops.KERNELS)
+    # the prefill: 2 encoder, 2 decoder self- and 2 cross-attentions; the
+    # MLP once per layer per forward
+    assert fused_attention.flash_attention.launches == a0 + 6
+    assert fused_mlp.fused_mlp.launches == m0 + 4 + 2 * 3
+    assert cache["len"] == 64 + 3
+    want, _, _ = _serve_logits(cfg, rc, params, batch, steps=3, kernels=ops.PLAIN,
+                               tokens=fed)
+    _assert_relative(got, want, SERVE_F32_TOL)
+
+
+def test_gemma3_ring_cache_through_the_kernels_matches_the_full_cache(cuda):
+    # one superblock at full width, float32: 5 sliding-window layers of 1024
+    # and a global one; a 1100-token prompt wraps the ring, and decode too
+    cfg = dataclasses.replace(resolve("gemma3"), n_layers=6, dtype="float32")
+    rc = dataclasses.replace(run_config(cfg.name, "decode_32k"), attn_chunk_kv=64)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = M.init_params(cfg, generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 1100), generator=gen,
+                                     device="cuda")}
+    a0 = fused_attention.flash_attention.launches
+    ring, fed, cache = _serve_logits(cfg, dataclasses.replace(rc, local_ring_cache=True),
+                                     params, batch, steps=8, kernels=ops.KERNELS, ring=True)
+    assert fused_attention.flash_attention.launches == a0 + cfg.n_layers
+    layer = cache["segments"][0][0]
+    assert [layer[f"sub{j}"]["k"].shape[1] for j in range(6)] == [1024] * 5 + [1116]
+    full, _, _ = _serve_logits(cfg, rc, params, batch, steps=8, kernels=ops.KERNELS,
+                               tokens=fed)
+    # the same calls, but fused_mlp's atomics add in a run-to-run order
+    torch.testing.assert_close(ring, full, atol=1e-4, rtol=1e-4)

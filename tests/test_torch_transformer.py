@@ -246,17 +246,41 @@ def test_serve_runs_the_reduced_config_on_the_cpu(capsys):
     assert np.array_equal(ids, again)
 
 
+@pytest.mark.parametrize("arch", NAMES)
+def test_serve_runs_every_registry_arch_reduced_on_the_cpu(arch, capsys):
+    # MoE sublayers, the encoder-decoder and the frontends included; the
+    # wrappers on CPU tensors and the plain versions give the same ids
+    argv = ["--arch", arch, "--requests", "2", "--prompt-len", "8", "--gen", "4",
+            "--device", "cpu"]
+    ids = serve.main(argv)
+    cfg = configs.resolve(arch)
+    assert ids.shape == (2, 4) and ((ids >= 0) & (ids < 256)).all()
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 3 and out[0].startswith(f"[serve] {cfg.name}: 2 requests")
+    assert np.array_equal(serve.main(argv, kernels=ops.PLAIN), ids)
+
+
 def test_unported_models_and_cases_raise():
-    # jamba's Mamba layers are ported, its MoE layers are not
-    with pytest.raises(NotImplementedError, match="MoE"):
-        M.init_params(configs.scaled_down(configs.resolve("jamba")), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        M.init_params(configs.scaled_down(configs.resolve("mixtral")), device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        M.init_params(configs.scaled_down(configs.resolve("seamless")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        M.init_cache(configs.scaled_down(configs.resolve("qwen3")), 1, 8, ring=True,
-                     device="cpu")
+    # What the card still refuses: K2 takes no logit softcap and numbers
+    # queries from 0.  Meta tensors stand in for CUDA ones (the dispatch
+    # looks at the device type and shapes only).
+    cfg = dataclasses.replace(configs.scaled_down(configs.resolve("qwen3")),
+                              logit_softcap=30.0)
+    params = L.param_specs_of(lambda gen: L.init_attention(gen, cfg, torch.float32))
+    x = torch.empty(1, 16, cfg.d_model, device="meta")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        L.attention_block(params, x, cfg, mixer="attn", positions=range(16))
+    cfg = dataclasses.replace(cfg, logit_softcap=0.0)
+    kv = torch.empty(1, 32, cfg.n_kv_heads, cfg.resolved_head_dim, device="meta")
+    with pytest.raises(NotImplementedError, match="position 0"):
+        L.attention_block(params, x, cfg, mixer="attn", positions=range(4, 20),
+                          cache={"k": kv, "v": kv.clone(), "len": 4})
+    # an MoE sublayer's tokens must fill its groups (the reference asserts)
+    moe_cfg = configs.scaled_down(configs.resolve("mixtral"))  # groups of 16
+    moe_params = M.init_params(moe_cfg, device="cpu")
+    with pytest.raises(ValueError, match="not divisible by group size"):
+        M.forward(moe_params, moe_cfg, configs.RunConfig(),
+                  {"tokens": torch.zeros(1, 17, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("case,kw", [

@@ -216,5 +216,11 @@ def test_block_forward_matches_the_reference(kind):
 
 
 def test_check_supported_still_refuses_moe_on_the_serving_path():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.check_supported(configs.REGISTRY["mixtral-8x7b"])
+    # MoE sublayers are served now (tests/test_torch_moe_serve.py): the
+    # trunk's check passes every MoE config and refuses only the
+    # encoder-decoder, which models.model dispatches to models.encdec.
+    for name in ("mixtral-8x7b", "llama4-maverick-400b-a17b", "arctic-480b",
+                 "jamba-1.5-large-398b"):
+        T.check_supported(configs.REGISTRY[name])
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        T.check_supported(configs.REGISTRY["seamless-m4t-large-v2"])
