@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's ten main paths through the entry points a user calls,
+Drives the port's eleven main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
 1. device      the card's name and power limit, as nvidia-smi gives them;
-2. build       the fused_conv3x3, flash_attention, fused_mlp and
-               selective_scan kernels, built with nvcc from the checkout,
-               one nvcc each, together; for flash_attention and fused_mlp
+2. build       the fused_conv3x3, flash_attention, fused_mlp,
+               selective_scan and flash_attention_bwd kernels, built with
+               nvcc from the checkout, one nvcc each, together; for
+               flash_attention_bwd the registers, spills and HMMA
+               instructions of each instantiation, failing if one that
+               training launches has no HMMA; for flash_attention and fused_mlp
                the registers, spills and tensor-core (HMMA / HGMMA)
                instructions of each bfloat16 instantiation, failing if one
                that serving launches has none; for fused_conv3x3 those of
@@ -144,7 +147,31 @@ PyTorch version.  Phases, one line each:
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-23. the kernels line, then the result line.
+23. train      ``repro_torch.launch.train.run`` on qwen3-0.6b at full width
+               and depth (28 layers, bfloat16), train_4k's 4096 tokens, 16
+               sequences a step in 4 microbatches, "full" remat and the
+               custom-VJP flash attention, 8 steps through ResilientTrainer
+               with a checkpoint after step 4 and one failure injected at
+               step 7 -- the eleventh main path, counts zeroed just before
+               and read just after: flash_attention twice per layer per
+               microbatch (the forward and its recompute) and
+               flash_attention_bwd once, no fused_mlp or selective_scan;
+               the losses finite and falling, one failure and one restore,
+               the replayed steps' losses against the first pass's, peak
+               device memory;
+24. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
+               over three more steps, and a profiled step's device idle
+               share;
+25. train_parity   one microbatch's loss and every gradient leaf through the
+               kernels against the plain attention, bfloat16 at full depth
+               (also against a kernel-free reordering) and float32 at 2
+               layers;
+26. train_kernel   flash_attention_bwd vs its plain version at qwen3's
+               training shape, windowed, chunked, hd 64 non-causal GQA,
+               ragged and float32 shapes, two runs bit for bit, with its
+               time, the plain version's, SDPA's backward and the bound;
+               flash_attention with its logsumexp at the training shape;
+27. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -282,6 +309,52 @@ SERVE_MLP = [
     ("seamless_decode", (8, 1024, 8192, "relu")),       # 24 a step: 744
     ("gemma3_prefill", (10240, 5376, 21504, "geglu")),  # 6
     ("gemma3_decode", (8, 5376, 21504, "geglu")),       # 6 a step: 186
+]
+
+# The training run of the eleventh main path: qwen3-0.6b at full width and
+# depth, train_4k's sequence length, a global batch of 16 sequences in 4
+# microbatches (train_4k's global batch of 256 cut by the run's time limit),
+# "full" remat and the custom-VJP flash attention, train_4k's peak learning
+# rate (3e-4) reached after launch.train's warmup (max(steps // 10, 1) = 1
+# step; train_4k's own 100 would leave 8 steps at under 2.4e-5); a
+# checkpoint after step 4 (every 5 steps) and one failure injected at step 7,
+# so steps 5 and 6 replay from the checkpoint.
+TRAIN_RUN = {"arch": "qwen3", "batch": 16, "seq": 4096, "microbatches": 4,
+             "steps": 8, "ckpt_every": 5, "fail_at": 7}
+TRAIN_TIMED_STEPS = 3  # steps timed after the run (phase train_time)
+# A replayed step's loss against the first pass's.  The first replayed step
+# starts from the restored checkpoint, bit for bit, so its loss must be
+# bit-equal.  A later one starts from the replayed update, whose gradients
+# are sums the card may take in another order from run to run (cuBLAS and
+# PyTorch's reductions promise run-to-run equality only for the same
+# algorithm and launch configuration): within REPLAY_TOL relative if not
+# bit-equal, with the cause printed.
+REPLAY_TOL = 1e-3
+# One-step parity, the loss and every gradient leaf through the kernels
+# against the plain attention (relative L2 per leaf).  bfloat16 at full
+# depth: the backward kernel rounds P and dS to bfloat16 for its products
+# (2^-9 relative) where the plain version keeps float32, and every
+# bfloat16 layer rounds again: 2e-2, or CONTROL_FACTOR x what a kernel-free
+# reordering of the attention moves the same leaf by, if larger.  float32 at
+# TRAIN_F32_LAYERS layers: float32 sums in other orders, 1e-3.
+TRAIN_PARITY_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+TRAIN_F32_LAYERS = 2
+# flash_attention_bwd vs its plain version, tests/test_flash_vjp.py's
+# tolerances: float32 atol = rtol; bfloat16 of the largest |gradient|.
+BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The backward the kernel replaces: the TPU kernel has none, the training
+# path differentiates through the custom VJP's backward in jnp.
+REPLACES["flash_attention_bwd"] = "src/repro/models/flash.py:107"
+# flash_attention_bwd's shapes: (label, (B, Sq, Skv, H, KV, hd), dtype,
+# causal, window, chunk); "train" is qwen3's training microbatch.
+TRAIN_KERNEL_CASES = [
+    ("train", (4, 4096, 4096, 16, 8, 128), "bfloat16", True, 0, 0),
+    ("window", (2, 1024, 1024, 16, 8, 128), "bfloat16", True, 256, 0),
+    ("chunk", (2, 1024, 1024, 16, 8, 128), "bfloat16", True, 0, 256),
+    ("hd64_noncausal_gqa4", (2, 512, 512, 16, 4, 64), "bfloat16", False, 0, 0),
+    ("ragged", (2, 1000, 1000, 8, 4, 96), "bfloat16", True, 0, 0),
+    ("float32", (2, 512, 512, 16, 8, 128), "float32", True, 0, 0),
+    ("float32_ragged", (1, 333, 333, 4, 2, 64), "float32", True, 0, 0),
 ]
 
 # The DAG search's locks (the reference's optima, tests/test_frontier_dp.py
@@ -478,15 +551,18 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> dict:
-    """Build the four kernel libraries from the checkout's sources, one
-    nvcc each, all started together.  For K2 and K3, whose bfloat16 bodies
+    """Build the five kernel libraries from the checkout's sources, one
+    nvcc each, all started together.  For the attention backward, each
+    instantiation's registers, spills and HMMA instructions; fails if one
+    that training launches has none.  For K2 and K3, whose bfloat16 bodies
     run on the tensor cores: each bf16 instantiation's registers and spills
     (``-Xptxas -v``) and its HMMA / HGMMA instructions in the SASS
     (``cuobjdump -sass``); fails if a bf16 instantiation that serving
     launches has none.  For K1, whose float32 (3xTF32) and bfloat16 bodies
     both run on the tensor cores, the same for every instantiation; fails
     if one has no HMMA or spills."""
-    from repro_torch.kernels import builder, fused_attention, fused_conv, fused_mlp
+    from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
+                                     fused_conv, fused_mlp)
 
     t0 = time.perf_counter()
     kernels = builder.all_kernels()
@@ -537,6 +613,25 @@ def phase_build() -> dict:
         print(f"  {kernel.name}: {len(bf16)} bf16 kernels, "
               f"{sum(1 for n in bf16 if sass[n]['HMMA'] + sass[n]['HGMMA'])} with "
               f"tensor-core instructions; {len(f32)} float32 kernels, {n_tc} with")
+    # The attention backward: every instantiation's registers, spills and
+    # HMMA; the bf16 ones training launches (head_dim 128) must have HMMA.
+    bwd = builds[kernels.index(flash_attention_bwd.KERNEL)]
+    report = builder.ptxas_report(bwd.log)
+    sass = builder.sass_counts(bwd.path)
+    training = ("flash_bwd_dkdv_mma_kernelILi128E", "flash_bwd_dq_mma_kernelILi128E")
+    for want in training:
+        check(any(want in n for n in sass), f"{bwd.path.name}: no kernel {want} in the SASS")
+    for name in sorted(n for n in sass if "flash_bwd_" in n):
+        ops, ptx = sass[name], report.get(name, {})
+        short = "flash_bwd_" + name.split("flash_bwd_", 1)[1].split("EEv", 1)[0]
+        train = any(w in name for w in training)
+        out["tensor_core"][f"{flash_attention_bwd.KERNEL.name}:{short}"] = {
+            **ops, **ptx, "training": train}
+        print(f"  {flash_attention_bwd.KERNEL.name} {short}{' (training)' if train else ''}: "
+              f"{ops['HMMA']} HMMA; {ptx.get('registers')} registers, spills "
+              f"{ptx.get('spill_stores')} / {ptx.get('spill_loads')} bytes")
+        check(not train or ops["HMMA"] > 0,
+              f"flash_attention_bwd's training instantiation {short} has no HMMA")
     # K1: every instantiation (float32 3xTF32 and bfloat16, both tiles) is
     # launched by the VGG path or phase layers.
     conv = builds[kernels.index(fused_conv.KERNEL)]
@@ -1561,22 +1656,26 @@ def conv_op_bounds(spec, flops: float, es: int) -> tuple:
 
 def zero_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, mamba_scan
+    from repro_torch.kernels import (flash_attention_bwd, fused_attention, fused_conv,
+                                     fused_mlp, mamba_scan)
 
     fused_conv.fused_conv3x3.launches = 0
     fused_attention.flash_attention.launches = 0
     fused_mlp.fused_mlp.launches = 0
     mamba_scan.selective_scan.launches = 0
+    flash_attention_bwd.flash_attention_bwd.launches = 0
 
 
 def read_counts() -> dict:
     """Every kernel's launch count."""
-    from repro_torch.kernels import fused_attention, fused_conv, fused_mlp, mamba_scan
+    from repro_torch.kernels import (flash_attention_bwd, fused_attention, fused_conv,
+                                     fused_mlp, mamba_scan)
 
     return {"fused_conv3x3": fused_conv.fused_conv3x3.launches,
             "flash_attention": fused_attention.flash_attention.launches,
             "fused_mlp": fused_mlp.fused_mlp.launches,
-            "selective_scan": mamba_scan.selective_scan.launches}
+            "selective_scan": mamba_scan.selective_scan.launches,
+            "flash_attention_bwd": flash_attention_bwd.flash_attention_bwd.launches}
 
 
 def phase_plan(spec) -> list:
@@ -2376,6 +2475,363 @@ def phase_scan(torch, spec, seed: int) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The training path: qwen3-0.6b through launch.train, and the attention
+# backward kernel
+# ---------------------------------------------------------------------------
+
+
+def train_rc(cfg, **overrides):
+    """The training run's configuration: train_4k's run config with the
+    run's microbatches, "full" remat, the custom-VJP flash attention and
+    launch.train's warmup."""
+    from repro_torch.configs import run_config
+
+    return run_config(cfg.name, "train_4k", microbatches=TRAIN_RUN["microbatches"],
+                      remat="full", flash_vjp=True,
+                      warmup_steps=max(TRAIN_RUN["steps"] // 10, 1), **overrides)
+
+
+def train_model_flops(cfg, tokens: int, batch: int, seq: int) -> float:
+    """Model FLOPs of a training step: 6 N D (N every parameter, the tied
+    head's product included) plus the attention's products, 4 per visible
+    pair and head dim forward and 8 backward, at ``batch`` sequences of
+    ``seq``; the remat recompute is not counted."""
+    n = cfg.param_counts()["total"]
+    pairs = _visible_pairs(seq, seq, True, 0, 0)
+    attn = 12 * cfg.n_layers * batch * cfg.n_heads * cfg.resolved_head_dim * pairs
+    return 6.0 * n * tokens + attn
+
+
+def phase_train(torch, seed: int, tmp: Path) -> dict:
+    """The port's training entry point at full width and depth:
+    ``launch.train.run`` (``main``'s trainer, data and checkpoints) on
+    qwen3-0.6b with TRAIN_RUN's batch, steps, checkpoint and failure."""
+    import math
+
+    from repro_torch.configs import resolve
+    from repro_torch.launch import train
+
+    cfg = resolve(TRAIN_RUN["arch"])
+    rc = train_rc(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run(cfg, rc, steps=TRAIN_RUN["steps"], batch=TRAIN_RUN["batch"],
+                    seq=TRAIN_RUN["seq"], ckpt_dir=tmp, ckpt_every=TRAIN_RUN["ckpt_every"],
+                    inject_failures=(TRAIN_RUN["fail_at"],), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    r = out["report"]
+    losses = r.losses
+    fail, every = TRAIN_RUN["fail_at"], TRAIN_RUN["ckpt_every"]
+    restored = fail // every * every - 1  # the last checkpointed step before the failure
+    replayed = list(range(restored + 1, fail))
+    check(r.failures == 1 and r.restores == 1,
+          f"training saw {r.failures} failures and {r.restores} restores, not 1 and 1")
+    check(r.steps_run == TRAIN_RUN["steps"] + len(replayed),
+          f"training ran {r.steps_run} steps, not {TRAIN_RUN['steps']} + "
+          f"{len(replayed)} replayed")
+    check(all(math.isfinite(x) for x in losses), f"non-finite training losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    replay = []
+    for i, step in enumerate(replayed):
+        first, again = losses[step], losses[fail + i]
+        rel = abs(again - first) / abs(first)
+        replay.append({"step": step, "first": first, "replayed": again,
+                       "bit_equal": first == again, "rel_diff": rel})
+        if first == again:
+            print(f"phase train: step {step} replayed from the step-{restored} "
+                  f"checkpoint: loss {again!r}, bit-equal to the first pass")
+            continue
+        check(i > 0, f"step {step}, the first replayed from the restored checkpoint, "
+              f"gave loss {again!r}, not the first pass's {first!r}")
+        check(rel <= REPLAY_TOL, f"replayed step {step}: loss {again!r} against "
+              f"{first!r} (relative {rel:.3g} > {REPLAY_TOL})")
+        print(f"phase train: step {step} replayed: loss {again!r} against the first "
+              f"pass's {first!r}, relative {rel:.3g} (<= {REPLAY_TOL}): not bit-equal; "
+              "cause: its parameters come from the replayed step "
+              f"{step - 1}'s update, whose gradient sums the card took in another order")
+    tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
+    print(f"phase train: {cfg.name} at {depth_of(cfg)}, bfloat16, {out['n_params']:,} "
+          f"parameters; {TRAIN_RUN['steps']} steps of {TRAIN_RUN['batch']} x "
+          f"{TRAIN_RUN['seq']} tokens ({TRAIN_RUN['microbatches']} microbatches, remat "
+          f"{rc.remat}, flash_vjp) + {len(replayed)} replayed in {out['seconds']:.3f} s "
+          f"(checkpoint, failure and restore included); losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; failures {r.failures}, restores {r.restores}, stragglers {r.stragglers}, "
+          f"redispatches {r.redispatches}; peak device memory {peak / 2**30:.3f} GiB")
+    return {"losses": losses, "replay": replay, "seconds": out["seconds"],
+            "steps_run": r.steps_run, "redispatches": r.redispatches,
+            "failures": r.failures, "restores": r.restores, "peak_bytes": peak,
+            "n_params": out["n_params"], "tokens_per_step": tokens,
+            "params": out["params"], "opt_state": out["opt_state"]}
+
+
+def phase_train_time(torch, run: dict, seed: int) -> dict:
+    """TRAIN_TIMED_STEPS more steps from the trained state, each timed on
+    the host's clock up to a synchronise: ms per step, tokens/s, model
+    TFLOP/s; then one profiled step's device idle share."""
+    from repro_torch.configs import resolve
+    from repro_torch.data import make_batch
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = resolve(TRAIN_RUN["arch"])
+    step = make_train_step(cfg, train_rc(cfg))
+    params, opt = run.pop("params"), run.pop("opt_state")
+    times = []
+    for i in range(TRAIN_TIMED_STEPS):
+        batch = make_batch(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"], seed=seed,
+                           step=100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(metrics["loss"])), "a timed step's loss is not finite")
+    batch = make_batch(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"], seed=seed, step=200)
+    trace = _device_busy(torch, lambda: step(params, opt, batch))
+    ms = statistics.median(times)
+    tokens = run["tokens_per_step"]
+    flops = train_model_flops(cfg, tokens, TRAIN_RUN["batch"], TRAIN_RUN["seq"])
+    idle = trace["device_idle_share"]
+    print(f"phase train_time: {', '.join(f'{t:.3f}' for t in times)} ms a step (median "
+          f"{ms:.3f}), {tokens / ms * 1e3:.6g} tokens/s, {flops / ms / 1e9:.6g} TFLOP/s "
+          f"of model FLOPs ({flops:.6g} a step: 6 N D + attention); a profiled step: wall "
+          f"{trace['wall_ms']:.3f} ms, device busy {trace['device_busy_ms']:.3f} ms, idle "
+          f"share {'not measured' if idle is None else f'{idle:.3f}'}, "
+          f"{trace['kernels_launched']} device operations; largest: "
+          + "; ".join(f"{n} {t:.3f} ms" for n, t in trace["top_device_ms"]))
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"step_ms": times, "median_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+            "model_flops": flops, "tflops": flops / ms / 1e9, "trace": trace}
+
+
+def _loss_and_grads(torch, cfg, rc, params, batch, kernels):
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import model as M
+
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    loss, _ = M.loss_fn(pytree.tree_unflatten(leaves, spec), cfg, rc, batch, kernels=kernels)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def _rel_l2(torch, got: list, want: list) -> list:
+    return [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(got, want)]
+
+
+def phase_train_parity(torch, seed: int) -> dict:
+    """One microbatch's loss and gradients through the kernels (K2 and its
+    backward, the main path's flash_vjp route) against the plain attention
+    (``ref.flash_attention_ref`` under autograd): bfloat16 at full depth,
+    also against a kernel-free reordering (:func:`blocked_attention`), and
+    float32 at TRAIN_F32_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import resolve
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import batch_to_device
+
+    out = {}
+    full = resolve(TRAIN_RUN["arch"])
+    B = TRAIN_RUN["batch"] // TRAIN_RUN["microbatches"]
+    for dname, cfg in (("bfloat16", full),
+                       ("float32", dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS,
+                                                       dtype="float32"))):
+        rc = train_rc(cfg)
+        plain_rc = dataclasses.replace(rc, flash_vjp=False)
+        train = ops.train_kernels(rc.mamba_chunk)
+        params = M.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
+            seed + 12), device="cuda")
+        batch = batch_to_device(make_batch(cfg, B, TRAIN_RUN["seq"], seed=seed, step=300),
+                                "cuda")
+        lk, gk = _loss_and_grads(torch, cfg, rc, params, batch, train)
+        lp, gp = _loss_and_grads(torch, cfg, plain_rc, params, batch,
+                                 dataclasses.replace(train, attention=ref.flash_attention_ref))
+        rel = _rel_l2(torch, gk, gp)
+        del gk
+        tol = TRAIN_PARITY_TOL[dname]
+        control = None
+        allowed = [tol] * len(rel)
+        if dname == "bfloat16":
+            _, gc = _loss_and_grads(torch, cfg, plain_rc, params, batch,
+                                    dataclasses.replace(train, attention=blocked_attention))
+            control = _rel_l2(torch, gc, gp)
+            del gc
+            allowed = [max(tol, CONTROL_FACTOR * c) for c in control]
+        del gp, params
+        torch.cuda.empty_cache()
+        worst = max(range(len(rel)), key=lambda i: rel[i] / allowed[i])
+        check(all(r <= a for r, a in zip(rel, allowed)),
+              f"train_parity {dname}: gradient leaf {worst} differs from plain by "
+              f"relative L2 {rel[worst]:.4g} > {allowed[worst]:.4g}")
+        check(abs(lk - lp) <= tol * abs(lp),
+              f"train_parity {dname}: loss {lk!r} through the kernels, {lp!r} plain")
+        rule = f"{tol}" if control is None else (
+            f"{tol} or {CONTROL_FACTOR} x the reordering's; the reordering vs plain: "
+            f"median {statistics.median(control):.4g}, max {max(control):.4g}")
+        print(f"phase train_parity: {dname} at {depth_of(cfg, full.n_layers)}, one "
+              f"microbatch of {B} x {TRAIN_RUN['seq']}: loss {lk!r} through the kernels, "
+              f"{lp!r} plain; gradients' relative L2 per leaf over {len(rel)} leaves, "
+              f"kernels vs plain: median {statistics.median(rel):.4g}, max {max(rel):.4g} "
+              f"(leaf {worst}, allowed {allowed[worst]:.4g}: {rule})")
+        out[dname] = {"loss_kernels": lk, "loss_plain": lp, "rel_l2": rel,
+                      "control_rel_l2": control, "depth": depth_of(cfg, full.n_layers)}
+    return out
+
+
+def _sdpa_backward(torch, q, k, v, dout, causal: bool, window: int, chunk: int):
+    """PyTorch's scaled_dot_product_attention's backward on the same
+    inputs (GQA; a window or chunk mask as a boolean ``attn_mask``), as a
+    zero-argument callable: the forward once, then each call one
+    ``autograd.grad`` (the yardstick, not the port's)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    if window or chunk:
+        kw = dict(attn_mask=ref._visible(q.shape[1], k.shape[1], causal, window, chunk,
+                                         q.device))
+    else:
+        kw = dict(is_causal=causal)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+    dot = dout.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    return library
+
+
+def phase_train_kernel(torch, spec, seed: int) -> list:
+    """flash_attention_bwd vs its plain version at TRAIN_KERNEL_CASES, both
+    given K2's own output and logsumexp; at qwen3's training shape also two
+    runs bit for bit, the time of PyTorch's SDPA backward and a row for
+    K2's forward with its logsumexp."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd, fused_attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rows = []
+    for label, shape, dname, causal, window, chunk in TRAIN_KERNEL_CASES:
+        B, Sq, Skv, H, KV, hd = shape
+        dtype = getattr(torch, dname)
+        mask = dict(causal=causal, window=window, chunk=chunk)
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
+        dout = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+        out, lse = fused_attention.flash_attention_lse(q, k, v, **mask)
+
+        def kernel():
+            return flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+
+        def plain():
+            return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **mask)
+
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        tol = BWD_TOL[dname]
+        errs, rels = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            check(bool(torch.isfinite(g).all()), f"flash_attention_bwd {label}: non-finite {name}")
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            ok = (bool(((g - w).abs() <= tol + tol * w.abs()).all()) if dname == "float32"
+                  else err <= tol * scale)
+            check(ok, f"flash_attention_bwd {label} {shape} {dname} {mask}: {name} differs "
+                  f"from plain by up to {err} (largest {scale}, tolerance {tol})")
+            errs.append(err)
+            rels.append(err / scale)
+        del want
+        deterministic = None
+        if label == "train":
+            again = kernel()
+            deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(deterministic, "flash_attention_bwd: two runs on the same inputs differ")
+            del again
+        del got
+        library = _sdpa_backward(torch, q, k, v, dout, causal, window, chunk)
+        ms, one = time_kernel(torch, {"kernel": kernel, "library": library})
+        plain_ms = time_ms(torch, {"plain": plain}, 3 if label == "train" else REPS)["plain"]
+        es = q.element_size()
+        pairs = _visible_pairs(Sq, Skv, causal, window, chunk)
+        flops = 10 * B * H * hd * pairs  # five products of 2 hd flops a pair and head
+        n_bytes = es * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+        t_b = spec.memory_seconds(n_bytes) * 1e3
+        t_o = spec.compute_seconds(flops, es) * 1e3
+        backend = sdpa_kernel_names(torch, library,
+                                    ("bwd", dname, causal, bool(window or chunk)))
+        row = {"case": label, "shape": list(shape), "dtype": dname, **mask,
+               "max_abs_err": max(errs), "max_rel_err": max(rels), "ms": ms["kernel"],
+               "call_ms": one["kernel"], "plain_ms": plain_ms,
+               "library_ms": ms["library"], "library_backend": backend,
+               "bytes": n_bytes, "flops": flops, "bound_ms": max(t_b, t_o),
+               "bound_by": "operations" if t_o >= t_b else "bytes",
+               "deterministic": deterministic}
+        rows.append(row)
+        lib = f"{row['library_ms']:.4f} ms [{backend}]"
+        print(f"train_kernel flash_attention_bwd {label} {shape} {dname} causal="
+              f"{int(causal)} w={window} c={chunk}: kernel {row['ms']:.4f} ms (one call "
+              f"{row['call_ms']:.4f}), plain {plain_ms:.4f} ms, SDPA backward {lib}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / row['ms'] / 1e9:.4g} "
+              f"TFLOP/s), max_abs_err {max(errs):.3g} (of the largest: {max(rels):.3g})"
+              + ("" if deterministic is None else ", two runs bit-equal"))
+        if label == "train":  # K2's forward with its logsumexp at the training shape
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def fwd_kernel():
+                return fused_attention.flash_attention_lse(q, k, v, **mask)
+
+            def fwd_plain():
+                return ref.flash_attention_ref(q, k, v, **mask), ref.attention_lse_ref(q, k, **mask)
+
+            def fwd_library():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=True)
+
+            want_o, want_lse = fwd_plain()
+            got_o, got_lse = fwd_kernel()
+            err = float((got_o.float() - want_o.float()).abs().max())
+            lse_err = float((got_lse - want_lse).abs().max())
+            check(err <= ATT_TOL[dname] * (1 + float(want_o.float().abs().max()))
+                  and lse_err <= 1e-4 * (1 + float(want_lse.abs().max())),
+                  f"flash_attention with lse at the training shape: out {err}, lse {lse_err}")
+            del want_o, want_lse, got_o, got_lse
+            fms, fone = time_kernel(torch, {"kernel": fwd_kernel, "library": fwd_library})
+            fplain = time_ms(torch, {"plain": fwd_plain}, 3)["plain"]
+            fflops = 4 * B * H * hd * pairs
+            fbytes = es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+            ft_b = spec.memory_seconds(fbytes) * 1e3
+            ft_o = spec.compute_seconds(fflops, es) * 1e3
+            frow = {"case": "train_forward_lse", "shape": list(shape), "dtype": dname,
+                    **mask, "max_abs_err": err, "lse_max_abs_err": lse_err,
+                    "ms": fms["kernel"], "call_ms": fone["kernel"], "plain_ms": fplain,
+                    "library_ms": fms["library"], "bytes": fbytes, "flops": fflops,
+                    "bound_ms": max(ft_b, ft_o),
+                    "bound_by": "operations" if ft_o >= ft_b else "bytes"}
+            rows.append(frow)
+            print(f"train_kernel flash_attention with lse {shape} {dname} causal: kernel "
+                  f"{frow['ms']:.4f} ms (one call {frow['call_ms']:.4f}), plain "
+                  f"{fplain:.4f} ms, SDPA {frow['library_ms']:.4f} ms, bound "
+                  f"{frow['bound_ms']:.4f} ms ({frow['bound_by']}, "
+                  f"{fflops / frow['ms'] / 1e9:.4g} TFLOP/s), max_abs_err {err:.3g}, lse "
+                  f"{lse_err:.3g}")
+        del q, k, v, dout, out, lse, library
+        torch.cuda.empty_cache()
+    return rows
+
+
 def serve_entry(name: str, source: str, parts: list, launches: int) -> dict:
     """A kernels-line entry summed over the serving run's launches:
     ``parts`` is [(row, launches at that row's shape), ...]; no library time
@@ -2530,6 +2986,8 @@ def main(argv=None) -> int:
     check(serve_counts["fused_mlp"] == n_layers * n_gen,
           f"serving launched fused_mlp {serve_counts['fused_mlp']} times, not "
           f"{n_layers} layers x {n_gen} forwards = {n_layers * n_gen}")
+    check(serve_counts["flash_attention_bwd"] == 0,
+          f"serving launched the attention backward: {serve_counts}")
     print(f"phase main_path serve: launches {serve_counts}")
     torch.cuda.empty_cache()
 
@@ -2547,7 +3005,8 @@ def main(argv=None) -> int:
           f"serving {mamba.name} launched selective_scan "
           f"{ssm_counts['selective_scan']} times, not {mamba.n_layers} layers x "
           f"(1 prefill + {SERVE_SSM['gen'] - 1} decode steps) = {n_ssm}")
-    check(ssm_counts["flash_attention"] == 0 and ssm_counts["fused_mlp"] == 0,
+    check(ssm_counts["flash_attention"] == 0 and ssm_counts["fused_mlp"] == 0
+          and ssm_counts["flash_attention_bwd"] == 0,
           f"serving {mamba.name} (no attention, no MLP) launched {ssm_counts}")
     print(f"phase main_path serve_ssm: launches {ssm_counts}")
     torch.cuda.empty_cache()
@@ -2562,7 +3021,7 @@ def main(argv=None) -> int:
     moe_run = phase_serve(np, SERVE_MOE, args.seed, "serve_moe")
     moe_counts = read_counts()
     check(moe_counts == {"fused_conv3x3": 0, "flash_attention": moe_cfg.n_layers,
-                         "fused_mlp": 0, "selective_scan": 0},
+                         "fused_mlp": 0, "selective_scan": 0, "flash_attention_bwd": 0},
           f"serving {moe_cfg.name} launched {moe_counts}, not flash_attention "
           f"once per layer of the prefill ({moe_cfg.n_layers}) and nothing else")
     print(f"phase main_path serve_moe: launches {moe_counts}")
@@ -2581,7 +3040,8 @@ def main(argv=None) -> int:
     n_att = ed_cfg.n_enc_layers + 2 * ed_cfg.n_layers
     n_mlp = ed_cfg.n_enc_layers + ed_cfg.n_layers * SERVE_ENCDEC["gen"]
     check(encdec_counts == {"fused_conv3x3": 0, "flash_attention": n_att,
-                            "fused_mlp": n_mlp, "selective_scan": 0},
+                            "fused_mlp": n_mlp, "selective_scan": 0,
+                            "flash_attention_bwd": 0},
           f"serving {ed_cfg.name} launched {encdec_counts}, not flash_attention "
           f"{n_att} times in the prefill ({ed_cfg.n_enc_layers} encoder, "
           f"{ed_cfg.n_layers} self and {ed_cfg.n_layers} cross) and fused_mlp "
@@ -2601,11 +3061,35 @@ def main(argv=None) -> int:
     ring_counts = ring["ring_counts"]
     n_ring = ring_cfg.n_layers
     check(ring_counts == {"fused_conv3x3": 0, "flash_attention": n_ring,
-                          "fused_mlp": n_ring * SERVE_RING["gen"], "selective_scan": 0},
+                          "fused_mlp": n_ring * SERVE_RING["gen"], "selective_scan": 0,
+                          "flash_attention_bwd": 0},
           f"serving {ring_cfg.name} through the ring launched {ring_counts}, not "
           f"flash_attention once per layer of the prefill ({n_ring}) and fused_mlp "
           f"{n_ring} layers x {SERVE_RING['gen']} forwards")
     print(f"phase main_path serve_ring: launches {ring_counts}")
+    torch.cuda.empty_cache()
+
+    # ---- main path 11, training qwen3-0.6b through launch.train: counts
+    # zeroed just before, read just after ----
+    train_cfg = resolve(TRAIN_RUN["arch"])
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_run = phase_train(torch, args.seed, Path(tmp))
+    train_counts = read_counts()
+    n_steps = train_run["steps_run"] + train_run["redispatches"]
+    per_step = train_cfg.n_layers * TRAIN_RUN["microbatches"]
+    check(train_counts == {"fused_conv3x3": 0, "flash_attention": 2 * per_step * n_steps,
+                           "fused_mlp": 0, "selective_scan": 0,
+                           "flash_attention_bwd": per_step * n_steps},
+          f"training launched {train_counts}, not flash_attention twice (the forward "
+          f"and its recompute) and flash_attention_bwd once per layer per microbatch: "
+          f"{n_steps} steps x {train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']}")
+    print(f"phase main_path train: launches {train_counts} ({n_steps} train steps x "
+          f"{train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']} microbatches: "
+          "flash_attention twice each, the forward and its recompute under full remat, "
+          "flash_attention_bwd once)")
+    train_time = phase_train_time(torch, train_run, args.seed)
+    train_parity = phase_train_parity(torch, args.seed)
     torch.cuda.empty_cache()
 
     layer_rows = phase_layers(torch, spec, args.seed)
@@ -2614,6 +3098,7 @@ def main(argv=None) -> int:
                                (plan.attn_block_q, plan.attn_block_k))
     mlp_rows = phase_mlp(torch, spec, args.seed, (plan.mlp_block_m, plan.mlp_block_f))
     scan_rows = phase_scan(torch, spec, args.seed)
+    bwd_rows = phase_train_kernel(torch, spec, args.seed)
 
     def row(rows, case, dtype):
         return next(r for r in rows if r["case"] == case and r.get("dtype") == dtype)
@@ -2634,6 +3119,10 @@ def main(argv=None) -> int:
                      (row(scan_rows, "serve_decode", "float32"),
                       mamba.n_layers * (SERVE_SSM["gen"] - 1))],
                     ssm_counts["selective_scan"]),
+        serve_entry("flash_attention_bwd",
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    [(row(bwd_rows, "train", "bfloat16"), train_counts["flash_attention_bwd"])],
+                    train_counts["flash_attention_bwd"]),
     ]
 
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -2649,8 +3138,10 @@ def main(argv=None) -> int:
         "serve_ssm_time": ssm_time, "serve_moe": moe_run, "serve_moe_counts": moe_counts,
         "serve_moe_time": moe_time, "serve_encdec": encdec_run,
         "serve_encdec_counts": encdec_counts, "serve_encdec_time": encdec_time,
-        "serve_ring": ring, "attention": att_rows, "mlp": mlp_rows,
-        "scan": scan_rows, "kernels": entries,
+        "serve_ring": ring, "train": train_run, "train_counts": train_counts,
+        "train_time": train_time, "train_parity": train_parity,
+        "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
+        "train_kernel": bwd_rows, "kernels": entries,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     print(f"phase done: {time.perf_counter() - t_start:.1f} s, "

@@ -20,3 +20,18 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (``None`` skipped) requires grad: ``kernel`` has no backward
+    kernel, and its launch would return an output with no gradient, so the
+    weights before it would silently get none.  Compute under
+    ``torch.no_grad()``, or train through the model's own torch ops
+    (``ops.train_kernels``)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel: it does not launch on tensors "
+            "that require grad (train through ops.train_kernels, or run under "
+            "torch.no_grad())")

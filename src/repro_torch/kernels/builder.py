@@ -171,11 +171,12 @@ def sass_counts(library: Path, opcodes: tuple[str, ...] = ("HMMA", "HGMMA")
 
 def all_kernels() -> tuple[KernelSource, ...]:
     """Every kernel of the port: fused_conv3x3 (K1), flash_attention (K2),
-    fused_mlp (K3) and the selective scan (K4), for :func:`build_many`."""
-    from . import fused_attention, fused_conv, fused_mlp, mamba_scan
+    fused_mlp (K3), the selective scan (K4) and the flash-attention
+    backward, for :func:`build_many`."""
+    from . import fused_attention, fused_conv, fused_mlp, flash_attention_bwd, mamba_scan
 
     return (fused_conv.KERNEL, fused_attention.KERNEL, fused_mlp.KERNEL,
-            mamba_scan.KERNEL)
+            mamba_scan.KERNEL, flash_attention_bwd.KERNEL)
 
 
 def build(kernel: KernelSource) -> BuildResult:

@@ -23,6 +23,13 @@
 // window (q - k) < window, and also (k - q) < window when not causal (the
 // model's attention_bias and the plain version; the TPU kernel masks one
 // side only, a case its tests never reach); chunk q / chunk == k / chunk.
+// The predicates live in flash_common.cuh, shared with the backward kernel
+// (flash_attention_bwd.cu), so that both mask the same pairs.
+//
+// With a non-null `lse` (the training forward) each row's logsumexp of its
+// masked, scaled scores, m + log l in natural log, is written to a float32
+// (B, H, Sq) array for the backward; the serving launch passes null and
+// writes only the output.
 // With `skip` set (the wrapper sets it when Sq <= Skv, so that every row
 // sees at least its own key) a KV tile that is masked for every row of the
 // block is not visited: it would add exp(-1e30 - m) = 0 to rows that have
@@ -77,49 +84,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ bool visible(int q, int k, int causal, int window,
-                                        int chunk) {
-  bool ok = true;
-  if (causal) ok = ok && k <= q;
-  if (window > 0) {
-    ok = ok && (q - k) < window;
-    if (!causal) ok = ok && (k - q) < window;
-  }
-  if (chunk > 0) ok = ok && (q / chunk) == (k / chunk);
-  return ok;
-}
-
-// True when every (query, key) pair of the two position ranges is masked.
-__device__ __forceinline__ bool tile_masked(int q_lo, int q_hi, int k_lo,
-                                            int k_hi, int causal, int window,
-                                            int chunk) {
-  if (causal && k_lo > q_hi) return true;
-  if (window > 0 && q_lo - k_hi >= window) return true;
-  if (window > 0 && !causal && k_lo - q_hi >= window) return true;
-  if (chunk > 0 && (k_hi / chunk < q_lo / chunk || k_lo / chunk > q_hi / chunk))
-    return true;
-  return false;
-}
-
-// True when every (query, key) pair of the two ranges is visible.
-__device__ __forceinline__ bool tile_visible(int q_lo, int q_hi, int k_lo,
-                                             int k_hi, int causal, int window,
-                                             int chunk) {
-  if (causal && k_hi > q_lo) return false;
-  if (window > 0 && q_hi - k_lo >= window) return false;
-  if (window > 0 && !causal && k_hi - q_lo >= window) return false;
-  if (chunk > 0 && !(q_lo / chunk == k_lo / chunk && q_hi / chunk == k_lo / chunk &&
-                     k_hi / chunk == k_lo / chunk))
-    return false;
-  return true;
-}
+using attn::LN2;
+using attn::load_rows;
+using attn::LOG2E;
+using attn::NEG_INF;
+using attn::tile_masked;
+using attn::tile_visible;
+using attn::visible;
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
@@ -137,29 +113,13 @@ struct MmaTiles {
   static_assert(HD % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tiles of 16");
 };
 
-// cp.async of `rows` rows of HD bf16 (row `row0` on) into a tile of row
-// stride LD; rows at or past `n_valid` are zero-filled.
-template <int HD, int LD, int NTHREADS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t stride, int row0, int rows,
-                                          int n_valid, int tid) {
-  constexpr int CH = HD / 8;  // 16-byte chunks a row
-  for (int i = tid; i < rows * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    const bool in = row0 + r < n_valid;
-    const __nv_bfloat16* g = in ? src + (size_t)(row0 + r) * stride + c : src;
-    mma::cp_async16(dst + r * LD + c, g, in);
-  }
-}
-
 template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(BQ / 16 * 32)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Skv,
                            int H, int KV, int causal, int window, int chunk,
                            int skip, float scale) {
   using TL = MmaTiles<HD, BQ, BK>;
@@ -345,6 +305,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {  // m is in base-2 units of the scaled scores
+    float* lb = lse + (size_t)(b * H + h) * Sq;
+    if (qr0 < Sq) lb[qr0] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
+    if (qr1 < Sq) lb[qr1] = m1 * LN2 + logf(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int j = 0; j < NT_O; ++j) {
     const int d = j * 8 + 2 * t;
@@ -394,8 +359,8 @@ template <int HD, int BQ, int BK>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int Sq, int Skv, int H, int KV, int causal, int window,
-                           int chunk, int skip, float scale) {
+                           float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                           int causal, int window, int chunk, int skip, float scale) {
   using TL = F32Tiles<HD, BQ, BK>;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // [BQ][QLD]
@@ -546,6 +511,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
     for (int e = 0; e < TL::DPT; ++e)
       ob[(size_t)qi * q_stride + tx + 16 * e] = acc[i][e] / denom;
+    if (lse != nullptr && tx == 0) lse[(size_t)(b * H + h) * Sq + qi] = m[i] + logf(denom);
   }
 }
 
@@ -558,6 +524,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;
   int B, Sq, Skv, H, KV, causal, window, chunk, skip;
   float scale;
   cudaStream_t stream;
@@ -574,7 +541,7 @@ int launch_bf16(const Args& a) {
   kern<<<grid, TL::NTHREADS, TL::SMEM_BYTES, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o),
-      a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.chunk, a.skip, a.scale);
+      a.lse, a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.chunk, a.skip, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -588,7 +555,7 @@ int launch_f32(const Args& a) {
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
   kern<<<grid, F32_THREADS, TL::SMEM_BYTES, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Skv, a.H,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Sq, a.Skv, a.H,
       a.KV, a.causal, a.window, a.chunk, a.skip, a.scale);
   return (int)cudaGetLastError();
 }
@@ -604,16 +571,20 @@ int launch_f32(const Args& a) {
 }  // namespace
 
 // C interface, loaded with ctypes.  dtype: 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores); q, k, v and o share it.  Returns the CUDA error
-// code of the launch (0 on success); a shape this library was not built
-// for is refused with cudaErrorInvalidValue.
+// bfloat16 (tensor cores); q, k, v and o share it.  lse: null, or a float32
+// (B, H, Sq) array that receives each row's logsumexp m + log l of its
+// masked, scaled scores (natural log; the training forward, which the
+// backward kernel reads).  Returns the CUDA error code of the launch (0 on
+// success); a shape this library was not built for is refused with
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq,
                                       int Skv, int H, int KV, int hd,
                                       int block_q, int block_k, int causal,
                                       int window, int chunk, int skip,
                                       float scale, int dtype, void* stream) {
-  const Args a{q, k, v, o, B, Sq, Skv, H, KV, causal, window, chunk, skip,
+  const Args a{q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, chunk, skip,
                scale, static_cast<cudaStream_t>(stream)};
 #define DISPATCH(HD_, BQ_, BK_)                            \
   if (hd == HD_ && block_q == BQ_ && block_k == BK_) {     \

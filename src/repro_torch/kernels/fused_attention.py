@@ -15,10 +15,18 @@ the (block_q, block_k) tiles :data:`TILES`; :func:`smem_bytes` is its shared
 memory per block for each dtype, which the planner sizes against.
 
 :func:`flash_attention` is the wrapper: a CPU tensor goes to the plain
-PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`), a
-CUDA tensor launches the kernel or raises.  ``flash_attention.launches``
-counts kernel launches.  Any Sq and Skv are taken: keys past the ragged
-last tile are excluded and queries past Sq are not stored.
+PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`,
+differentiable by torch autograd), a CUDA tensor launches the kernel or
+raises.  :func:`flash_attention_lse` also returns each row's float32
+logsumexp ``lse`` (B, H, Sq), which the kernel writes when asked.  On a
+CUDA tensor that requires grad (with grad mode on) :func:`flash_attention`
+is an ``autograd.Function``: the forward is :func:`flash_attention_lse`,
+saving only (q, k, v, out, lse); the backward is the flash-attention
+backward kernel
+(:func:`repro_torch.kernels.flash_attention_bwd.flash_attention_bwd`).
+``flash_attention.launches`` counts kernel launches (with ``lse`` or
+without).  Any Sq and Skv are taken: keys past the ragged last tile are
+excluded and queries past Sq are not stored.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from . import builder, ref
+from . import builder, flash_attention_bwd, ref
 
 HEAD_DIMS = (32, 64, 96, 128)  # head widths the kernel is built for
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # (block_q, block_k)
@@ -40,7 +48,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 NVCC_FLAGS = builder.BASE_FLAGS
 KERNEL = builder.KernelSource("flash_attention", SOURCE, NVCC_FLAGS,
-                              (CSRC / "mma_bf16.cuh",))
+                              (CSRC / "mma_bf16.cuh", CSRC / "flash_common.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,7 +78,7 @@ def _library() -> ctypes.CDLL:
     lib = builder.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 12 + [ctypes.c_float, i32, ptr])
+        [ptr] * 5 + [i32] * 12 + [ctypes.c_float, i32, ptr])
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_smem_bytes.argtypes = [i32] * 4
     lib.flash_attention_smem_bytes.restype = i32
@@ -123,6 +131,58 @@ def _check_cuda(q, k, v, block_q: int, block_k: int) -> None:
             raise ValueError(f"bfloat16 {name} must be {ALIGN}-byte aligned")
 
 
+def _launch(q, k, v, *, causal: bool, window: int, chunk: int, block_q, block_k,
+            with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the kernel on CUDA tensors: (o, lse or None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    bq = DEFAULT_TILE[0] if block_q is None else block_q
+    bk = DEFAULT_TILE[1] if block_k is None else block_k
+    _check_cuda(q, k, v, bq, bk)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if o.numel() == 0:
+        return o, lse
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Sq, Skv, H, KV, hd, bq, bk, int(causal), int(window),
+            int(chunk), int(Sq <= Skv), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention launch failed with CUDA error {err} (B {B}, Sq "
+            f"{Sq}, Skv {Skv}, H {H}, KV {KV}, head_dim {hd}, tile {bq}x{bk}, "
+            f"{smem_bytes(bq, bk, hd, q.dtype)} B shared)")
+    flash_attention.launches += 1
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with its backward kernel, saving (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, block_q, block_k):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                     chunk=chunk, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd.flash_attention_bwd(
+            q, k, v, o, dout.contiguous(), lse, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     block_q: int | None = None,
@@ -134,37 +194,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (chunked-local; 0 = off) mask by absolute position.  A CPU tensor takes
     the plain version (tiles ignored); a CUDA tensor launches the kernel
     (counted in ``flash_attention.launches``) at the tile ``block_q`` x
-    ``block_k`` (default :data:`DEFAULT_TILE`) or raises.
+    ``block_k`` (default :data:`DEFAULT_TILE`) or raises.  On CUDA tensors
+    of which one requires grad, with grad mode on, the result is
+    differentiable through the backward kernel.
     """
     _check_args(q, k, v, window, chunk)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        chunk=chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    bq = DEFAULT_TILE[0] if block_q is None else block_q
-    bk = DEFAULT_TILE[1] if block_k is None else block_k
-    _check_cuda(q, k, v, bq, bk)
-    B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, Skv, H, KV, hd, bq, bk, int(causal), int(window),
-            int(chunk), int(Sq <= Skv), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention launch failed with CUDA error {err} (B {B}, Sq "
-            f"{Sq}, Skv {Skv}, H {H}, KV {KV}, head_dim {hd}, tile {bq}x{bk}, "
-            f"{smem_bytes(bq, bk, hd, q.dtype)} B shared)")
-    flash_attention.launches += 1
-    return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, chunk, block_q, block_k)
+    return _launch(q, k, v, causal=causal, window=window, chunk=chunk,
+                   block_q=block_q, block_k=block_k, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, chunk: int = 0,
+                        block_q: int | None = None, block_k: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the attention and each row's float32 logsumexp of its
+    masked, scaled scores (B, H, Sq), the backward's inputs.  A CPU tensor
+    takes the plain versions; a CUDA tensor one launch of the kernel
+    (counted in ``flash_attention.launches``).  Not differentiable: it is
+    the forward of :func:`flash_attention`'s ``autograd.Function``."""
+    _check_args(q, k, v, window, chunk)
+    if q.device.type == "cpu":
+        mask = dict(causal=causal, window=window, chunk=chunk)
+        return (ref.flash_attention_ref(q, k, v, **mask),
+                ref.attention_lse_ref(q, k, **mask))
+    return _launch(q, k, v, causal=causal, window=window, chunk=chunk,
+                   block_q=block_q, block_k=block_k, with_lse=True)

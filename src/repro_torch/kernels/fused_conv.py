@@ -34,6 +34,7 @@ from pathlib import Path
 import torch
 
 from ..core.arch import H100
+from ..device import refuse_autograd
 from . import builder, ref
 
 # Tile constants of the kernel (see the head comment of the CUDA source).
@@ -192,12 +193,14 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     returns NHWC in ``x.dtype`` (``(B, H // 2, W // 2, Cout)`` when
     pooled).  A CPU tensor takes the plain PyTorch version; a CUDA tensor
     launches the Hopper kernel (counted in ``fused_conv3x3.launches``) or
-    raises.
+    raises -- also when one requires grad with grad mode on: the kernel has
+    no backward.
     """
     if x.device.type == "cpu":
         return ref.fused_conv3x3_ref(x, w, b, pool=pool)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3 runs on cuda or cpu tensors, got {x.device}")
+    refuse_autograd("fused_conv3x3", x, w, b)
     _check(x, w, b)
     B, H, W, Cin = x.shape
     Cout = w.shape[-1]

@@ -28,6 +28,7 @@ from pathlib import Path
 
 import torch
 
+from ..device import refuse_autograd
 from . import builder, ref
 
 ACTS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu": 3}
@@ -159,13 +160,16 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
     A CPU tensor takes the plain version (tiles ignored); a CUDA tensor
     launches the kernel (counted in ``fused_mlp.launches``) at the tile
-    ``block_m`` x ``block_f`` (default :func:`default_tile`) or raises.
+    ``block_m`` x ``block_f`` (default :func:`default_tile`) or raises --
+    also when one requires grad with grad mode on: the kernel has no
+    backward.
     """
     _check_args(x, w1, w2, w3, act)
     if x.device.type == "cpu":
         return ref.fused_mlp_ref(x, w1, w2, w3, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cuda or cpu tensors, got {x.device}")
+    refuse_autograd("fused_mlp", x, w1, w2, w3)
     shape = x.shape
     x = x.reshape(-1, shape[-1])
     T, d = x.shape

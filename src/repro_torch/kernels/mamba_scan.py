@@ -34,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from ..device import refuse_autograd
 from . import builder, ref
 
 DEFAULT_CHUNK = 64  # steps of C staged at a time: the planner's mamba_chunk
@@ -177,7 +178,9 @@ def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     A CPU tensor takes the plain version (tile ignored); a CUDA tensor
     launches the kernel (counted in ``selective_scan.launches``) at the tile
     ``chunk`` x ``block_d`` (default :func:`default_tile`; a decode step, S
-    = 1, runs the kernel's own S = 1 body, which stages nothing) or raises.
+    = 1, runs the kernel's own S = 1 body, which stages nothing) or raises
+    -- also when one requires grad with grad mode on: the kernel has no
+    backward.
     """
     if dA.device.type != "cuda":
         _check_args(dA, dBx, C, h0)
@@ -185,6 +188,7 @@ def selective_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
             raise ValueError(f"selective_scan runs on cuda or cpu tensors, got {dA.device}")
         y, h = ref.selective_scan_ref(dA, dBx, C, h0)
         return y, (h if final_state else None)
+    refuse_autograd("selective_scan", dA, dBx, C, h0)
     ins = (dA, dBx, C) if h0 is None else (dA, dBx, C, h0)
     chunk, block_d = _checked_tile(ins, chunk, block_d)
     B, S, di, ds = dA.shape

@@ -1,14 +1,22 @@
-"""Dispatch wrappers the models call.
+"""Dispatch wrappers the models call, and the kernel sets they run through.
 
 A CPU tensor goes to the plain PyTorch version of a kernel; a CUDA tensor
 goes to the hand-written Hopper kernel or raises — nothing on a GPU falls
 back to the plain version.  This replaces the reference's ``INTERPRET``
 flag: the tensor's device decides, and ``device=`` (default ``"cuda"``)
 states which one the caller means, so a CPU run has to be asked for.
+
+Three kernel sets (:class:`FusedKernels`): :data:`KERNELS` (serving: K2,
+K3, K4), :data:`PLAIN` (their plain versions, for comparison) and
+:func:`train_kernels` (training: K2 with its backward kernel; the MLP and
+the scan in the model's own torch ops, as the reference trains them
+through ``jnp``).  K1, K3 and K4 have no backward
+kernel and raise on CUDA tensors that require grad.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -82,6 +90,17 @@ class FusedKernels:
 KERNELS = FusedKernels()
 PLAIN = FusedKernels(attention=ref.flash_attention_ref, mlp=ref.fused_mlp_ref,
                      ssm_scan=ref.selective_scan_ref)
+
+
+def train_kernels(mamba_chunk: int = 256) -> FusedKernels:
+    """The training path's kernel set: attention through K2, which is
+    differentiable on CUDA tensors (its backward kernel); the MLP and the
+    selective scan (chunks of ``mamba_chunk``) in the model's own torch
+    ops, as the reference trains them."""
+    from ..models.ssm import selective_scan_chunked
+
+    return FusedKernels(attention=fused_attention.flash_attention, mlp=ref.mlp,
+                        ssm_scan=functools.partial(selective_scan_chunked, chunk=mamba_chunk))
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels (the ground truth in tests).
 
 Each repeats its kernel's function in the simplest PyTorch: the conv group
-as a cuDNN convolution, attention with materialised scores, the MLP as
-three float32 matrix products, the selective scan as a sequential float32
-loop over the sequence.  On the GPU a float32 matrix product runs in
+as a cuDNN convolution, attention with materialised scores (and its
+backward, from the saved logsumexp), the MLP as three float32 matrix
+products, the selective scan as a sequential float32 loop over the
+sequence.  On the GPU a float32 matrix product runs in
 full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False by
 default).
 
@@ -56,6 +57,37 @@ def fused_conv3x3_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def _visible(Sq: int, Skv: int, causal: bool, window: int, chunk: int,
+             device) -> torch.Tensor:
+    """(Sq, Skv) bool: the (query, key) pairs the masks leave visible, at
+    positions 0.. (a sliding window when ``window``, else chunked-local when
+    ``chunk``; causal on top) -- the model's ``attention_bias``."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= (qp - kp) < window
+        if not causal:
+            ok &= (kp - qp) < window
+    elif chunk:
+        ok &= (qp // chunk) == (kp // chunk)
+    return ok
+
+
+def _scores(q, k, causal, window, chunk):
+    """(masked float32 scores (B, H, Sq, Skv) scaled by 1/sqrt(hd), the
+    visible pairs (Sq, Skv), the KV-head index of each query head)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    idx = torch.arange(H, device=q.device) // (H // KV)
+    kr = k.index_select(2, idx).float()
+    scores = torch.einsum("bqhd,bchd->bhqc", q.float(), kr) * (1.0 / math.sqrt(hd))
+    ok = _visible(Sq, Skv, causal, window, chunk, q.device)
+    return scores + torch.where(ok, 0.0, NEG_INF), ok, idx
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         chunk: int = 0) -> torch.Tensor:
@@ -67,48 +99,84 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunked-local when ``chunk``; causal on top), added as 0 / ``NEG_INF``
     to the scores scaled by 1/sqrt(hd).  The result is in ``q.dtype``.
     """
+    scores, _, idx = _scores(q, k, causal, window, chunk)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqc,bchd->bqhd", probs, v.index_select(2, idx).float()
+                        ).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """(B, H, Sq) float32: the logsumexp of each query's masked, scaled
+    scores -- what the flash-attention kernel's ``lse`` output holds for a
+    row that sees at least one key."""
+    scores, _, _ = _scores(q, k, causal, window, chunk)
+    return torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, chunk: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash-attention backward in float32, materialised: (dq, dk, dv)
+    of the attention :func:`flash_attention_ref` computes, given its output
+    ``out`` (B, Sq, H, hd), the output's gradient ``dout`` and the rows'
+    logsumexp ``lse`` (B, H, Sq).  The probabilities are recomputed as
+    ``exp(s - lse)`` on the visible pairs and 0 elsewhere, ``D =
+    rowsum(dout * out)``, ``dS = P (dP - D) / sqrt(hd)``; dk and dv sum the
+    H / KV query heads of each KV head.  A query that sees no key gets 0 and
+    adds nothing to dk and dv.  The results are in the inputs' dtypes."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    idx = torch.arange(H, device=q.device) // (H // KV)
+    scores, ok, idx = _scores(q, k, causal, window, chunk)
+    p = torch.where(ok, torch.exp(scores - lse.float()[..., None]), 0.0)
+    do = dout.float()
+    D = torch.sum(do * out.float(), dim=-1).transpose(1, 2)  # (B, H, Sq)
     kr = k.index_select(2, idx).float()
     vr = v.index_select(2, idx).float()
-    scores = torch.einsum("bqhd,bchd->bhqc", q.float(), kr) * (1.0 / math.sqrt(hd))
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Skv, device=q.device)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kp <= qp
-    if window:
-        ok &= (qp - kp) < window
-        if not causal:
-            ok &= (kp - qp) < window
-    elif chunk:
-        ok &= (qp // chunk) == (kp // chunk)
-    scores = scores + torch.where(ok, 0.0, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqc,bchd->bqhd", probs, vr).to(q.dtype)
+    dv_r = torch.einsum("bhqc,bqhd->bchd", p, do)
+    dp = torch.einsum("bqhd,bchd->bhqc", do, vr)
+    ds = p * (dp - D[..., None]) * (1.0 / math.sqrt(hd))
+    dq = torch.einsum("bhqc,bchd->bqhd", ds, kr)
+    dk_r = torch.einsum("bhqc,bqhd->bchd", ds, q.float())
+    G = H // KV
+    dk = dk_r.reshape(B, Skv, KV, G, hd).sum(dim=3)
+    dv = dv_r.reshape(B, Skv, KV, G, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLPs' activation of ``h = x @ w1`` (before the gate of ``swiglu``
+    and ``geglu``): silu, or gelu in its tanh form (``jax.nn.gelu``'s
+    default, not PyTorch's default erf form), or relu."""
+    if act == "swiglu":
+        return F.silu(h)
+    if act in ("geglu", "gelu"):
+        return F.gelu(h, approximate="tanh")
+    if act == "relu":
+        return torch.relu(h)
+    raise ValueError(f"unknown act {act!r}")
+
+
+def mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+        w3: torch.Tensor | None = None, *, act: str = "swiglu") -> torch.Tensor:
+    """``act(x @ w1) [* (x @ w3)] @ w2`` in the operands' dtype, the
+    reference's ``mlp_block``; differentiable."""
+    h = activation(x @ w1, act)
+    if act in ("swiglu", "geglu"):
+        h = h * (x @ w3)
+    return h @ w2
 
 
 def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                   w3: torch.Tensor | None = None, *,
                   act: str = "swiglu") -> torch.Tensor:
-    """``act(x @ w1) [* (x @ w3)] @ w2`` in float32 (float64 for float64
-    inputs), the result in ``x.dtype``.  gelu is the tanh form
-    (``jax.nn.gelu``'s default), not PyTorch's default erf form."""
+    """:func:`mlp` in float32 (float64 for float64 inputs), the result in
+    ``x.dtype``."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    xf = x.to(acc)
-    h = xf @ w1.to(acc)
-    if act == "swiglu":
-        h = F.silu(h) * (xf @ w3.to(acc))
-    elif act == "geglu":
-        h = F.gelu(h, approximate="tanh") * (xf @ w3.to(acc))
-    elif act == "gelu":
-        h = F.gelu(h, approximate="tanh")
-    elif act == "relu":
-        h = torch.relu(h)
-    else:
-        raise ValueError(f"unknown act {act!r}")
-    return (h @ w2.to(acc)).to(x.dtype)
+    return mlp(x.to(acc), w1.to(acc), w2.to(acc), None if w3 is None else w3.to(acc),
+               act=act).to(x.dtype)
 
 
 def selective_scan_ref(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,

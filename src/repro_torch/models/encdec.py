@@ -1,5 +1,5 @@
 """Encoder-decoder backbone (seamless-m4t-large-v2) — the port of the JAX
-package's ``models/encdec.py``, inference only.
+package's ``models/encdec.py``.
 
 The audio frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings ``(B, S_enc, d)``.  Encoder layers are
@@ -20,7 +20,9 @@ On a CUDA tensor every attention with more than one query is the
 flash-attention kernel (K2: the encoder's non-causal self-attention, the
 decoder's causal one, and cross-attention over the encoder's frames) and
 every FFN the fused-MLP kernel (K3); single-query decode attention is
-plain PyTorch, as in the reference.
+plain PyTorch, as in the reference.  Training (``models.model.loss_fn``)
+runs the uncached forward with each encoder and decoder layer under the
+run's activation checkpointing (``transformer._remat_wrap``).
 """
 from __future__ import annotations
 
@@ -92,16 +94,23 @@ def params_from_jax(tree: dict) -> dict:
 def encode(params, cfg, rc, frames: torch.Tensor, *,
            kernels: ops.FusedKernels = ops.KERNELS) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed embeddings -> encoder states."""
+    from .transformer import _remat_wrap
+
     positions = range(frames.shape[1])
     x = frames.to(getattr(torch, cfg.dtype))
-    for p in params["enc_stack"]:
+
+    def layer(x, p):
         h = L.rmsnorm(p["norm1"], x, cfg.rmsnorm_eps)
         out, _ = L.attention_block(p["attn"], h, cfg, mixer="attn", positions=positions,
                                    causal=False, kv_block=rc.attn_chunk_kv,
                                    flash=kernels.attention)
         x = x + out
         h = L.rmsnorm(p["norm2"], x, cfg.rmsnorm_eps)
-        x = x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp)
+        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp)
+
+    layer = _remat_wrap(layer, rc)
+    for p in params["enc_stack"]:
+        x = layer(x, p)
     return L.rmsnorm(params["enc_final_norm"], x, cfg.rmsnorm_eps)
 
 
@@ -138,29 +147,35 @@ def decode_stack(params, cfg, rc, tokens: torch.Tensor, xkv: list,
     x = params["embed"][tokens]
     start = cache["len"] if cache is not None else 0
     positions = range(start, start + x.shape[1])
-    new_self = []
-    for i, p in enumerate(params["dec_stack"]):
+
+    def layer(x, p, layer_xkv, attn_cache):
         h = L.rmsnorm(p["norm1"], x, cfg.rmsnorm_eps)
-        attn_cache = None
-        if cache is not None:
-            attn_cache = {"k": cache["self"][i]["k"], "v": cache["self"][i]["v"],
-                          "len": start}
         out, nc = L.attention_block(p["attn"], h, cfg, mixer="attn", positions=positions,
                                     cache=attn_cache, kv_block=rc.attn_chunk_kv,
                                     flash=kernels.attention)
         x = x + out
         h = L.rmsnorm(p["norm_x"], x, cfg.rmsnorm_eps)
         out, _ = L.attention_block(p["xattn"], h, cfg, mixer="attn", positions=positions,
-                                   cross_kv=(xkv[i]["k"], xkv[i]["v"]),
+                                   cross_kv=(layer_xkv["k"], layer_xkv["v"]),
                                    kv_block=rc.attn_chunk_kv, flash=kernels.attention)
         x = x + out
         h = L.rmsnorm(p["norm2"], x, cfg.rmsnorm_eps)
-        x = x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp)
-        if nc is not None:
-            new_self.append({"k": nc["k"], "v": nc["v"]})
+        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp), nc
+
+    if cache is None:  # training / an uncached forward: each layer under the run's remat
+        from .transformer import _remat_wrap
+
+        remat_layer = _remat_wrap(lambda x, p, kv: layer(x, p, kv, None)[0], rc)
+        for i, p in enumerate(params["dec_stack"]):
+            x = remat_layer(x, p, xkv[i])
+        return L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps), None
+    new_self = []
+    for i, p in enumerate(params["dec_stack"]):
+        attn_cache = {"k": cache["self"][i]["k"], "v": cache["self"][i]["v"],
+                      "len": start}
+        x, nc = layer(x, p, xkv[i], attn_cache)
+        new_self.append({"k": nc["k"], "v": nc["v"]})
     x = L.rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
-    if cache is None:
-        return x, None
     return x, {"self": new_self, "len": start + tokens.shape[1]}
 
 

@@ -1,6 +1,6 @@
 """Shared transformer building blocks (functions over parameter dicts).
 
-The port of the JAX package's ``models/layers.py``, inference only.
+The port of the JAX package's ``models/layers.py``.
 
 Conventions
 -----------
@@ -25,8 +25,14 @@ Conventions
   Single-query decode attention (:func:`attention_decode`, over a full
   cache, a ring or the encoder's keys) is plain PyTorch on both, as the
   reference computes it outside any Pallas kernel.
-* The reference's sharding hints are dropped (one device), as are its
-  training-only options (custom-VJP flash, bf16 probability tiles).
+* Training: every function here is differentiable by torch autograd.  On
+  a CUDA tensor that requires grad, K2 runs with its backward kernel
+  (``fused_attention.flash_attention`` is an ``autograd.Function`` there);
+  ``attention_block(flash_vjp=True)`` takes the custom-VJP flash attention
+  of :mod:`repro_torch.models.flash`, which lands on the same kernels on
+  the card.  :func:`chunked_cross_entropy` recomputes each chunk's logits
+  in the backward.
+* The reference's sharding hints are dropped (one device).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -355,7 +362,8 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
                     positions, cache: dict | None = None,
                     cross_kv: tuple | None = None, causal: bool = True,
                     kv_block: int = 1024, ring: bool = False,
-                    flash=None, impl: str = "chunked"
+                    flash=None, impl: str = "chunked", flash_vjp: bool = False,
+                    bf16_tiles: bool = False
                     ) -> tuple[torch.Tensor, dict | None]:
     """Self- (or cross-) attention sub-layer.  Returns (out, new_cache).
 
@@ -378,6 +386,11 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     ``cross_kv``: the encoder's (k, v), attended to without a mask; the
     queries take ``q_norm`` only, no RoPE (the keys were projected from the
     encoder's states once, :func:`repro_torch.models.encdec.cross_kv`).
+
+    ``flash_vjp``: an uncached self-attention over more than one token with
+    no softcap runs :func:`repro_torch.models.flash.flash_attention_vjp`
+    (causal, the mixer's window or chunk; ``bf16_tiles`` for its plain
+    version), as the reference's training path does.
     """
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
@@ -425,6 +438,16 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     else:
         kv_pos, kv_len = positions, None
 
+    if (flash_vjp and cache is None and cross_kv is None and S > 1
+            and cfg.logit_softcap == 0.0):
+        from .flash import flash_attention_vjp
+
+        out = flash_attention_vjp(
+            q, k, v, q_pos=positions, kv_pos=kv_pos, mixer=mixer,
+            window=cfg.window_size, chunk=cfg.chunk_size, kv_block=kv_block,
+            bf16_tiles=bf16_tiles)
+        return out.reshape(B, S, H * hd) @ params["wo"], None
+
     kw = dict(q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,
               window=cfg.window_size, chunk=cfg.chunk_size, kv_len=kv_len,
               logit_cap=cfg.logit_softcap)
@@ -458,3 +481,46 @@ def mlp_block(params: dict, x: torch.Tensor, act: str, *, fused=None) -> torch.T
         raise ValueError(act)
     fused = ops.KERNELS.mlp if fused is None else fused
     return fused(x, params["w1"], params["w2"], params.get("w3"), act=act)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (vocab logits never fully materialised)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one chunk: (B, chunk, V) float32 logits, their
+    logsumexp and the gold logit."""
+    logits = (hc @ lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.where(mc, lse - gold, 0.0).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token NLL of ``h`` (B, S, d) under ``lm_head`` (d, V) over
+    the positions where ``mask`` (B, S) is True, computed over sequence
+    chunks of ``chunk`` (the whole sequence when S is not a multiple).
+
+    The (B, S, V) logits are the "intermediate frame" here: a chunk's (B,
+    chunk, V) float32 logits live only while its NLL is taken and are
+    recomputed in the backward (``torch.utils.checkpoint``), never stored.
+    """
+    B, S, d = h.shape
+    if S % chunk:
+        chunk = S
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        part = (h[:, c0:c0 + chunk], lm_head, labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_xent_chunk, *part, use_reentrant=False)
+        else:
+            tot = tot + _xent_chunk(*part)
+    cnt = mask.sum().to(torch.int32)
+    return tot / torch.clamp(cnt, min=1)

@@ -2,8 +2,8 @@
 Mamba-1 sublayers: qwen3, mixtral, falcon-mamba, ...) and the
 encoder-decoder (seamless).
 
-``init_params / params_from_jax / forward / init_cache / prefill / decode``,
-the port of the JAX package's ``models/model.py``, dispatch on
+``init_params / params_from_jax / forward / loss_fn / init_cache / prefill /
+decode``, the port of the JAX package's ``models/model.py``, dispatch on
 ``cfg.is_encoder_decoder``; launch scripts and tests import this module.
 Entry points that create tensors default to ``device="cuda"`` and raise
 without CUDA.
@@ -15,6 +15,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops
 from . import encdec as ED
+from . import layers as L
 from . import transformer as T
 
 
@@ -47,6 +48,45 @@ def forward(params, cfg, rc, batch: dict, cache=None, *,
     if cfg.is_encoder_decoder:
         return ED.forward(params, cfg, rc, batch, cache, kernels=kernels)
     return T.forward(params, cfg, rc, batch, cache, kernels=kernels)
+
+
+_STACKS = ("segments", "enc_stack", "dec_stack")
+
+
+def decay_mask(params) -> object:
+    """Which parameters AdamW decays, a tree of bools shaped like
+    ``params``, as the reference decides: the tensors of >= 2 dims in the
+    reference's layout, which stacks the layers of each segment (and of
+    each encoder-decoder stack) on a leading axis.  So every per-layer
+    tensor decays, its norm scales too, as do the embedding and the head;
+    the final norms do not."""
+
+    def mark(node, stacked: bool):
+        if isinstance(node, dict):
+            return {k: mark(v, stacked or k in _STACKS) for k, v in node.items()}
+        if isinstance(node, list):
+            return [mark(v, stacked) for v in node]
+        return node.dim() + int(stacked) >= 2
+
+    return mark(params, False)
+
+
+def loss_fn(params, cfg, rc, batch: dict, *,
+            kernels: ops.FusedKernels | None = None) -> tuple[torch.Tensor, dict]:
+    """(loss, {"nll", "aux"}): the decoder-only trunk's
+    (:func:`transformer.loss_fn`: NLL + 0.01 x the MoE aux), or the
+    encoder-decoder's NLL over the decoder's tokens under its tied
+    embedding.  Labels < 0 are ignored; ``kernels`` defaults to
+    ``ops.train_kernels(rc.mamba_chunk)``."""
+    if not cfg.is_encoder_decoder:
+        return T.loss_fn(params, cfg, rc, batch, kernels=kernels)
+    kernels = ops.train_kernels(rc.mamba_chunk) if kernels is None else kernels
+    h, _, aux = ED.forward(params, cfg, rc, batch, kernels=kernels)
+    labels = batch["labels"]
+    mask = labels >= 0
+    nll = L.chunked_cross_entropy(h, params["embed"].T, torch.clamp(labels, min=0).long(),
+                                  chunk=rc.xent_chunk, mask=mask)
+    return nll, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, ring: bool = False,

@@ -14,8 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from ..kernels import ref
 from . import layers as L
 from .layers import params_from_jax  # noqa: F401  (the reference tree as tensors)
 
@@ -63,14 +63,6 @@ def route_topk(router_logits: torch.Tensor, top_k: int):
     gates, idx = torch.topk(probs, top_k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return gates, idx, probs
-
-
-def _act(h: torch.Tensor, act: str) -> torch.Tensor:
-    if act in ("gelu", "geglu"):
-        return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    if act == "swiglu":
-        return F.silu(h)
-    return torch.relu(h)
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
@@ -125,9 +117,9 @@ def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
 
     h = per_expert(xe, params["w1"])
     if cfg.ffn_act in L.GATED_ACTS:
-        h = _act(h, cfg.ffn_act) * per_expert(xe, params["w3"])
+        h = ref.activation(h, cfg.ffn_act) * per_expert(xe, params["w3"])
     else:
-        h = _act(h, cfg.ffn_act)
+        h = ref.activation(h, cfg.ffn_act)
     ye = per_expert(h, params["w2"])
     y = combine.reshape(G, Sg, E * C) @ ye.reshape(G, E * C, d)
 

@@ -1,12 +1,13 @@
 """Mamba-1 selective-state-space mixer (falcon-mamba-7b, jamba) — the port
-of the JAX package's ``models/ssm.py``, inference only.
+of the JAX package's ``models/ssm.py``.
 
 :func:`mamba_block` computes the discretised transitions (dA, dBx) and the
 readout C in PyTorch and hands the recurrence to the fusion group it is
 given (``scan``): on the model's path that is ``ops.KERNELS.ssm_scan``, the
 selective-scan kernel K4 on a CUDA tensor (its plain sequential version on
-a CPU one), or ``ops.PLAIN.ssm_scan``.  The two pure-PyTorch scans of the
-reference are kept beside it: :func:`selective_scan_reference` (the
+a CPU one), or ``ops.PLAIN.ssm_scan``; training takes the chunked scan
+(``ops.train_kernels``), differentiable, as the reference trains.  The two
+pure-PyTorch scans of the reference are kept beside it: :func:`selective_scan_reference` (the
 sequential oracle) and :func:`selective_scan_chunked` (chunk-recurrent; the
 in-chunk scan is a log-depth doubling loop, since PyTorch has no
 ``associative_scan``).
@@ -83,15 +84,19 @@ def _ssm_inputs(params: dict, x_c: torch.Tensor, cfg
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Discretised (dA, dBx, C) from the conv output, all float32 and
     contiguous (as the scan kernel takes them): dA and dBx (B, S, di, ds),
-    C (B, S, ds).  The exponential and the last product are taken in place,
-    which saves one (B, S, di, ds) temporary each."""
+    C (B, S, ds).  With grad mode off the exponential and the last product
+    are taken in place, which saves one (B, S, di, ds) temporary each."""
     dr, ds = cfg.dt_rank, cfg.ssm_state
     proj = (x_c @ params["x_proj"]).float()  # (B, S, dr + 2 ds)
     dt_low, Bs, Cs = torch.split(proj, [dr, ds, ds], dim=-1)
     dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])  # (B, S, di)
     A = -torch.exp(params["A_log"])  # (di, ds)
-    dA = (dt[..., None] * A[None, None]).exp_()
-    dBx = (dt[..., None] * Bs[:, :, None, :]).mul_(x_c.float()[..., None])
+    if torch.is_grad_enabled():
+        dA = torch.exp(dt[..., None] * A[None, None])
+        dBx = dt[..., None] * Bs[:, :, None, :] * x_c.float()[..., None]
+    else:
+        dA = (dt[..., None] * A[None, None]).exp_()
+        dBx = (dt[..., None] * Bs[:, :, None, :]).mul_(x_c.float()[..., None])
     return dA, dBx, Cs.contiguous()
 
 

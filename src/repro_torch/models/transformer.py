@@ -1,5 +1,5 @@
 """Decoder-only transformer trunk — the port of the JAX package's
-``models/transformer.py``, inference only.
+``models/transformer.py``.
 
 A model is a sequence of **segments**; each segment is ``repeats`` copies
 of a *superblock* (one period of the config's cyclic ``layer_pattern`` x
@@ -8,7 +8,8 @@ MoE placement).  The reference stacks a segment's parameters on a leading
 per-layer parameter dicts, looped over in Python.  The same trunk serves an
 uncached forward, prefill (cache write) and decode (cache read-extend).
 The cache's length is a Python int, so that no layer waits on the device
-to read it.
+to read it.  Training (:func:`loss_fn`) runs the uncached forward with each
+superblock under the run's activation checkpointing (:func:`_remat_wrap`).
 
 Each sublayer is a mixer (full, sliding-window or chunked attention, or a
 Mamba-1 SSM) followed by a dense FFN, an MoE FFN (with arctic's parallel
@@ -21,9 +22,13 @@ encoder-decoder (seamless) runs through :mod:`repro_torch.models.encdec`;
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..kernels import ops
 from . import layers as L
@@ -189,6 +194,7 @@ def _sublayer(sub, x, cfg, rc, mixer, is_moe, positions, cache, cache_len,
             cache=attn_cache, kv_block=rc.attn_chunk_kv,
             ring=(rc.local_ring_cache and mixer == "attn_local"),
             flash=kernels.attention, impl=attn_impl,
+            flash_vjp=rc.flash_vjp, bf16_tiles=rc.attn_bf16_tiles,
         )
         new_cache = None if nc is None else {"k": nc["k"], "v": nc["v"]}
     x = x + out
@@ -232,6 +238,41 @@ def sublayer_param_specs(cfg, kinds=None, *, dtype=torch.float32) -> list:
         _init_sublayer(gen, cfg, m, e, dtype) for m, e in kinds])
 
 
+# The products whose outputs "dots" remat saves: what ``x @ w`` and the
+# einsums dispatch to.
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default))
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, rc):
+    """``fn`` under the run's activation checkpointing (``rc.remat``):
+    ``"none"`` saves every activation; ``"dots"`` saves the matrix
+    products' outputs and recomputes the rest in the backward (selective
+    checkpointing, the reference's ``dots_saveable``); ``"full"`` saves only
+    ``fn``'s inputs and recomputes it whole (``nothing_saveable``).  With
+    grad mode off, ``fn`` itself.  A kernel launched inside ``fn`` (K2's
+    forward) runs again in the backward under ``"dots"`` and ``"full"``."""
+    if rc.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if rc.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_saveable)
+    elif rc.remat == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"remat {rc.remat!r}: none, dots or full")
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped
+
+
 def embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
     """Token (+ frontend stub) embedding (B, S, d)."""
     tok_emb = params["embed"][batch["tokens"]]
@@ -263,9 +304,20 @@ def forward(params, cfg, rc, batch: dict, cache: dict | None = None, *,
         new_seg = []
         for r in range(spec.repeats):
             layer_params = params["segments"][i][r]
+            if cache is None:  # one superblock, under the run's remat
+                def superblock(x, aux, layer_params=layer_params, kinds=spec.kinds):
+                    for j, (mixer, is_moe) in enumerate(kinds):
+                        x, _, aux = _sublayer(layer_params[f"sub{j}"], x, cfg, rc,
+                                              mixer, is_moe, positions, None, start,
+                                              aux, kernels)
+                    return x, aux
+
+                x, aux = _remat_wrap(superblock, rc)(x, aux)
+                new_seg.append({})
+                continue
             new_layer = {}
             for j, (mixer, is_moe) in enumerate(spec.kinds):
-                sub_cache = None if cache is None else cache["segments"][i][r][f"sub{j}"]
+                sub_cache = cache["segments"][i][r][f"sub{j}"]
                 x, nc, aux = _sublayer(layer_params[f"sub{j}"], x, cfg, rc, mixer,
                                        is_moe, positions, sub_cache, start, aux,
                                        kernels)
@@ -288,3 +340,19 @@ def lm_head_matrix(params, cfg) -> torch.Tensor:
 def logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:
     """Logits of the final position only (serving), float32."""
     return (h[:, -1:, :] @ lm_head_matrix(params, cfg)).float()
+
+
+def loss_fn(params, cfg, rc, batch: dict, *,
+            kernels: ops.FusedKernels | None = None) -> tuple[torch.Tensor, dict]:
+    """Next-token NLL (+ 0.01 x the MoE aux), float32.  Labels < 0 are
+    ignored.  ``kernels`` defaults to ``ops.train_kernels(rc.mamba_chunk)``.
+    Returns (loss, {"nll", "aux"})."""
+    kernels = ops.train_kernels(rc.mamba_chunk) if kernels is None else kernels
+    h, _, aux = forward(params, cfg, rc, batch, kernels=kernels)
+    labels = batch["labels"]
+    mask = labels >= 0
+    nll = L.chunked_cross_entropy(h, lm_head_matrix(params, cfg),
+                                  torch.clamp(labels, min=0).long(),
+                                  chunk=rc.xent_chunk, mask=mask)
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux}

@@ -1,2 +1,2 @@
-"""Serving step builders, and the fault-tolerance pieces the fleet sweep
-uses (the train step waits for the training slice)."""
+"""Step builders (training, prefill, decode), the fault-tolerant trainer
+and the fault-tolerance pieces the fleet sweep uses."""

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the fused_conv3x3,
-flash_attention, fused_mlp and selective-scan CUDA kernels, the evaluator
+flash_attention (forward and backward), fused_mlp and selective-scan CUDA
+kernels, the training step on the card, the evaluator
 sweep, the serving paths (the transformer, Mamba, MoE and encoder-decoder
 models, the ring cache), the traced ResNet-18's
 sweep and the MoE layer at full width, the fleet sweep split over one card
@@ -23,8 +24,8 @@ import torch
 
 from repro_torch.configs import resolve, run_config, scaled_down
 from repro_torch.core import arch, flow, fusion, ir, metrics
-from repro_torch.kernels import (builder, fused_attention, fused_conv, fused_mlp,
-                                 mamba_scan, ops, ref)
+from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
+                                 fused_conv, fused_mlp, mamba_scan, ops, ref)
 from repro_torch.models import model as M
 from repro_torch.models.vgg import VGG16
 
@@ -832,3 +833,177 @@ def test_gemma3_ring_cache_through_the_kernels_matches_the_full_cache(cuda):
                                tokens=fed)
     # the same calls, but fused_mlp's atomics add in a run-to-run order
     torch.testing.assert_close(ring, full, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The training slice: K2's logsumexp, the flash-attention backward kernel,
+# the autograd refusals of K1 / K3 / K4, a train step on the card
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_flash_vjp.py
+LSE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+BWD_CASES = [  # (B, Sq, Skv, H, KV, hd, causal, window, chunk)
+    (2, 128, 128, 4, 4, 64, True, 0, 0),       # GQA 1
+    (2, 256, 256, 8, 4, 128, True, 0, 0),      # GQA 2, qwen3's head width
+    (1, 200, 200, 8, 2, 32, True, 0, 0),       # GQA 4, ragged S
+    (2, 192, 192, 4, 2, 96, True, 64, 0),      # sliding window, hd 96
+    (1, 256, 256, 4, 1, 64, True, 0, 64),      # chunked, GQA 4
+    (1, 130, 130, 2, 2, 128, False, 0, 0),     # non-causal, ragged
+    (1, 96, 160, 4, 2, 64, False, 48, 0),      # non-causal window, Sq < Skv
+    (1, 160, 64, 4, 2, 64, True, 0, 32),       # Sq > Skv: queries 64.. see no key
+]
+
+
+def _bwd_inputs(case, dtype, seed=0):
+    B, Sq, Skv, H, KV, hd, causal, window, chunk = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = randn(B, Sq, H, hd), randn(B, Skv, KV, hd), randn(B, Skv, KV, hd)
+    mask = dict(causal=causal, window=window, chunk=chunk)
+    out, lse = fused_attention.flash_attention_lse(q, k, v, **mask)
+    return q, k, v, out, randn(B, Sq, H, hd), lse, mask
+
+
+def _assert_grad_close(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), what
+    tol = BWD_TOL[dtype]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol, msg=what)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), f"{what}: max |diff| {err}"
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_bwd_matches_plain_version(cuda, case, dtype):
+    q, k, v, out, dout, lse, mask = _bwd_inputs(case, dtype)
+    before = flash_attention_bwd.flash_attention_bwd.launches
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, f"{name} {case}")
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_lse_matches_the_plain_logsumexp(cuda, case, dtype):
+    q, k, v, out, _, lse, mask = _bwd_inputs(case, dtype, seed=1)
+    Sq, Skv = q.shape[1], k.shape[1]
+    seen = ref._visible(Sq, Skv, mask["causal"], mask["window"], mask["chunk"],
+                        "cuda").any(dim=1)
+    want = ref.attention_lse_ref(q, k, **mask)
+    tol = LSE_TOL[dtype]
+    torch.testing.assert_close(lse[:, :, seen], want[:, :, seen], atol=tol, rtol=tol)
+    # the serving launch (no lse) writes the same output, bit for bit
+    assert torch.equal(fused_attention.flash_attention(q, k, v, **mask), out)
+
+
+def test_flash_attention_bwd_is_deterministic(cuda):
+    case = (2, 1024, 1024, 16, 8, 128, True, 0, 0)
+    q, k, v, out, dout, lse, mask = _bwd_inputs(case, torch.bfloat16, seed=2)
+    a = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    b = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_is_differentiable_on_the_card(cuda, dtype):
+    case = (2, 192, 192, 8, 2, 64, True, 0, 0)
+    q, k, v, out, dout, lse, mask = _bwd_inputs(case, dtype, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0 = fused_attention.flash_attention.launches
+    b0 = flash_attention_bwd.flash_attention_bwd.launches
+    o = fused_attention.flash_attention(*leaves, **mask)
+    assert o.grad_fn is not None and torch.equal(o.detach(), out)
+    grads = torch.autograd.grad(o, leaves, dout)
+    assert fused_attention.flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.flash_attention_bwd.launches == b0 + 1
+    want = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_kernels_without_a_backward_refuse_autograd_inputs(cuda):
+    # K1, K3 and K4 would return outputs with no grad_fn: the weights before
+    # them would silently get no gradient
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((1, 8, 8, 4), generator=gen, device="cuda")
+    w = torch.randn((3, 3, 4, 8), generator=gen, device="cuda").requires_grad_(True)
+    b = torch.zeros(8, device="cuda")
+    with pytest.raises(NotImplementedError, match="fused_conv3x3 has no backward"):
+        fused_conv.fused_conv3x3(x, w, b)
+    xm = torch.randn((16, 64), generator=gen, device="cuda")
+    w1, w3 = (torch.randn((64, 128), generator=gen, device="cuda") for _ in range(2))
+    w2 = torch.randn((128, 64), generator=gen, device="cuda").requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="fused_mlp has no backward"):
+        ops.mlp(xm, w1, w2, w3)
+    dA = torch.rand((1, 8, 16, 4), generator=gen, device="cuda").requires_grad_(True)
+    dBx = torch.randn((1, 8, 16, 4), generator=gen, device="cuda")
+    C = torch.randn((1, 8, 4), generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError, match="selective_scan has no backward"):
+        ops.ssm_scan(dA, dBx, C)
+    with torch.no_grad():  # without grad mode they launch as before
+        fused_conv.fused_conv3x3(x, w, b)
+        ops.mlp(xm, w1, w2, w3)
+        ops.ssm_scan(dA, dBx, C)
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    # qwen3 at scaled_down, float32, "full" remat: the loss and every
+    # gradient through K2 and its backward kernel against the CPU's plain
+    # path (1e-3 of each leaf's largest: float32 sums in other orders); a
+    # train step launches K2 twice a layer (the forward and its recompute),
+    # its backward once
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data import make_batch
+    from repro_torch.runtime.steps import batch_to_device, make_train_step
+
+    cfg = scaled_down(resolve("qwen3"))
+    rc = dataclasses.replace(run_config(cfg.name, "train_4k"), remat="full",
+                             flash_vjp=True, xent_chunk=64)
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    batch = make_batch(cfg, 4, 128, seed=5)
+
+    def loss_and_grads(device):
+        flat, spec = pytree.tree_flatten(params)
+        leaves = [p.to(device).requires_grad_(True) for p in flat]
+        loss, _ = M.loss_fn(pytree.tree_unflatten(leaves, spec), cfg, rc,
+                            batch_to_device(batch, device))
+        return float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    l_cpu, g_cpu = loss_and_grads("cpu")
+    l_gpu, g_gpu = loss_and_grads("cuda")
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    opt = {"m": pytree.tree_map(torch.zeros_like, params),
+           "v": pytree.tree_map(torch.zeros_like, params),
+           "step": torch.zeros((), dtype=torch.int32)}
+    to = lambda t: t.to("cuda")  # noqa: E731
+    f0 = fused_attention.flash_attention.launches
+    b0 = flash_attention_bwd.flash_attention_bwd.launches
+    _, _, m = make_train_step(cfg, rc)(pytree.tree_map(to, params),
+                                       pytree.tree_map(to, opt), batch)
+    assert fused_attention.flash_attention.launches == f0 + 2 * cfg.n_layers
+    assert flash_attention_bwd.flash_attention_bwd.launches == b0 + cfg.n_layers
+    assert float(m["loss"]) == pytest.approx(l_cpu, rel=1e-5)
+
+
+def test_backward_library_reports_its_build(cuda):
+    built = flash_attention_bwd.build()
+    report = builder.ptxas_report(built.log)
+    names = [n for n in report if "flash_bwd_" in n]
+    assert len(names) == 4 * 4 + 2  # 4 head dims x (2 bf16 + 2 float32) + 2 delta
+    if builder.cuobjdump() is not None:
+        counts = builder.sass_counts(built.path)
+        assert all(c["HMMA"] > 0 for n, c in counts.items() if "_mma_kernel" in n)
+
