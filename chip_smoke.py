@@ -553,12 +553,12 @@ def phase_device(torch) -> str:
 def phase_build() -> dict:
     """Build the five kernel libraries from the checkout's sources, one
     nvcc each, all started together.  For the attention backward, each
-    instantiation's registers, spills and HMMA instructions; fails if one
-    that training launches has none.  For K2 and K3, whose bfloat16 bodies
-    run on the tensor cores: each bf16 instantiation's registers and spills
-    (``-Xptxas -v``) and its HMMA / HGMMA instructions in the SASS
-    (``cuobjdump -sass``); fails if a bf16 instantiation that serving
-    launches has none.  For K1, whose float32 (3xTF32) and bfloat16 bodies
+    instantiation's registers, spills and HMMA / HGMMA instructions; fails
+    if one that training launches has no HGMMA or spills.  For K2 and K3,
+    whose bfloat16 bodies run on the tensor cores: each bf16
+    instantiation's registers and spills (``-Xptxas -v``) and its HMMA /
+    HGMMA instructions in the SASS (``cuobjdump -sass``); fails if a bf16
+    instantiation that serving launches has none.  For K1, whose float32 (3xTF32) and bfloat16 bodies
     both run on the tensor cores, the same for every instantiation; fails
     if one has no HMMA or spills."""
     from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
@@ -613,25 +613,35 @@ def phase_build() -> dict:
         print(f"  {kernel.name}: {len(bf16)} bf16 kernels, "
               f"{sum(1 for n in bf16 if sass[n]['HMMA'] + sass[n]['HGMMA'])} with "
               f"tensor-core instructions; {len(f32)} float32 kernels, {n_tc} with")
-    # The attention backward: every instantiation's registers, spills and
-    # HMMA; the bf16 ones training launches (head_dim 128) must have HMMA.
+    # The attention backward: every instantiation's registers, spills, HMMA
+    # and HGMMA, and ptxas's notes where it serializes a kernel's wgmma; the
+    # bf16 ones training launches (head_dim 128, on wgmma) must have HGMMA
+    # and spill nothing.
     bwd = builds[kernels.index(flash_attention_bwd.KERNEL)]
     report = builder.ptxas_report(bwd.log)
     sass = builder.sass_counts(bwd.path)
-    training = ("flash_bwd_dkdv_mma_kernelILi128E", "flash_bwd_dq_mma_kernelILi128E")
+    serialized = [line.split("in the function", 1)[-1].strip(" '")
+                  for line in bwd.log.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    training = ("flash_bwd_dkdv_wgmma_kernelILi128E", "flash_bwd_dq_wgmma_kernelILi128E")
     for want in training:
         check(any(want in n for n in sass), f"{bwd.path.name}: no kernel {want} in the SASS")
     for name in sorted(n for n in sass if "flash_bwd_" in n):
         ops, ptx = sass[name], report.get(name, {})
         short = "flash_bwd_" + name.split("flash_bwd_", 1)[1].split("EEv", 1)[0]
         train = any(w in name for w in training)
+        serial = any(name in f for f in serialized)
+        spills = (ptx.get("spill_stores"), ptx.get("spill_loads"))
         out["tensor_core"][f"{flash_attention_bwd.KERNEL.name}:{short}"] = {
-            **ops, **ptx, "training": train}
+            **ops, **ptx, "training": train, "wgmma_serialized": serial}
         print(f"  {flash_attention_bwd.KERNEL.name} {short}{' (training)' if train else ''}: "
-              f"{ops['HMMA']} HMMA; {ptx.get('registers')} registers, spills "
-              f"{ptx.get('spill_stores')} / {ptx.get('spill_loads')} bytes")
-        check(not train or ops["HMMA"] > 0,
-              f"flash_attention_bwd's training instantiation {short} has no HMMA")
+              f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; {ptx.get('registers')} registers, "
+              f"spills {spills[0]} / {spills[1]} bytes"
+              + ("; ptxas serializes its wgmma" if serial else ""))
+        check(not train or ops["HGMMA"] > 0,
+              f"flash_attention_bwd's training instantiation {short} has no HGMMA")
+        check(not train or not any(spills),
+              f"flash_attention_bwd's training instantiation {short} spills {spills} bytes")
     # K1: every instantiation (float32 3xTF32 and bfloat16, both tiles) is
     # launched by the VGG path or phase layers.
     conv = builds[kernels.index(fused_conv.KERNEL)]
@@ -2075,10 +2085,11 @@ def phase_serve_ring(torch, run: dict, seed: int) -> dict:
     return out
 
 
-def _device_busy(torch, fn) -> dict:
+def _device_busy(torch, fn, watch: tuple = ()) -> dict:
     """Host wall ms of ``fn()`` (synchronised), the ms the device was busy
     in it (the union of its kernel, copy and set intervals, from the
-    profiler) and the largest device times by name."""
+    profiler), the largest device times by name and the device times of the
+    names that contain one of ``watch``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2102,7 +2113,9 @@ def _device_busy(torch, fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall if spans else None,
-            "kernels_launched": len(spans), "top_device_ms": top}
+            "kernels_launched": len(spans), "top_device_ms": top,
+            "watched_device_ms": {n: t for n, t in by_name.items()
+                                  if any(w in n for w in watch)}}
 
 
 def _serve_trace(torch, prefill, decode, phase: str) -> dict:
@@ -2589,7 +2602,7 @@ def phase_train_time(torch, run: dict, seed: int) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(metrics["loss"])), "a timed step's loss is not finite")
     batch = make_batch(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"], seed=seed, step=200)
-    trace = _device_busy(torch, lambda: step(params, opt, batch))
+    trace = _device_busy(torch, lambda: step(params, opt, batch), watch=("flash_bwd_",))
     ms = statistics.median(times)
     tokens = run["tokens_per_step"]
     flops = train_model_flops(cfg, tokens, TRAIN_RUN["batch"], TRAIN_RUN["seq"])
@@ -2601,6 +2614,10 @@ def phase_train_time(torch, run: dict, seed: int) -> dict:
           f"share {'not measured' if idle is None else f'{idle:.3f}'}, "
           f"{trace['kernels_launched']} device operations; largest: "
           + "; ".join(f"{n} {t:.3f} ms" for n, t in trace["top_device_ms"]))
+    bwd = trace["watched_device_ms"]
+    print(f"phase train_time: the attention backward {sum(bwd.values()):.3f} ms of the "
+          f"step's device time ({sum(bwd.values()) / trace['device_busy_ms']:.3f}): "
+          + "; ".join(f"{n} {t:.3f} ms" for n, t in sorted(bwd.items())))
     del params, opt
     torch.cuda.empty_cache()
     return {"step_ms": times, "median_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,

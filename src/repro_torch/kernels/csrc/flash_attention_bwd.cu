@@ -15,32 +15,82 @@
 // ragged pair has P = 0, so a query that sees no key (non-causal masks with
 // Sq > Skv make such rows) gets dQ = 0 and adds nothing to dK and dV.
 //
-// Three launches, deterministic (no atomics, every sum in a fixed order):
+// Three launches, deterministic (no atomics, every sum in a fixed order, so
+// two runs on the same inputs are bit-equal):
 //  1. flash_bwd_delta_kernel: D (B, H, Sq) float32, one warp a row;
 //  2. the dK/dV kernel: one block per (batch, KV head, key tile); it walks
 //     the G query heads of its KV head and every query tile that the masks
 //     leave any pair of (a tile masked for the whole block is skipped),
-//     accumulating its keys' dK and dV in registers;
+//     accumulating its keys' dK and dV in registers; key tile 0 first, the
+//     heaviest under the causal mask;
 //  3. the dQ kernel: one block per (batch, head, query tile), over the key
 //     tiles, heaviest query tile first (the causal mask's last tiles see
 //     the most keys).
+// Each output element is written by one thread, once.  The price is that
+// the dQ kernel recomputes S and dP: seven products of 2 * hd flops per
+// visible (query, key) pair and head instead of the five the arithmetic
+// needs (dQ summed across key tiles by atomics would need five, but float
+// atomics add in whatever order the blocks finish).
 //
-// What bounds it: five products of 2 * hd flops per visible (query, key)
-// pair and head against reading q, k, v, dO and writing dq, dk, dv once, so
-// at training shapes (S = 4096, hd 128) it is compute-bound.
+// What bounds it: those products against reading q, k, v, dO and writing
+// dq, dk, dv once; at training shapes (S = 4096, hd 128) hundreds of flops
+// a byte, so the tensor cores (989 TFLOP/s bf16: 0.97 ms for the seven
+// products at qwen3's (4, 4096, 16/8, 128) causal, 0.70 ms for five), and
+// next to them the shared memory's bandwidth, which feeds the tensor cores
+// their operands.
 //
-// bfloat16 bodies: mma.sync m16n8k16 bf16 products with float32 sums.  A
-// warp owns 16 keys (dK/dV) or 16 queries (dQ) and walks the other side 16
-// at a time; S and dP (16 x 16) stay in registers, P and dS are rounded to
-// bf16 and packed straight into A fragments (as the forward packs P), the
-// other operands come from shared memory by ldmatrix (.trans for the
-// (k, n) row-major ones).  The dK / dV (and dQ) accumulators sum over many
-// tiles: each tile's 16-term product goes into a zeroed partial and is then
-// added in float32, since the tensor cores truncate the sums they take
-// (the lesson of fused_conv3x3.cu's float32 body).  The other side's tiles
-// (Q and dO, or K and V) arrive by 16-byte cp.async in a two-stage ring.
-// Numerics: P and dS are rounded to bf16 (relative 2^-9) before their
-// products, as the reference's bf16_tiles option rounds them.
+// bfloat16 at head dims 64 and 128 (the *_wgmma_kernel bodies): Hopper's
+// warpgroup products, wgmma m64nNk16, on operands in 128-byte-swizzled
+// shared memory (mma_bf16.cuh), two consumer warpgroups a block (256
+// threads, one block an SM).
+//  - dK/dV: a block owns 128 keys, 64 a warpgroup; K and V stay in shared
+//    memory for the whole block.  Per 64-query tile of Q and dO (with its
+//    lse and D rows), each warpgroup computes S^T = K Q^T and dP^T = V dO^T
+//    as m64n64k16 with both operands read from shared memory, K-major (Q
+//    and dO rows are hd-contiguous, so B needs no transpose); P^T and dS^T
+//    are computed on the float32 accumulators, rounded to bf16 and packed
+//    into A fragments in registers; then dV += P^T dO and dK += dS^T Q as
+//    m64n{hd}k16 with A from registers and B (the same Q and dO tiles)
+//    read MN-major, transposed in the instruction.  Registers a thread at
+//    hd 128: dK and dV 64 + 64, S^T and dP^T 32 + 32.
+//  - dQ: a block owns 128 queries, 64 a warpgroup; Q and dO stay in shared
+//    memory.  Per 64-key tile of K and V: S = Q K^T and dP = dO V^T (both
+//    operands K-major in shared memory), dS into A fragments, dQ += dS K
+//    with K read MN-major.
+//  - Q, dO, K and V tiles arrive by TMA (the Tensor Memory Accelerator:
+//    one thread issues a 64 x 64 box copy, which lands already swizzled and
+//    zero-fills rows past the tensor's end; the host makes the four maps
+//    per launch through cuTensorMapEncodeTiled), completing a phase of an
+//    mbarrier; lse and D by 4-byte cp.async.  The streamed tiles run in a
+//    ring of three stages, loaded two tiles ahead; one block barrier a tile
+//    frees the stage refilled next.  (Issued by every thread as 16-byte
+//    cp.async, the loads held each thread for a large part of a tile;
+//    without the block barrier, or with the two warpgroups taking turns on
+//    the tensor cores, a step took no less time.)
+//  - A tile's P, dP and dS are computed branch-free on the accumulators; a
+//    tile that the masks cut first sets a 32-bit word of visible pairs
+//    under a branch.  The registers the next products read are never
+//    written in a divergent path: ptxas serializes every wgmma of a kernel
+//    that does (its C7520 note).
+//  - dK, dV and dQ accumulate in their float32 registers over every tile.
+//    The tensor cores truncate the sums they take, but K2's and K3's
+//    bfloat16 sums did not grow their error with K (tests/
+//    test_torch_on_card.py *_do_not_grow_their_error_*), and the backward's
+//    own test at Sq 512-4096 holds it to that.
+//  - Still slow: with both operands in shared memory the S and dP products
+//    run well below the tensor cores' rate (their operand reads fill the
+//    shared memory's bandwidth), and the two warpgroups compute their
+//    exponentials at the same time, when the tensor cores wait.
+// bfloat16 at head dims 32 and 96 (the *_mma_kernel bodies): mma.sync
+// m16n8k16 bf16 products with float32 sums.  A warp owns 16 keys (dK/dV)
+// or 16 queries (dQ) and walks the other side 16 at a time; S and dP (16 x
+// 16) stay in registers, P and dS are packed straight into A fragments, the
+// other operands come from shared memory by ldmatrix (.trans for the (k, n)
+// row-major ones).  Each tile's 16-term product goes into a zeroed partial
+// and is then added in float32.  The other side's tiles arrive by 16-byte
+// cp.async in a two-stage ring.
+// Numerics of both: P and dS are rounded to bf16 (relative 2^-9) before
+// their products, as the reference's bf16_tiles option rounds them.
 //
 // float32 bodies: CUDA-core FMAs, 16 x 16 score tiles, one score a thread,
 // then each thread accumulates 16 of its key's (or query's) head dims:
@@ -48,8 +98,10 @@
 //
 // Build (see flash_attention_bwd.py): nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC.  Head dims 32,
-// 64, 96 and 128.
+// 64, 96 and 128.  cuda.h is included for the TMA map's types only: the
+// encoder is looked up through the runtime, so no link to the driver.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,7 +153,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16 at head dims 32 and 96: warp-level tensor-core products (mma.sync)
 // ---------------------------------------------------------------------------
 
 constexpr int BWD_BK = 64;  // keys a dK/dV block (4 warps of 16); keys a dQ stage
@@ -480,6 +532,543 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at head dims 64 and 128: warpgroup tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+// 4 bytes (one float) global -> shared; with `full` false zero-filled and
+// nothing read.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(n)
+               : "memory");
+}
+
+template <int HD>
+struct WgTiles {
+  static constexpr int NWG = 2;  // consumer warpgroups a block, 64 rows each
+  static constexpr int NTHREADS = NWG * 128;
+  static constexpr int ROW = HD * 2;  // bytes of a row
+  // Rings of the streamed tiles, loaded two tiles ahead: the refilled stage
+  // is the previous tile's, whose products every warpgroup waited for
+  // before the barrier.
+  static constexpr int STAGES = 3;
+  // dK/dV: K and V resident, 64 keys a warpgroup; Q, dO, lse, D streamed.
+  static constexpr int DKV_KEYS = NWG * 64;
+  static constexpr int DKV_QUERIES = 64;  // a stage
+  static constexpr int KV_BYTES = DKV_KEYS * ROW;
+  static constexpr int QT_BYTES = DKV_QUERIES * ROW;
+  // Q and dO, then lse and D (2 x 64 floats) padded to a 1024-byte atom
+  static constexpr int DKV_STAGE = 2 * QT_BYTES + 1024;
+  static constexpr int BAR_BYTES = 64;  // the mbarriers
+  static constexpr int DKV_SMEM = 2 * KV_BYTES + STAGES * DKV_STAGE + BAR_BYTES + 1024;
+  // dQ: Q and dO resident, 64 queries a warpgroup; K and V streamed.
+  static constexpr int DQ_QUERIES = NWG * 64;
+  static constexpr int DQ_KEYS = 64;  // a stage
+  static constexpr int QB_BYTES = DQ_QUERIES * ROW;
+  static constexpr int KT_BYTES = DQ_KEYS * ROW;
+  static constexpr int DQ_STAGE = 2 * KT_BYTES;
+  static constexpr int DQ_SMEM = 2 * QB_BYTES + STAGES * DQ_STAGE + BAR_BYTES + 1024;
+  static_assert(HD == 64 || HD == 128, "wgmma bodies at head dims 64 and 128");
+  static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "one block's shared memory");
+};
+
+// ---- TMA and mbarriers ----------------------------------------------------
+// A tile of ROWS positions x HD head dims of one head comes by the Tensor
+// Memory Accelerator: boxes of 64 positions x 64 head dims (128-byte rows,
+// the copy writing them 128-byte-swizzled, as the descriptors below read
+// them), column blocks ROWS * 128 bytes apart; positions past the tensor's
+// end read as zeros.  One thread issues the copies; their bytes complete a
+// phase of an mbarrier in shared memory, on which the readers wait.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` more of the copies it tracks.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A copy that never
+// lands would leave the block waiting for good: after ~2^24 polls (seconds)
+// the kernel traps, and the launch fails, instead.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = smem_u32(bar);
+  for (int i = 0;; ++i) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1 << 24)) __trap();
+  }
+}
+
+template <int HD, int ROWS>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, int head,
+                                         int row0, int b, uint64_t* bar) {
+  const unsigned long long m = reinterpret_cast<unsigned long long>(map);
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+    for (int r = 0; r < ROWS / 64; ++r)
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst + c * (ROWS * 128) +
+                                                              r * 64 * 128)),
+          "l"(m), "r"(c * 64), "r"(head), "r"(row0 + r * 64), "r"(b), "r"(smem_u32(bar))
+          : "memory");
+}
+
+// Descriptors of such a tile.  A descriptor holds its start address in
+// 16-byte units in its low 14 bits, so the descriptor of a byte offset
+// within the (< 256 KB of) shared memory is the tile's plus offset / 16:
+// kmajor(kk) and mnmajor(kc) are the offsets of a k-step, added to a base
+// descriptor made once.
+// K-major (a row is one m or n, its head dims the k): k-step kk is 16 head
+// dims, 32 bytes along the rows, the next column block past 64; atoms 8
+// rows apart 1024 bytes, the leading offset unused.
+__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile) {
+  return mma::wgmma_desc(tile, 16, 1024);
+}
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint64_t desc, int kk) {
+  return desc + (uint64_t)(((kk >> 2) * (ROWS * 128) + (kk & 3) * 32) >> 4);
+}
+// MN-major (a row is one k, its head dims the n): k-step kc is rows 16 kc..,
+// two atoms on; atoms 8 rows apart 1024 bytes, column blocks (64 n) ROWS *
+// 128 bytes apart.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile) {
+  return mma::wgmma_desc(tile, ROWS * 128, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint64_t desc, int kc) {
+  return desc + (uint64_t)(kc * 2048 >> 4);
+}
+
+// Pins every register of an accumulator here: the compiler neither moves
+// a read of it above the wgmma_wait before nor a write below the wgmma
+// after (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error ~2^-22,
+// results below 2^-126 flushed to 0), without exp2f's rescaling of such
+// results: P is rounded to bf16 (2^-9) before it is used.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x HD) += a (16 k, registers) * B (16 x HD, MN-major at desc).
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 8][4], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (HD == 64)
+    mma::wgmma_m64n64k16(d, a, desc);
+  else
+    mma::wgmma_m64n128k16_rs(d, a, desc);
+}
+
+// The 1024-byte-aligned start of the dynamic shared memory (swizzle atoms).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const unsigned misalign = static_cast<unsigned>(__cvta_generic_to_shared(raw)) & 1023;
+  return raw + ((1024 - misalign) & 1023);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WgTiles<HD>::NTHREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                            int causal, int window, int chunk, float scale) {
+  using TL = WgTiles<HD>;
+  constexpr int BQ = TL::DKV_QUERIES;
+  constexpr int BKV = TL::DKV_KEYS;
+  constexpr int KC = HD / 16;   // k-steps of S^T and dP^T
+  constexpr int NT_O = HD / 8;  // n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  unsigned char* sk = aligned_smem(smem_dyn);  // BKV swizzled rows
+  unsigned char* sv = sk + TL::KV_BYTES;
+  unsigned char* ring = sv + TL::KV_BYTES;  // stage s: Q, dO, lse, D
+  // mbarriers: full[s], stage s's Q and dO have landed; kv_bar, K and V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TL::STAGES * TL::DKV_STAGE);
+  uint64_t* kv_bar = full + TL::STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / KV;
+  const int kvh = blockIdx.x % KV;
+  const int G = H / KV;
+  const int k0 = blockIdx.y * BKV;
+  const int k_hi = min(k0 + BKV, Skv) - 1;
+  const int wk0 = k0 + wg * 64;  // this warpgroup's keys, wk0..wk_hi (none if wk_hi < wk0)
+  const int wk_hi = min(wk0 + 64, Skv) - 1;
+  const int kr0 = wk0 + ((tid >> 5) & 3) * 16 + g;  // this thread's: rows g, g + 8 of its warp
+  const int kr1 = kr0 + 8;
+  const size_t kv_stride = (size_t)KV * HD;  // elements between positions
+  const size_t kv_off = (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int n_it = G * n_qt;  // (query head, query tile) pairs, head-major
+  const float scale_log2 = scale * LOG2E;
+
+  // The next (head, query tile) at or after `it` whose tile meets a key of
+  // this block's.
+  auto next_it = [&](int it) {
+    while (it < n_it) {
+      const int q0 = (it % n_qt) * BQ;
+      if (!tile_masked(q0, min(q0 + BQ, Sq) - 1, k0, k_hi, causal, window, chunk)) break;
+      ++it;
+    }
+    return it;
+  };
+  // Q and dO by TMA (one thread), lse and D by cp.async (128 threads).
+  auto load_stage = [&](int it, int slot) {
+    const int h = kvh * G + it / n_qt;
+    const int q0 = (it % n_qt) * BQ;
+    unsigned char* st = ring + slot * TL::DKV_STAGE;
+    if (tid == 0) {
+      mbar_expect(full + slot, 2 * TL::QT_BYTES);
+      tma_tile<HD, BQ>(st, &tq, h, q0, b, full + slot);
+      tma_tile<HD, BQ>(st + TL::QT_BYTES, &tdo, h, q0, b, full + slot);
+    }
+    if (tid < 2 * BQ) {  // lse (threads 0..63) and D (64..127) of the tile's rows
+      const int i = tid % BQ;
+      const bool in = q0 + i < Sq;
+      const float* src = tid < BQ ? lse : delta;
+      cp_async4(reinterpret_cast<float*>(st + 2 * TL::QT_BYTES) + tid,
+                in ? src + ((size_t)b * H + h) * Sq + q0 + i : src, in);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < TL::STAGES; ++s) mbar_init(full + s, 1);
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(kv_bar, 2 * TL::KV_BYTES);
+    tma_tile<HD, BKV>(sk, &tk, kvh, k0, b, kv_bar);
+    tma_tile<HD, BKV>(sv, &tv, kvh, k0, b, kv_bar);
+  }
+  __syncthreads();  // the barriers are set up
+  int it = next_it(0);
+  if (it < n_it) load_stage(it, 0);
+  mma::cp_async_commit();
+  int nxt = it < n_it ? next_it(it + 1) : n_it;
+  if (nxt < n_it) load_stage(nxt, 1);
+  mma::cp_async_commit();
+
+  const uint64_t dsk = desc_kmajor(sk + wg * 64 * 128);  // this warpgroup's K and V rows
+  const uint64_t dsv = desc_kmajor(sv + wg * 64 * 128);
+  float dka[NT_O][4], dva[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  int slot = 0;
+  for (int c = 0; it < n_it; ++c) {
+    mbar_wait(full + slot, (c / TL::STAGES) & 1);  // this stage's Q and dO
+    mma::cp_async_wait<1>();  // its lse and D (this thread's part)
+    __syncthreads();          // every thread's part; every warpgroup done with slot - 1
+    const int after = nxt < n_it ? next_it(nxt + 1) : n_it;
+    if (after < n_it) load_stage(after, (slot + 2) % TL::STAGES);
+    mma::cp_async_commit();
+    const int q0 = (it % n_qt) * BQ;
+    const int q_hi = min(q0 + BQ, Sq) - 1;
+    if (wk0 <= wk_hi && !tile_masked(q0, q_hi, wk0, wk_hi, causal, window, chunk)) {
+      const unsigned char* sq = ring + slot * TL::DKV_STAGE;
+      const unsigned char* sdo = sq + TL::QT_BYTES;
+      const float* slse = reinterpret_cast<const float*>(sdo + TL::QT_BYTES);
+      const float* sD = slse + BQ;
+      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, k over head
+      // dims: two groups, so that P^T is computed while dP^T runs on.
+      const uint64_t dsq = desc_kmajor(sq), dsdo = desc_kmajor(sdo);
+      float s[8][4], dp[8][4];
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        mma::wgmma_m64n64k16_ss_kk(s, kmajor<BKV>(dsk, kk), kmajor<BQ>(dsq, kk), kk > 0);
+      mma::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        mma::wgmma_m64n64k16_ss_kk(dp, kmajor<BKV>(dsv, kk), kmajor<BQ>(dsdo, kk), kk > 0);
+      mma::wgmma_commit();
+      // P^T and dS^T on the accumulators: element (j, e) is key kr0 (e < 2)
+      // or kr1, query q0 + j * 8 + 2 t + (e & 1); bit 4 j + e of `seen` says
+      // whether the pair is visible.  Only `seen` is set under a branch: the
+      // registers the next products read are written in straight-line code
+      // (ptxas serializes every wgmma of a kernel that writes them in a
+      // divergent path).
+      uint32_t seen = 0xffffffffu;
+      if (!(wk_hi == wk0 + 63 && q_hi == q0 + BQ - 1 &&
+            tile_visible(q0, q_hi, wk0, wk_hi, causal, window, chunk))) {
+        seen = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + j * 8 + 2 * t + (e & 1);
+            const int kj = e < 2 ? kr0 : kr1;
+            if (kj < Skv && qi < Sq && visible(qi, kj, causal, window, chunk))
+              seen |= 1u << (4 * j + e);
+          }
+      }
+      mma::wgmma_wait<1>();  // S^T is done
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(slse + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse2 = (e & 1 ? l.y : l.x) * LOG2E;
+          s[j][e] = (seen >> (4 * j + e)) & 1 ? exp2_approx(fmaf(s[j][e], scale_log2, -lse2))
+                                              : 0.f;
+        }
+      }
+      mma::wgmma_wait<0>();  // dP^T is done
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(sD + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - (e & 1 ? d.y : d.x)) * scale;
+      }
+      uint32_t pa[4][4], da[4][4];  // A fragments over 16 queries each
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        mma::pack_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+        mma::pack_a(da[kc], dp[2 * kc], dp[2 * kc + 1]);
+      }
+      // dV += P^T dO and dK += dS^T Q: k over the 64 queries, B read MN-major.
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<HD>(dva, pa[kc], mnmajor(desc_mnmajor<BQ>(sdo), kc));
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<HD>(dka, da[kc], mnmajor(desc_mnmajor<BQ>(sq), kc));
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+    }
+    slot = (slot + 1) % TL::STAGES;
+    it = nxt;
+    nxt = after;
+  }
+  mma::cp_async_wait<0>();
+
+  bf16* dkb = dk + kv_off;
+  bf16* dvb = dv + kv_off;
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (kr0 < Skv) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kr0 * kv_stride + d) =
+          __floats2bfloat162_rn(dka[j][0], dka[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kr0 * kv_stride + d) =
+          __floats2bfloat162_rn(dva[j][0], dva[j][1]);
+    }
+    if (kr1 < Skv) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kr1 * kv_stride + d) =
+          __floats2bfloat162_rn(dka[j][2], dka[j][3]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kr1 * kv_stride + d) =
+          __floats2bfloat162_rn(dva[j][2], dva[j][3]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WgTiles<HD>::NTHREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Sq, int Skv, int H, int KV,
+                          int causal, int window, int chunk, float scale) {
+  using TL = WgTiles<HD>;
+  constexpr int BQB = TL::DQ_QUERIES;
+  constexpr int BK = TL::DQ_KEYS;
+  constexpr int KC = HD / 16;   // k-steps of S and dP
+  constexpr int NT_O = HD / 8;  // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  unsigned char* sq = aligned_smem(smem_dyn);  // BQB swizzled rows
+  unsigned char* sdo = sq + TL::QB_BYTES;
+  unsigned char* ring = sdo + TL::QB_BYTES;  // stage s: K, V
+  // mbarriers: full[s], stage s's K and V have landed; q_bar, Q and dO
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TL::STAGES * TL::DQ_STAGE);
+  uint64_t* q_bar = full + TL::STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQB;  // heaviest query tile first
+  const int q_hi = min(q0 + BQB, Sq) - 1;
+  const int wq0 = q0 + wg * 64;  // this warpgroup's queries, wq0..wq_hi (none if wq_hi < wq0)
+  const int wq_hi = min(wq0 + 64, Sq) - 1;
+  const int qr0 = wq0 + ((tid >> 5) & 3) * 16 + g;  // this thread's: rows g, g + 8 of its warp
+  const int qr1 = qr0 + 8;
+  const size_t q_stride = (size_t)H * HD;  // elements between positions
+  const size_t q_off = (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const int n_kb = (Skv + BK - 1) / BK;
+  const float scale_log2 = scale * LOG2E;
+
+  auto next_tile = [&](int kt) {
+    while (kt < n_kb &&
+           tile_masked(q0, q_hi, kt * BK, min(kt * BK + BK, Skv) - 1, causal, window, chunk))
+      ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int slot) {  // by TMA, one thread
+    if (tid != 0) return;
+    unsigned char* st = ring + slot * TL::DQ_STAGE;
+    mbar_expect(full + slot, 2 * TL::KT_BYTES);
+    tma_tile<HD, BK>(st, &tk, kvh, kt * BK, b, full + slot);
+    tma_tile<HD, BK>(st + TL::KT_BYTES, &tv, kvh, kt * BK, b, full + slot);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < TL::STAGES; ++s) mbar_init(full + s, 1);
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(q_bar, 2 * TL::QB_BYTES);
+    tma_tile<HD, BQB>(sq, &tq, h, q0, b, q_bar);
+    tma_tile<HD, BQB>(sdo, &tdo, h, q0, b, q_bar);
+  }
+  __syncthreads();  // the barriers are set up
+  int kt = next_tile(0);
+  if (kt < n_kb) load_kv(kt, 0);
+  int nk = kt < n_kb ? next_tile(kt + 1) : n_kb;
+  if (nk < n_kb) load_kv(nk, 1);
+
+  const size_t srow = ((size_t)b * H + h) * Sq;
+  const float lse0 = qr0 < Sq ? lse[srow + qr0] * LOG2E : 0.f;
+  const float lse1 = qr1 < Sq ? lse[srow + qr1] * LOG2E : 0.f;
+  const float D0 = qr0 < Sq ? delta[srow + qr0] : 0.f;
+  const float D1 = qr1 < Sq ? delta[srow + qr1] : 0.f;
+  const uint64_t dsq = desc_kmajor(sq + wg * 64 * 128);  // this warpgroup's Q and dO rows
+  const uint64_t dsdo = desc_kmajor(sdo + wg * 64 * 128);
+  float dqa[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  mbar_wait(q_bar, 0);
+  int slot = 0;
+  for (int c = 0; kt < n_kb; ++c) {
+    mbar_wait(full + slot, (c / TL::STAGES) & 1);  // this stage's K and V
+    __syncthreads();  // every warpgroup done with slot - 1
+    const int after = nk < n_kb ? next_tile(nk + 1) : n_kb;
+    if (after < n_kb) load_kv(after, (slot + 2) % TL::STAGES);
+    const int k0 = kt * BK;
+    const int kh = min(k0 + BK, Skv) - 1;
+    if (wq0 <= wq_hi && !tile_masked(wq0, wq_hi, k0, kh, causal, window, chunk)) {
+      const unsigned char* sk = ring + slot * TL::DQ_STAGE;
+      const unsigned char* sv = sk + TL::KT_BYTES;
+      // S = Q K^T and dP = dO V^T, 64 queries x 64 keys, k over head dims:
+      // two groups, so that P is computed while dP runs on.
+      const uint64_t dsk = desc_kmajor(sk), dsv = desc_kmajor(sv);
+      float s[8][4], dp[8][4];
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        mma::wgmma_m64n64k16_ss_kk(s, kmajor<BQB>(dsq, kk), kmajor<BK>(dsk, kk), kk > 0);
+      mma::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        mma::wgmma_m64n64k16_ss_kk(dp, kmajor<BQB>(dsdo, kk), kmajor<BK>(dsv, kk), kk > 0);
+      mma::wgmma_commit();
+      // dS on the accumulators: element (j, e) is query qr0 (e < 2) or qr1,
+      // key k0 + j * 8 + 2 t + (e & 1); bit 4 j + e of `seen` says whether
+      // the pair is visible (set under a branch, as in the dK/dV kernel).
+      uint32_t seen = 0xffffffffu;
+      if (!(kh == k0 + BK - 1 && wq_hi == wq0 + 63 &&
+            tile_visible(wq0, wq_hi, k0, kh, causal, window, chunk))) {
+        seen = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            const int qi = e < 2 ? qr0 : qr1;
+            if (kj < Skv && qi < Sq && visible(qi, kj, causal, window, chunk))
+              seen |= 1u << (4 * j + e);
+          }
+      }
+      mma::wgmma_wait<1>();  // S is done
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = (seen >> (4 * j + e)) & 1
+                        ? exp2_approx(fmaf(s[j][e], scale_log2, -(e < 2 ? lse0 : lse1)))
+                        : 0.f;
+      mma::wgmma_wait<0>();  // dP is done
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? D0 : D1)) * scale;
+      uint32_t da[4][4];  // A fragments over 16 keys each
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) mma::pack_a(da[kc], dp[2 * kc], dp[2 * kc + 1]);
+      // dQ += dS K: k over the 64 keys, K read MN-major.
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs<HD>(dqa, da[kc], mnmajor(desc_mnmajor<BK>(sk), kc));
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+    }
+    slot = (slot + 1) % TL::STAGES;
+    kt = nk;
+    nk = after;
+  }
+  bf16* dqb = dq + q_off;
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (qr0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qr0 * q_stride + d) =
+          __floats2bfloat162_rn(dqa[j][0], dqa[j][1]);
+    if (qr1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qr1 * q_stride + d) =
+          __floats2bfloat162_rn(dqa[j][2], dqa[j][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -677,11 +1266,10 @@ int launch_delta(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// The mma.sync bodies (head dims 32 and 96).
 template <int HD>
-int launch_bf16(const BwdArgs& a) {
+int launch_bf16_mma(const BwdArgs& a) {
   using TL = BwdTiles<HD>;
-  int err = launch_delta<bf16>(a);
-  if (err != 0) return err;
   static bool dkv_set[64], dq_set[64];
   auto dkv = flash_bwd_dkdv_mma_kernel<HD>;
   auto dqk = flash_bwd_dq_mma_kernel<HD>;
@@ -697,12 +1285,109 @@ int launch_bf16(const BwdArgs& a) {
         a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
                     static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.KV, a.causal,
                     a.window, a.chunk, a.scale);
-  err = (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   dqk<<<dim3(a.B * a.H, (a.Sq + BWD_BQ - 1) / BWD_BQ), TL::NTHREADS, TL::DQ_SMEM,
         a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq,
                     a.Skv, a.H, a.KV, a.causal, a.window, a.chunk, a.scale);
   return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime
+// (so the library needs no link to the driver), looked up once.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (B, S, heads, HD) bf16 tensor: boxes of 64 head dims x
+// one head x 64 positions, 128-byte swizzled; positions past S read as
+// zeros.  Returns a CUDA error code (0 on success).
+int tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The wgmma bodies (head dims 64 and 128).
+template <int HD>
+int launch_bf16_wgmma(const BwdArgs& a) {
+  using TL = WgTiles<HD>;
+  static bool dkv_set[64], dq_set[64];
+  auto dkv = flash_bwd_dkdv_wgmma_kernel<HD>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD>;
+  cudaError_t e = mma::set_smem_once(dkv, TL::DKV_SMEM, dkv_set);
+  if (e != cudaSuccess) return (int)e;
+  e = mma::set_smem_once(dqk, TL::DQ_SMEM, dq_set);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = tensor_map(&tq, a.q, a.B, a.Sq, a.H, HD);
+  if (err == 0) err = tensor_map(&tdo, a.dout, a.B, a.Sq, a.H, HD);
+  if (err == 0) err = tensor_map(&tk, a.k, a.B, a.Skv, a.KV, HD);
+  if (err == 0) err = tensor_map(&tv, a.v, a.B, a.Skv, a.KV, HD);
+  if (err != 0) return err;
+  dkv<<<dim3(a.B * a.KV, (a.Skv + TL::DKV_KEYS - 1) / TL::DKV_KEYS), TL::NTHREADS,
+        TL::DKV_SMEM, a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+                                  static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.KV,
+                                  a.causal, a.window, a.chunk, a.scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  dqk<<<dim3(a.B * a.H, (a.Sq + TL::DQ_QUERIES - 1) / TL::DQ_QUERIES), TL::NTHREADS,
+        TL::DQ_SMEM, a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq),
+                                 a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.chunk,
+                                 a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+constexpr bool on_wgmma() {
+  return HD == 64 || HD == 128;
+}
+
+template <int HD>
+int launch_bf16(const BwdArgs& a) {
+  const int err = launch_delta<bf16>(a);
+  if (err != 0) return err;
+  if constexpr (on_wgmma<HD>())
+    return launch_bf16_wgmma<HD>(a);
+  else
+    return launch_bf16_mma<HD>(a);
+}
+
+// Shared memory of one block (bytes), the larger of the dK/dV and dQ
+// kernels': dynamic for bfloat16 (WgTiles, BwdTiles), the static arrays of
+// the float32 kernels (the dK/dV kernel's are the larger).
+template <int HD>
+constexpr int smem_bytes(int dtype) {
+  if (dtype == 0) return 4 * (4 * FT * (HD + 1) + 2 * FT * (FT + 1) + 2 * FT);
+  if constexpr (on_wgmma<HD>())
+    return WgTiles<HD>::DKV_SMEM > WgTiles<HD>::DQ_SMEM ? WgTiles<HD>::DKV_SMEM
+                                                        : WgTiles<HD>::DQ_SMEM;
+  else
+    return BwdTiles<HD>::DKV_SMEM > BwdTiles<HD>::DQ_SMEM ? BwdTiles<HD>::DKV_SMEM
+                                                          : BwdTiles<HD>::DQ_SMEM;
 }
 
 template <int HD>
@@ -755,4 +1440,15 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   FOR_EACH_HEAD_DIM(DISPATCH)
 #undef DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory one block of this library takes at a head dim and dtype
+// (bytes; see smem_bytes above), or -1: the wrapper checks its own sizing
+// function against it.
+extern "C" int flash_attention_bwd_smem(int hd, int dtype) {
+#define SMEM(HD_) \
+  if (hd == HD_ && (dtype == 0 || dtype == 1)) return smem_bytes<HD_>(dtype);
+  FOR_EACH_HEAD_DIM(SMEM)
+#undef SMEM
+  return -1;
 }

@@ -13,6 +13,10 @@ the probabilities P before P @ V (with the row sums l over the float32 P),
 K3 rounds the hidden tile h before h @ w2.  ``_k2_tensor_core`` and
 ``_k3_tensor_core`` below emulate that arithmetic in plain PyTorch, and the
 tests hold them to the Pallas kernels within the bf16 tolerances.
+
+Each kernel's shared-memory sizing (``smem_bytes``, the flash-attention
+backward's too) is held under a Hopper block's opt-in limit at every tile,
+head dim and dtype it is built for.
 """
 import math
 
@@ -26,7 +30,9 @@ import torch  # noqa: E402
 from repro.kernels import fused_attention as r_fa  # noqa: E402
 from repro.kernels import fused_mlp as r_fm  # noqa: E402
 from repro.kernels import ref as r_ref  # noqa: E402
-from repro_torch.kernels import fused_attention, fused_mlp, ops, ref  # noqa: E402
+from repro_torch.core import arch  # noqa: E402
+from repro_torch.kernels import (flash_attention_bwd, fused_attention, fused_mlp, ops,  # noqa: E402
+                                 ref)
 
 # tests/test_kernels.py: attention f32 2e-5, bf16 2e-2; MLP 10x those.
 ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -281,6 +287,26 @@ def test_attention_tiles_fit_a_hopper_block(hd, tile):
         fused_attention.smem_bytes(bq, bk, hd, torch.bfloat16)
     assert bq % 16 == 0 and bk % 16 == 0 and hd % 16 == 0
     assert fused_attention.DEFAULT_TILE in fused_attention.TILES
+
+
+@pytest.mark.parametrize("hd", flash_attention_bwd.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_backward_fits_a_hopper_block(hd, dtype):
+    # the larger of the dK/dV and dQ kernels' shared memory (the C library
+    # reports the same number, checked when it loads) against the card's
+    # opt-in limit: a layout that outgrows the card fails here, not at launch
+    smem = flash_attention_bwd.smem_bytes(hd, dtype)
+    assert 0 < smem <= arch.H100.smem_per_block_optin == SMEM_LIMIT
+    assert flash_attention_bwd.smem_bytes(hd) == flash_attention_bwd.smem_bytes(
+        hd, torch.bfloat16)
+    if dtype == torch.bfloat16 and hd in flash_attention_bwd.WGMMA_HEAD_DIMS:
+        # resident 128-row tiles, three 64-row stages of 128-byte-swizzled
+        # rows, the mbarriers, the alignment
+        row = 2 * hd
+        assert smem == max(2 * 128 * row + 3 * (2 * 64 * row + 1024) + 64 + 1024,
+                           2 * 128 * row + 3 * 2 * 64 * row + 64 + 1024)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention_bwd.smem_bytes(hd + 8, dtype)
 
 
 @pytest.mark.parametrize("tile", fused_mlp.TILES)

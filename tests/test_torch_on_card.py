@@ -851,6 +851,12 @@ BWD_CASES = [  # (B, Sq, Skv, H, KV, hd, causal, window, chunk)
     (1, 130, 130, 2, 2, 128, False, 0, 0),     # non-causal, ragged
     (1, 96, 160, 4, 2, 64, False, 48, 0),      # non-causal window, Sq < Skv
     (1, 160, 64, 4, 2, 64, True, 0, 32),       # Sq > Skv: queries 64.. see no key
+    # the wgmma bodies' tile edges (128 keys a dK/dV block, 128 queries a dQ
+    # block, 64-row stages)
+    (1, 300, 300, 8, 4, 128, True, 0, 0),      # Skv not a multiple of 128
+    (1, 200, 72, 4, 2, 128, True, 0, 48),      # Sq > Skv, chunked: queries 96.. see no key
+    (2, 256, 256, 16, 2, 64, True, 0, 0),      # GQA 8 at hd 64
+    (2, 320, 320, 4, 2, 128, False, 0, 0),     # non-causal hd 128
 ]
 
 
@@ -904,6 +910,77 @@ def test_flash_attention_lse_matches_the_plain_logsumexp(cuda, case, dtype):
     torch.testing.assert_close(lse[:, :, seen], want[:, :, seen], atol=tol, rtol=tol)
     # the serving launch (no lse) writes the same output, bit for bit
     assert torch.equal(fused_attention.flash_attention(q, k, v, **mask), out)
+
+
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[1] > c[2]],
+                         ids=[str(c) for c in BWD_CASES if c[1] > c[2]])
+def test_flash_attention_bwd_rows_that_see_no_key_get_zero(cuda, case):
+    q, k, v, out, dout, lse, mask = _bwd_inputs(case, torch.bfloat16, seed=4)
+    dead = ~ref._visible(q.shape[1], k.shape[1], mask["causal"], mask["window"],
+                         mask["chunk"], "cuda").any(dim=1)
+    assert bool(dead.any())
+    dq, dk, dv = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    assert not bool(dq[:, dead].any()) and bool(dq[:, ~dead].any())
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+
+
+def test_flash_attention_bwd_on_the_card_never_runs_the_plain_version(cuda, monkeypatch):
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", no_plain)
+    for case in ((1, 128, 128, 4, 2, 64, True, 0, 0), (1, 128, 128, 4, 2, 128, True, 0, 0)):
+        q, k, v, out, dout, lse, mask = _bwd_inputs(case, torch.bfloat16, seed=5)
+        got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+        assert all(g.is_cuda for g in got)
+    with pytest.raises(ValueError, match="head_dim 48"):  # raises, no fallback
+        q, k, v = (t[..., :48].contiguous() for t in (q, k, v))
+        flash_attention_bwd.flash_attention_bwd(q, k, v, q, q, lse)
+
+
+def _bwd_oracle64(q, k, v, out, dout, lse, scale):
+    """dq, dk, dv of the same formula as the kernel and its plain version
+    (P from the given lse, D from the given out), causal, in float64."""
+    G = q.shape[2] // k.shape[2]
+    qd, dod, od = q.double(), dout.double(), out.double()
+    kd = k.double().repeat_interleave(G, dim=2)
+    vd = v.double().repeat_interleave(G, dim=2)
+    S = q.shape[1]
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale - lse.double()[..., None])
+    p.masked_fill_(~causal, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    dp -= (dod * od).sum(-1).transpose(1, 2)[..., None]
+    ds = p * dp * scale
+    del dp
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dod)
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kd)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd)
+    B, Skv, KV, hd = k.shape
+    fold = lambda t: t.reshape(B, Skv, KV, G, hd).sum(3)  # noqa: E731
+    return dq, fold(dk), fold(dv)
+
+
+def test_attention_bwd_bf16_sums_do_not_grow_their_error_at_long_sequences(cuda):
+    # dK and dV sum over Sq queries, dQ over Skv keys, straight into the
+    # float32 accumulators of the wgmma bodies: qwen3's training shape (16 /
+    # 8 heads, 128) at 512, 2048 and 4096 tokens, against the same formula in
+    # float64 on the same inputs
+    rows = {name: {} for name in ("dq", "dk", "dv")}
+    for S in (512, 2048, 4096):
+        case = (1, S, S, 16, 8, 128, True, 0, 0)
+        q, k, v, out, dout, lse, mask = _bwd_inputs(case, torch.bfloat16, seed=14)
+        got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+        want32 = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **mask)
+        want64 = _bwd_oracle64(q, k, v, out, dout, lse, 128 ** -0.5)
+        for name, g, w32, w64 in zip(("dq", "dk", "dv"), got, want32, want64):
+            _assert_grad_close(g, w32, torch.bfloat16, f"{name} S={S}")
+            rows[name][S] = _rms_errors(g, w32, w64)
+        del got, want32, want64
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        _assert_no_growth(f"flash_attention_bwd {name} causal (1, S, 16/8, 128) S", r)
 
 
 def test_flash_attention_bwd_is_deterministic(cuda):
@@ -1003,7 +1080,28 @@ def test_backward_library_reports_its_build(cuda):
     report = builder.ptxas_report(built.log)
     names = [n for n in report if "flash_bwd_" in n]
     assert len(names) == 4 * 4 + 2  # 4 head dims x (2 bf16 + 2 float32) + 2 delta
+    # bf16 on wgmma at head dims 64 and 128, on mma.sync at 32 and 96, and
+    # no mma.sync body left at 64 or 128
+    bf16 = {f"flash_bwd_{part}_{body}_kernelILi{hd}E"
+            for part in ("dkdv", "dq") for hd in flash_attention_bwd.HEAD_DIMS
+            for body in ("wgmma" if hd in flash_attention_bwd.WGMMA_HEAD_DIMS else "mma",)}
+    assert {b for b in bf16 if any(b in n for n in names)} == bf16
+    assert sum(1 for n in names if "_wgmma_kernel" in n or "_mma_kernel" in n) == len(bf16)
+    for n in names:
+        if "_wgmma_kernel" in n:
+            assert not report[n].get("spill_stores") and not report[n].get("spill_loads"), n
     if builder.cuobjdump() is not None:
         counts = builder.sass_counts(built.path)
         assert all(c["HMMA"] > 0 for n, c in counts.items() if "_mma_kernel" in n)
+        assert all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                   for n, c in counts.items() if "_wgmma_kernel" in n)
+
+
+def test_backward_shared_memory_is_the_wrappers(cuda):
+    lib = flash_attention_bwd._library()  # checks the same when it loads
+    for dtype, code in flash_attention_bwd._DTYPES.items():
+        for hd in flash_attention_bwd.HEAD_DIMS:
+            assert lib.flash_attention_bwd_smem(hd, code) == \
+                flash_attention_bwd.smem_bytes(hd, dtype)
+    assert lib.flash_attention_bwd_smem(48, 1) == -1
 
