@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's eleven main paths through the entry points a user calls,
+Drives the port's twelve main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -171,7 +171,23 @@ PyTorch version.  Phases, one line each:
                ragged and float32 shapes, two runs bit for bit, with its
                time, the plain version's, SDPA's backward and the bound;
                flash_attention with its logsumexp at the training shape;
-27. the kernels line, then the result line.
+27. train_sharded   the sharded training path -- the twelfth main path:
+               qwen3-0.6b as in phase train, 3 steps through
+               ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
+               "model") NCCL mesh of this process (counts zeroed just before
+               and read just after: flash_attention twice and
+               flash_attention_bwd once per layer per microbatch) against 3
+               single-device steps from the same state and batches: losses
+               bit-equal, every parameter and moment bit-equal (or within
+               TRAIN_PARITY_TOL, the differing leaves printed), ms a step
+               and peak memory of both; 8 steps of the int8-compressed step
+               on a (1, 1, 1) ("pod", "data", "model") mesh (counts zeroed
+               and read around them), losses finite and falling, every
+               gradient leaf's payload handed to ``all_reduce`` as int8;
+               ``resume_on_mesh`` of phase train's checkpoint, exactly the
+               saved tensors; ``pipeline_apply`` at one stage, 6
+               microbatches, bit-equal to the sequential result;
+28. the kernels line, then the result line.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -2703,6 +2719,250 @@ def phase_train_parity(torch, seed: int) -> dict:
     return out
 
 
+# The sharded training path (main path 12): qwen3-0.6b with TRAIN_RUN's batch
+# and run config through the sharded step on a (1, 1) ("data", "model") NCCL
+# mesh of this process, against as many single-device steps from the same
+# state and batches; then the int8-compressed step on a (1, 1, 1) ("pod",
+# "data", "model") mesh (one microbatch's rows a step, as the reference's
+# compressed step takes no microbatches), elastic resume of phase train's
+# checkpoint and the pipeline at one stage.  With one rank every collective
+# is an identity, so the sharded step must give the single-device step's
+# bits; a parameter or moment that differs is held to
+# TRAIN_PARITY_TOL["bfloat16"] (largest relative difference per leaf) with
+# the differing leaves printed.
+TRAIN_SHARDED = {"steps": 3, "compressed_steps": 8, "compressed_batch": 4,
+                 "pp_micro": 6, "pp_rows": 4096}
+
+
+def _max_rel(torch, got: list, want: list) -> list:
+    return [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+            for a, b in zip(got, want)]
+
+
+def _timed_steps(torch, step, params, opt, batches) -> tuple:
+    """Run ``step`` over ``batches`` from (params, opt): the final state,
+    the losses, the host ms of each step up to a synchronise, and the peak
+    device memory (bytes) and its rise over the memory held at the start."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    return params, opt, losses, times, peak, peak - start
+
+
+def phase_train_sharded(torch, seed: int, train_ckpt: Path) -> dict:
+    """The sharded training path: ``make_train_step(grad_shardings=...)`` on
+    a (1, 1) mesh against the single-device step (losses bit-equal, every
+    parameter and moment bit-equal or within tolerance, ms / step and peak
+    memory of both; the sharded steps' launches counted);
+    ``make_compressed_train_step`` on a (1, 1, 1) mesh (losses finite and
+    falling, the int8 payload handed to ``all_reduce``; its launches
+    counted); ``resume_on_mesh`` of phase train's checkpoint (exact); and
+    ``pipeline_apply`` at one stage, bit-equal to the sequential result."""
+    import math
+
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import checkpoint as CKPT
+    from repro_torch.configs import resolve
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.runtime.elastic import resume_on_mesh
+    from repro_torch.runtime.spmd_train import make_compressed_train_step
+    from repro_torch.runtime.steps import make_init, make_train_step
+
+    out = {}
+    cfg = resolve(TRAIN_RUN["arch"])
+    rc = train_rc(cfg)
+    opt_cfg = AdamWConfig(state_dtype=rc.opt_state_dtype, weight_decay=rc.weight_decay,
+                          grad_clip=rc.grad_clip)
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    world = dist.get_world_size()
+    check(world == 1 and dist.get_backend() == "nccl",
+          f"the phase's mesh has {world} ranks over {dist.get_backend()}, not 1 over nccl")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params0, opt0 = make_init(cfg, rc, opt_cfg, device="cuda")(gen)
+    batches = [make_batch(cfg, TRAIN_RUN["batch"], TRAIN_RUN["seq"], seed=seed, step=300 + i)
+               for i in range(TRAIN_SHARDED["steps"])]
+
+    single = make_train_step(cfg, rc, opt_cfg)
+    p1, o1, loss1, ms1, peak1, rise1 = _timed_steps(torch, single, params0, opt0, batches)
+
+    pshard = SH.param_shardings(mesh, M.abstract_params(cfg))
+    oshard = SH.opt_state_shardings(mesh, opt0, pshard)
+    ps, os_ = SH.place(params0, pshard), SH.place(opt0, oshard)
+    del params0, opt0
+    sharded = make_train_step(cfg, rc, opt_cfg, grad_shardings=pshard)
+    zero_counts()
+    p2, o2, loss2, ms2, peak2, rise2 = _timed_steps(torch, sharded, ps, os_, batches)
+    counts = read_counts()
+    del ps, os_
+    per_step = cfg.n_layers * TRAIN_RUN["microbatches"]
+    n = TRAIN_SHARDED["steps"]
+    check(counts == {"fused_conv3x3": 0, "flash_attention": 2 * per_step * n,
+                     "fused_mlp": 0, "selective_scan": 0,
+                     "flash_attention_bwd": per_step * n},
+          f"the sharded steps launched {counts}, not flash_attention twice and "
+          f"flash_attention_bwd once per layer per microbatch: {n} steps x "
+          f"{cfg.n_layers} layers x {TRAIN_RUN['microbatches']}")
+    print(f"phase main_path train_sharded: launches {counts} ({n} sharded steps x "
+          f"{cfg.n_layers} layers x {TRAIN_RUN['microbatches']} microbatches)")
+    check(all(math.isfinite(x) for x in loss2), f"non-finite sharded losses {loss2}")
+    check(loss1 == loss2, f"sharded losses {loss2} differ from the single-device "
+          f"step's {loss1}")
+    names = ["/".join(map(str, k)) for k, _ in pytree.tree_flatten_with_path(p1)[0]]
+    leaves = {"params": (pytree.tree_leaves(p2), pytree.tree_leaves(p1)),
+              "m": (pytree.tree_leaves(o2["m"]), pytree.tree_leaves(o1["m"])),
+              "v": (pytree.tree_leaves(o2["v"]), pytree.tree_leaves(o1["v"]))}
+    parity = {}
+    for what, (got, want) in leaves.items():
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        rel = _max_rel(torch, got, want)
+        differ = [f"{names[i]} {rel[i]:.3g}" for i, e in enumerate(equal) if not e]
+        parity[what] = {"bit_equal": sum(equal), "leaves": len(equal),
+                        "max_rel": max(rel), "differ": differ[:20]}
+        if differ:
+            tol = TRAIN_PARITY_TOL["bfloat16"]
+            check(max(rel) <= tol, f"sharded {what}: largest relative difference "
+                  f"{max(rel):.3g} > {tol} ({differ[:5]})")
+            print(f"phase train_sharded: {what}: {len(differ)} of {len(equal)} leaves "
+                  f"not bit-equal, largest relative difference {max(rel):.3g} (<= "
+                  f"{TRAIN_PARITY_TOL['bfloat16']}); differing leaves: {differ[:8]}")
+    del p1, o1, p2, o2, leaves
+    torch.cuda.empty_cache()
+    ms_1, ms_2 = statistics.median(ms1), statistics.median(ms2)
+    print(f"phase train_sharded: {cfg.name} bfloat16, {n} steps of {TRAIN_RUN['batch']} x "
+          f"{TRAIN_RUN['seq']} tokens on a {tuple(mesh.shape)} {mesh.mesh_dim_names} "
+          f"nccl mesh of {world} rank against as many single-device steps from the same "
+          f"state and batches: losses {loss2} "
+          + ("bit-equal" if loss1 == loss2 else f"against {loss1}")
+          + "; parameters / m / v bit-equal in "
+          + ", ".join(f"{parity[w]['bit_equal']} / {parity[w]['leaves']}" for w in parity)
+          + f" leaves; ms a step {', '.join(f'{t:.3f}' for t in ms2)} (median {ms_2:.3f}) "
+          f"sharded, {', '.join(f'{t:.3f}' for t in ms1)} (median {ms_1:.3f}) single; peak "
+          f"device memory {peak2 / 2**30:.3f} GiB sharded ({rise2 / 2**30:.3f} above its "
+          f"start), {peak1 / 2**30:.3f} GiB single ({rise1 / 2**30:.3f} above its start)")
+    out.update({"losses_sharded": loss2, "losses_single": loss1, "ms_sharded": ms2,
+                "ms_single": ms1, "peak_sharded": peak2, "peak_single": peak1,
+                "rise_sharded": rise2, "rise_single": rise1, "parity": parity,
+                "counts": counts})
+
+    # The int8-compressed step over the pod axis.
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params, opt = make_init(cfg, rc, opt_cfg, device="cuda")(gen)
+    cstep, init_ef = make_compressed_train_step(cfg, rc, mesh3, opt_cfg)
+    ef = init_ef(params)
+    wire = []
+    plain = dist.all_reduce
+
+    def recording_all_reduce(tensor, *args, **kwargs):
+        wire.append(tensor.dtype)
+        return plain(tensor, *args, **kwargs)
+
+    closs, cms = [], []
+    zero_counts()
+    dist.all_reduce = recording_all_reduce
+    try:
+        for i in range(TRAIN_SHARDED["compressed_steps"]):
+            batch = make_batch(cfg, TRAIN_SHARDED["compressed_batch"], TRAIN_RUN["seq"],
+                               seed=seed, step=400 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, ef, metrics = cstep(params, opt, ef, batch)
+            torch.cuda.synchronize()
+            cms.append((time.perf_counter() - t0) * 1e3)
+            closs.append(float(metrics["loss"]))
+    finally:
+        dist.all_reduce = plain
+    ccounts = read_counts()
+    n_leaves = len(pytree.tree_leaves(params))
+    nc = TRAIN_SHARDED["compressed_steps"]
+    del params, opt, ef
+    torch.cuda.empty_cache()
+    check(ccounts == {"fused_conv3x3": 0, "flash_attention": 2 * cfg.n_layers * nc,
+                      "fused_mlp": 0, "selective_scan": 0,
+                      "flash_attention_bwd": cfg.n_layers * nc},
+          f"the compressed steps launched {ccounts}, not flash_attention twice and "
+          f"flash_attention_bwd once per layer per step ({nc} x {cfg.n_layers})")
+    n_int8 = sum(d == torch.int8 for d in wire)
+    check(n_int8 == nc * n_leaves, f"{n_int8} int8 all-reduces, not one per gradient "
+          f"leaf per step ({nc} x {n_leaves})")
+    check(all(math.isfinite(x) for x in closs) and closs[-1] < closs[0],
+          f"the compressed steps' losses {closs} are not finite and falling")
+    print(f"phase main_path train_sharded compressed: launches {ccounts} ({nc} steps x "
+          f"{cfg.n_layers} layers, one microbatch of {TRAIN_SHARDED['compressed_batch']} x "
+          f"{TRAIN_RUN['seq']} a step)")
+    print(f"phase train_sharded compressed: {nc} steps on a {tuple(mesh3.shape)} "
+          f"{mesh3.mesh_dim_names} mesh; losses " + ", ".join(f"{x:.4f}" for x in closs)
+          + f"; all_reduce payloads: {n_int8} int8 ({n_leaves} gradient leaves a step), "
+          + ", ".join(f"{sum(d == t for d in wire)} {str(t).removeprefix('torch.')}"
+                      for t in sorted(set(wire) - {torch.int8}, key=str))
+          + f"; ms a step {', '.join(f'{t:.3f}' for t in cms)} (median "
+          f"{statistics.median(cms):.3f})")
+    out.update({"compressed_losses": closs, "compressed_ms": cms,
+                "compressed_counts": ccounts, "int8_payloads": n_int8})
+
+    # Elastic resume of phase train's checkpoint onto the (1, 1) mesh.
+    step = CKPT.latest_step(train_ckpt)
+    check(step is not None, f"phase train left no checkpoint in {train_ckpt}")
+    t0 = time.perf_counter()
+    rp, ro = resume_on_mesh(train_ckpt, step, cfg, mesh, opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    saved, _ = CKPT.restore(train_ckpt, step)
+    diff = 0.0
+    for prefix, tree in (("params", rp), ("opt", ro)):
+        for path, t in pytree.tree_flatten_with_path(tree)[0]:
+            key = "/".join([prefix] + [str(getattr(k, "key", getattr(k, "idx", k)))
+                                       for k in path])
+            want = CKPT.device_put_like(saved[key], t.device)
+            diff = max(diff, float((t.float() - want.float()).abs().max()))
+    del rp, ro, saved
+    torch.cuda.empty_cache()
+    check(diff == 0.0, f"resume_on_mesh differs from the saved step by {diff}")
+    print(f"phase train_sharded elastic: phase train's step-{step} checkpoint resumed onto "
+          f"the {tuple(mesh.shape)} mesh in {resume_s:.3f} s (read, verified and placed); "
+          f"largest difference from the saved parameters and moments {diff}")
+    out.update({"resume_step": step, "resume_s": resume_s, "resume_diff": diff})
+
+    # The pipeline at the one stage this world allows.
+    stage_mesh = make_mesh((1,), ("stage",))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = cfg.d_model
+    ws = (torch.randn((1, d, d), generator=g, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
+    x = torch.randn((TRAIN_SHARDED["pp_micro"], TRAIN_SHARDED["pp_rows"], d), generator=g,
+                    device="cuda").to(torch.bfloat16)
+
+    def stage_fn(w, h):
+        return torch.tanh(h @ w)
+
+    y = pipeline_apply(stage_fn, ws, x, mesh=stage_mesh)
+    seq = torch.stack([stage_fn(ws[0], x[t]) for t in range(x.shape[0])])
+    check(torch.equal(y, seq), "pipeline_apply differs from the sequential result: "
+          f"max |diff| {float((y.float() - seq.float()).abs().max())}")
+    print(f"phase train_sharded pipeline: 1 stage x {x.shape[0]} microbatches of "
+          f"({TRAIN_SHARDED['pp_rows']}, {d}) bfloat16, tanh(x @ w): bit-equal to the "
+          "sequential result")
+    dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase train_sharded: {out['seconds']:.1f} s")
+    return out
+
+
 def _sdpa_backward(torch, q, k, v, dout, causal: bool, window: int, chunk: int):
     """PyTorch's scaled_dot_product_attention's backward on the same
     inputs (GQA; a window or chunk mask as a boolean ``attn_mask``), as a
@@ -3092,22 +3352,30 @@ def main(argv=None) -> int:
     zero_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_run = phase_train(torch, args.seed, Path(tmp))
-    train_counts = read_counts()
-    n_steps = train_run["steps_run"] + train_run["redispatches"]
-    per_step = train_cfg.n_layers * TRAIN_RUN["microbatches"]
-    check(train_counts == {"fused_conv3x3": 0, "flash_attention": 2 * per_step * n_steps,
-                           "fused_mlp": 0, "selective_scan": 0,
-                           "flash_attention_bwd": per_step * n_steps},
-          f"training launched {train_counts}, not flash_attention twice (the forward "
-          f"and its recompute) and flash_attention_bwd once per layer per microbatch: "
-          f"{n_steps} steps x {train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']}")
-    print(f"phase main_path train: launches {train_counts} ({n_steps} train steps x "
-          f"{train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']} microbatches: "
-          "flash_attention twice each, the forward and its recompute under full remat, "
-          "flash_attention_bwd once)")
-    train_time = phase_train_time(torch, train_run, args.seed)
-    train_parity = phase_train_parity(torch, args.seed)
-    torch.cuda.empty_cache()
+        train_counts = read_counts()
+        n_steps = train_run["steps_run"] + train_run["redispatches"]
+        per_step = train_cfg.n_layers * TRAIN_RUN["microbatches"]
+        check(train_counts == {"fused_conv3x3": 0,
+                               "flash_attention": 2 * per_step * n_steps,
+                               "fused_mlp": 0, "selective_scan": 0,
+                               "flash_attention_bwd": per_step * n_steps},
+              f"training launched {train_counts}, not flash_attention twice (the forward "
+              f"and its recompute) and flash_attention_bwd once per layer per microbatch: "
+              f"{n_steps} steps x {train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']}")
+        print(f"phase main_path train: launches {train_counts} ({n_steps} train steps x "
+              f"{train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']} microbatches: "
+              "flash_attention twice each, the forward and its recompute under full "
+              "remat, flash_attention_bwd once)")
+        train_time = phase_train_time(torch, train_run, args.seed)
+        train_parity = phase_train_parity(torch, args.seed)
+        torch.cuda.empty_cache()
+
+        # ---- main path 12, the sharded training path: the counts of its
+        # sharded and its compressed steps, each zeroed just before and read
+        # just after (checked in the phase); it resumes phase train's
+        # checkpoint ----
+        train_sharded = phase_train_sharded(torch, args.seed, Path(tmp))
+        torch.cuda.empty_cache()
 
     layer_rows = phase_layers(torch, spec, args.seed)
     plan = plan_model(qwen, 4096, spec)
@@ -3157,6 +3425,7 @@ def main(argv=None) -> int:
         "serve_encdec_counts": encdec_counts, "serve_encdec_time": encdec_time,
         "serve_ring": ring, "train": train_run, "train_counts": train_counts,
         "train_time": train_time, "train_parity": train_parity,
+        "train_sharded": train_sharded,
         "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
         "train_kernel": bwd_rows, "kernels": entries,
         "seconds": time.perf_counter() - t_start,

@@ -11,7 +11,8 @@ path relies on this).  A bfloat16 tensor is stored as the reference stores
 one, 2-byte records (numpy ``|V2``) with dtype ``bfloat16`` in the
 manifest, so a flat dict of arrays written by either package restores in
 the other.  :func:`restore` returns host numpy arrays;
-:func:`device_put_like` moves them to a device as tensors.
+:func:`device_put_like` moves them to a device as tensors, or places each
+rank's pieces under a mesh's shardings.
 
 :class:`SweepCheckpoint` persists every completed hardware-axis chunk of a
 chunked fleet sweep (:func:`repro_torch.core.flow.run_fleet` with
@@ -158,14 +159,30 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def device_put_like(tree_np, device) -> object:
-    """Host arrays (as :func:`restore` returns them) as tensors on
-    ``device``, every leaf in its stored dtype; the counterpart of the
-    reference's re-sharding onto a mesh."""
+    """Host arrays (as :func:`restore` returns them) as tensors, every leaf
+    in its stored dtype: on ``device``, or, given shardings (a
+    :class:`~repro_torch.parallel.sharding.NamedSharding` or a tree of them
+    shaped like ``tree_np``), each leaf's piece that this rank holds, on the
+    sharding's device: the counterpart of the reference's re-sharding onto
+    a mesh."""
+    if isinstance(device, (dict, list, tuple)) or hasattr(device, "spec"):
+        return _put_sharded(tree_np, device)
     if isinstance(tree_np, dict):
         return {k: device_put_like(v, device) for k, v in tree_np.items()}
     if isinstance(tree_np, (list, tuple)):
         return type(tree_np)(device_put_like(v, device) for v in tree_np)
     return _to_tensor(np.asarray(tree_np), device)
+
+
+def _put_sharded(node, sharding):
+    from ..parallel import sharding as SH
+
+    if isinstance(node, dict):
+        return {k: _put_sharded(v, sharding[k]) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_put_sharded(v, s) for v, s in zip(node, sharding, strict=True))
+    full = _to_tensor(np.asarray(node), "cpu")
+    return SH.local_shard(full, sharding, device=SH.sharding_device(sharding))
 
 
 class AsyncCheckpointer:

@@ -2,8 +2,8 @@
 Mamba-1 sublayers: qwen3, mixtral, falcon-mamba, ...) and the
 encoder-decoder (seamless).
 
-``init_params / params_from_jax / forward / loss_fn / init_cache / prefill /
-decode``, the port of the JAX package's ``models/model.py``, dispatch on
+``init_params / abstract_params / params_from_jax / forward / loss_fn /
+init_cache / abstract_cache / prefill / decode``, the port of the JAX package's ``models/model.py``, dispatch on
 ``cfg.is_encoder_decoder``; launch scripts and tests import this module.
 Entry points that create tensors default to ``device="cuda"`` and raise
 without CUDA.
@@ -31,6 +31,15 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     if cfg.is_encoder_decoder:
         return ED.init_params(generator, cfg)
     return T.init_params(generator, cfg)
+
+
+def abstract_params(cfg) -> dict:
+    """The parameters :func:`init_params` makes for ``cfg``, as ``"meta"``
+    tensors of the same shapes and dtypes (nothing is drawn or allocated):
+    the counterpart of the reference's ``jax.eval_shape`` of its init."""
+    if cfg.is_encoder_decoder:
+        return L.param_specs_of(lambda gen: ED.init_params(gen, cfg))
+    return L.param_specs_of(lambda gen: T.init_params(gen, cfg))
 
 
 def params_from_jax(cfg, tree: dict) -> dict:
@@ -101,6 +110,23 @@ def init_cache(cfg, batch: int, max_seq: int, *, ring: bool = False,
     if cfg.is_encoder_decoder:
         return ED.init_cache(cfg, batch, max_seq, cfg.frontend_len, device=dev)
     return T.init_cache(cfg, batch, max_seq, ring=ring, device=dev)
+
+
+def abstract_cache(cfg, batch: int, max_seq: int, *, ring: bool = False) -> dict:
+    """The cache :func:`init_cache` makes, as ``"meta"`` tensors (its
+    ``"len"`` stays the int 0)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+
+    with FakeTensorMode():
+        if cfg.is_encoder_decoder:
+            tree = ED.init_cache(cfg, batch, max_seq, cfg.frontend_len,
+                                 device=torch.device("cpu"))
+        else:
+            tree = T.init_cache(cfg, batch, max_seq, ring=ring, device=torch.device("cpu"))
+    return pytree.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        if isinstance(t, torch.Tensor) else t, tree)
 
 
 def _logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:

@@ -58,14 +58,17 @@ def _decay_mask(p: torch.Tensor) -> bool:
 
 
 def adamw_update(grads, opt_state: dict, params, *, lr, cfg: AdamWConfig,
-                 decay=None):
+                 decay=None, grad_norm: torch.Tensor | None = None):
     """Returns (new_params, new_opt_state, grad_norm).  Math in float32:
     the gradients are clipped to a global norm of ``cfg.grad_clip``, the
     moments updated and bias-corrected, decoupled weight decay added where
     ``decay`` (a tree of bools shaped like ``params``; default: the >=2-D
-    tensors) says, and each new parameter rounded to its own dtype."""
+    tensors) says, and each new parameter rounded to its own dtype.  The
+    update is elementwise, so it runs as well on shards of the tensors; the
+    clipping norm is then the whole gradient's, given as ``grad_norm``
+    (default: :func:`global_norm` of ``grads``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,

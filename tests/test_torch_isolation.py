@@ -76,6 +76,7 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from repro_torch.core import arch, flow, ir, metrics, service
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
     from repro_torch.models import model
     from repro_torch.models.vgg import VGG16
 
@@ -104,7 +105,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
                  lambda: flow.run_fleet([vgg], config_space=space, groupings="pool",
                                         devices=("cuda:0", "cuda:0")),
                  lambda: service.PlanningService(),
-                 lambda: service.AsyncPlanningService()):
+                 lambda: service.AsyncPlanningService(),
+                 lambda: single_device_mesh(),
+                 lambda: make_mesh((2, 4), ("data", "model"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # ... and run when asked for the CPU

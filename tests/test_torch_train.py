@@ -53,6 +53,18 @@ CASES = [  # (registry arch, run-config overrides, remat)
     ("falcon-mamba", {}, "dots"),
     ("seamless", {}, "none"),
     ("seamless", {}, "full"),
+    ("llama4", {}, "none"),
+    ("llama4", {"flash_vjp": True}, "full"),
+    ("arctic", {}, "none"),
+    ("arctic", {"flash_vjp": True}, "full"),
+    ("jamba", {}, "none"),
+    ("jamba", {"flash_vjp": True}, "full"),
+    ("internvl2", {}, "none"),
+    ("internvl2", {"flash_vjp": True}, "full"),
+    ("granite", {}, "none"),
+    ("granite", {"flash_vjp": True}, "full"),
+    ("phi3", {}, "none"),
+    ("phi3", {"flash_vjp": True}, "full"),
 ]
 
 
