@@ -162,16 +162,25 @@ PyTorch version.  Phases, one line each:
 24. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
                over three more steps, and a profiled step's device idle
                share;
-25. train_parity   one microbatch's loss and every gradient leaf through the
+25. roofline   the cost tools (no kernel launches): ``launch.dryrun`` of
+               qwen3-0.6b's train_4k and decode_32k cells on the 16x16 and
+               2x16x16 meshes, traced on the host (resident GiB/device,
+               bound, step >= ms, mfu <=); the roofline of phase train's
+               step and of phase serve's prefill, walked over fake tensors at
+               their shapes, against the measured medians: the
+               reference-definition MFU of the measured step beside
+               train_time's, and bound / measured, which fails the run
+               above 1.0;
+26. train_parity   one microbatch's loss and every gradient leaf through the
                kernels against the plain attention, bfloat16 at full depth
                (also against a kernel-free reordering) and float32 at 2
                layers;
-26. train_kernel   flash_attention_bwd vs its plain version at qwen3's
+27. train_kernel   flash_attention_bwd vs its plain version at qwen3's
                training shape, windowed, chunked, hd 64 non-causal GQA,
                ragged and float32 shapes, two runs bit for bit, with its
                time, the plain version's, SDPA's backward and the bound;
                flash_attention with its logsumexp at the training shape;
-27. train_sharded   the sharded training path -- the twelfth main path:
+28. train_sharded   the sharded training path -- the twelfth main path:
                qwen3-0.6b as in phase train, 3 steps through
                ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
                "model") NCCL mesh of this process (counts zeroed just before
@@ -187,7 +196,8 @@ PyTorch version.  Phases, one line each:
                ``resume_on_mesh`` of phase train's checkpoint, exactly the
                saved tensors; ``pipeline_apply`` at one stage, 6
                microbatches, bit-equal to the sequential result;
-28. the kernels line, then the result line.
+29. the kernels line, then the result line.  Every kernel row's bytes and
+    FLOPs (its bound) come from ``repro_torch.core.roofline.kernel_cost``.
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -1585,6 +1595,7 @@ def phase_layers(torch, spec, seed: int) -> list:
     rate, since the kernel and its plain version run with TF32 off)."""
     import torch.nn.functional as F
 
+    from repro_torch.core import roofline as RL
     from repro_torch.core.ir import VGG16_CONV_PLAN
     from repro_torch.kernels import fused_conv, ref
 
@@ -1635,10 +1646,9 @@ def phase_layers(torch, spec, seed: int) -> list:
             ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel,
                                           "library": library})
             es = x.element_size()
-            out_hw = hw // 2 if pool else hw
-            n_bytes = es * (x.numel() + w.numel() + b.numel()
-                            + batch * out_hw * out_hw * cout)
-            flops = 2 * 9 * cin * cout * hw * hw * batch
+            kc = RL.kernel_cost("fused_conv3x3", x=tuple(x.shape), cout=cout, pool=pool,
+                                itemsize=es)
+            n_bytes, flops = kc.bytes, kc.flops
             t_bytes = spec.memory_seconds(n_bytes) * 1e3
             t_cores, t_3x = conv_op_bounds(spec, flops, es)
             t_ops = t_cores if t_3x is None else min(t_cores, t_3x)
@@ -2204,24 +2214,6 @@ def sdpa_kernel_names(torch, fn, key) -> str:
     return _SDPA_NAMES[key]
 
 
-def _visible_pairs(Sq, Skv, causal, window, chunk) -> int:
-    """(query, key) pairs the masks leave visible (the work a run needs)."""
-    import torch
-
-    qp = torch.arange(Sq)[:, None]
-    kp = torch.arange(Skv)[None, :]
-    ok = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        ok &= kp <= qp
-    if window:
-        ok &= (qp - kp) < window
-        if not causal:
-            ok &= (kp - qp) < window
-    elif chunk:
-        ok &= (qp // chunk) == (kp // chunk)
-    return int(ok.sum())
-
-
 def tile_sweep(torch, what: str, run, want, tiles, tol: float, flops: int) -> list:
     """``run(tile)`` at every built tile, each held to ``want`` within
     ``tol`` (atol = rtol) and timed per launch: which tile is fastest at a
@@ -2245,6 +2237,7 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
     scaled_dot_product_attention (GQA, causal or with a boolean mask)."""
     import torch.nn.functional as F
 
+    from repro_torch.core import roofline as RL
     from repro_torch.kernels import fused_attention, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
@@ -2310,8 +2303,9 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         backend = sdpa_kernel_names(torch, library, (dname, bool(window or chunk)))
         ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel, "library": library})
         es = q.element_size()
-        n_bytes = es * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * B * H * hd * _visible_pairs(Sq, Skv, causal, window, chunk)
+        kc = RL.kernel_cost("flash_attention", q=tuple(q.shape), kv=tuple(k.shape),
+                            itemsize=es, **mask)
+        n_bytes, flops = kc.bytes, kc.flops
         t_bytes = spec.memory_seconds(n_bytes) * 1e3
         t_ops = spec.compute_seconds(flops, es) * 1e3
         row = {"case": label, "shape": list(shape), "dtype": dname, **mask,
@@ -2336,7 +2330,8 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         torch, "attention serve bfloat16",
         lambda t: fused_attention.flash_attention(q, k, v, block_q=t[0], block_k=t[1]),
         ref.flash_attention_ref(q, k, v).float(), fused_attention.TILES,
-        ATT_TOL["bfloat16"], 4 * B * H * hd * _visible_pairs(S, S, True, 0, 0))
+        ATT_TOL["bfloat16"], RL.kernel_cost("flash_attention", q=tuple(q.shape),
+                                            kv=tuple(k.shape), itemsize=2).flops)
     return rows
 
 
@@ -2346,6 +2341,7 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
     input's dtype."""
     import torch.nn.functional as F
 
+    from repro_torch.core import roofline as RL
     from repro_torch.kernels import fused_mlp, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
@@ -2396,9 +2392,8 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
         lib_err = float((library().float() - want).abs().max())
         ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel, "library": library})
         es = x.element_size()
-        n_w = (3 if gated else 2) * d * ff
-        n_bytes = es * (2 * T * d + n_w)
-        flops = 2 * T * d * ff * (2 if gated else 1) + 2 * T * ff * d
+        kc = RL.kernel_cost("fused_mlp", x=(T, d), ff=ff, gated=gated, itemsize=es)
+        n_bytes, flops = kc.bytes, kc.flops
         t_bytes = spec.memory_seconds(n_bytes) * 1e3
         t_ops = spec.compute_seconds(flops, es) * 1e3
         row = {"case": label, "shape": [T, d, ff], "act": act, "dtype": dname,
@@ -2424,7 +2419,8 @@ def phase_mlp(torch, spec, seed: int, plan_tile) -> list:
             torch, f"mlp serve_{label} bfloat16",
             lambda t: fused_mlp.fused_mlp(x, w1, w2, w3, block_m=t[0], block_f=t[1]),
             ref.fused_mlp_ref(x, w1, w2, w3).float(), fused_mlp.TILES,
-            MLP_TOL["bfloat16"], 6 * T * d * ff)
+            MLP_TOL["bfloat16"],
+            RL.kernel_cost("fused_mlp", x=(T, d), ff=ff, gated=True, itemsize=2).flops)
     return rows
 
 
@@ -2438,6 +2434,7 @@ def phase_scan(torch, spec, seed: int) -> list:
     and ragged ones.  No PyTorch call computes the same function, so there
     is no library time."""
     from repro_torch.configs import resolve
+    from repro_torch.core import roofline as RL
     from repro_torch.kernels import mamba_scan, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
@@ -2479,10 +2476,8 @@ def phase_scan(torch, spec, seed: int) -> list:
         del want_y, want_h, got_y, got_h
         ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel})
         device_ms = graph_ms(torch, kernel) if label == "serve_decode" else None
-        n_state = b * di * ds
-        n_bytes = 4 * (2 * b * s * di * ds + b * s * ds + b * s * di
-                       + (2 * n_state if state else 0))
-        flops = 4 * b * s * di * ds  # an FMA for h and one for y
+        kc = RL.kernel_cost("selective_scan", x=(b, s, di, ds), h0=state, final_state=state)
+        n_bytes, flops = kc.bytes, kc.flops
         t_bytes = spec.memory_seconds(n_bytes) * 1e3
         t_ops = spec.compute_seconds(flops, 4) * 1e3
         row = {"case": label, "shape": [b, s, di, ds], "dtype": "float32",
@@ -2522,12 +2517,17 @@ def train_rc(cfg, **overrides):
 
 
 def train_model_flops(cfg, tokens: int, batch: int, seq: int) -> float:
-    """Model FLOPs of a training step: 6 N D (N every parameter, the tied
-    head's product included) plus the attention's products, 4 per visible
-    pair and head dim forward and 8 backward, at ``batch`` sequences of
-    ``seq``; the remat recompute is not counted."""
+    """Model FLOPs of a training step by this script's own definition, the
+    second of two (phase roofline prints both): 6 N D (N every parameter,
+    the tied head's product included) plus the attention's products, 4 per
+    visible pair and head dim forward and 8 backward, at ``batch``
+    sequences of ``seq``; the remat recompute is not counted.  The
+    reference's ``roofline.model_flops`` counts 6 N_active D and no
+    attention."""
+    from repro_torch.core import roofline as RL
+
     n = cfg.param_counts()["total"]
-    pairs = _visible_pairs(seq, seq, True, 0, 0)
+    pairs = RL.visible_pairs(seq, seq, True, 0, 0)
     attn = 12 * cfg.n_layers * batch * cfg.n_heads * cfg.resolved_head_dim * pairs
     return 6.0 * n * tokens + attn
 
@@ -2638,6 +2638,102 @@ def phase_train_time(torch, run: dict, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {"step_ms": times, "median_step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
             "model_flops": flops, "tflops": flops / ms / 1e9, "trace": trace}
+
+
+# Phase roofline: the dry run's cells (both production meshes each), run on
+# the host in one subprocess a cell, and the steps whose rooflines are held
+# against this run's measured times.
+DRYRUN_CELLS = [("qwen3", "train_4k"), ("qwen3", "decode_32k")]
+
+
+def phase_roofline(torch, card: str, train_time: dict, serve_time: dict) -> dict:
+    """The cost tools on this run's steps: (a) ``launch.dryrun`` of
+    DRYRUN_CELLS on the 16x16 and 2x16x16 meshes, on the host; (b) the
+    roofline of phase train's step and of phase serve's prefill, each
+    walked at its shapes (``dryrun.one_device_roofline``) against the
+    H100's data-sheet peaks, beside the measured medians: the
+    reference-definition MFU (6 N_active D, ``roofline.model_flops``) of the
+    measured step, train_time's other definition beside it, and the share
+    bound / measured, which fails the run above 1.0 (a step faster than
+    its bound).  (c), the kernel rows' bytes and FLOPs from
+    ``roofline.kernel_cost``, is in the kernel phases.  No kernel runs."""
+    from repro_torch.configs import ShapeConfig, resolve
+    from repro_torch.core.arch import H100
+    from repro_torch.launch import dryrun as D
+
+    before = read_counts()
+    t0 = time.perf_counter()
+    out_dir = REPORT.parent / "dryrun"
+    failures = D.sweep(DRYRUN_CELLS, ("single", "multi"), out_dir, jobs=4, force=True)
+    check(not failures, f"phase roofline: the dry run failed for {failures}")
+    out = {"dryrun": [], "dryrun_seconds": time.perf_counter() - t0}
+    for arch, shape in DRYRUN_CELLS:
+        for mesh in ("single", "multi"):
+            r = json.loads((out_dir / f"{resolve(arch).name}__{shape}__{mesh}.json")
+                           .read_text())
+            rl, mem = r["roofline"], r["memory_analysis"]
+            step_ms = max(rl["compute_s"], rl["memory_s"], rl["collective_s"]) * 1e3
+            out["dryrun"].append({"arch": r["arch"], "shape": shape, "mesh": mesh,
+                                  "n_chips": r["n_chips"], "step_ms": step_ms,
+                                  "resident_total_gib": r["resident_total_gib"],
+                                  "roofline": rl, "memory_analysis": mem,
+                                  "seconds": r["seconds"]})
+            print(f"phase roofline: dry run {r['arch']} {shape} {mesh} ({r['n_chips']} "
+                  f"devices, traced on the host in {r['seconds']['trace']:.1f} s): resident "
+                  f"{r['resident_total_gib']:.4f} GiB/device, bound {rl['bound']}, step >= "
+                  f"{step_ms:.4f} ms, mfu <= {rl['mfu_bound'] * 100:.4f} %, useful FLOPs "
+                  f"{rl['useful_flops_ratio']:.4f}, peak live {mem['peak_live_bytes'] / 2**30:.3f}"
+                  f" GiB/device (H100 data-sheet peaks; card here {card})")
+
+    def held(name, cfg, shape, rc, measured_ms, cache_len=None):
+        t = time.perf_counter()
+        rl, walked = D.one_device_roofline(cfg, shape, rc, cache_len=cache_len)
+        share = rl.step_seconds * 1e3 / measured_ms
+        glue_ms = (rl.hbm_bytes_upper - rl.hbm_bytes) / H100.hbm_bw * 1e3
+        row = {"roofline": rl.row(), "step_ms": rl.step_seconds * 1e3,
+               "measured_ms": measured_ms, "share": share,
+               "mfu_measured": rl.mfu(measured_ms / 1e3), "glue_bound_ms": glue_ms,
+               "memory_analysis": walked["live"], "depths": walked["depths"],
+               "seconds": time.perf_counter() - t}
+        print(f"phase roofline: {name} ({cfg.name}, {shape.global_batch} x {shape.seq_len}, "
+              f"walked at depths {walked['depths']} of {cfg.n_layers} in {row['seconds']:.1f}"
+              f" s): {rl.flops:.6g} FLOPs ({rl.coll_breakdown['dot_flops']:.6g} in "
+              f"products), {rl.hbm_bytes:.6g} bytes fused ({rl.hbm_bytes_upper:.6g} by "
+              f"Eq. (1) groups); compute {rl.compute_s * 1e3:.4f} ms, memory "
+              f"{rl.memory_s * 1e3:.4f} ms (groups {rl.memory_s_upper * 1e3:.4f}), "
+              f"collective {rl.collective_s * 1e3:.4f} ms: bound {rl.bound}, step >= "
+              f"{row['step_ms']:.4f} ms; measured {measured_ms:.3f} ms, share {share:.4f}; "
+              f"MFU of the measured step {row['mfu_measured'] * 100:.4f} % "
+              f"(roofline.model_flops, {rl.model_flops_per_device:.6g} FLOPs: "
+              f"{'6' if shape.kind == 'train' else '2'} N_active D, over 989 TFLOP/s), "
+              f"useful FLOPs "
+              f"{rl.useful_flops_ratio:.4f}; the elementwise groups' bytes beyond the "
+              f"fused count {glue_ms:.3f} ms at 3.35 TB/s [{card}]")
+        check(share <= 1.0, f"phase roofline: the {name} took {measured_ms:.3f} ms, less "
+              f"than its roofline bound {row['step_ms']:.3f} ms")
+        return row
+
+    cfg = resolve(TRAIN_RUN["arch"])
+    out["train"] = held("train step", cfg, ShapeConfig("train_run", TRAIN_RUN["seq"],
+                                                       TRAIN_RUN["batch"], "train"),
+                        train_rc(cfg), train_time["median_step_ms"])
+    other = train_time["tflops"] * 1e12 / H100.peak_flops
+    out["train"]["mfu_other_definition"] = other
+    print(f"phase roofline: the train step's model FLOP/s by the other definition "
+          f"(train_model_flops: 6 N_total D + attention, {train_time['model_flops']:.6g} "
+          f"a step): {train_time['tflops']:.6g} TFLOP/s, {other * 100:.4f} % of 989 "
+          f"TFLOP/s, against {out['train']['mfu_measured'] * 100:.4f} % by "
+          f"roofline.model_flops [{card}]")
+    scfg = serve_config(SERVE)
+    out["prefill"] = held("serve prefill", scfg,
+                          ShapeConfig("serve_prefill", SERVE["prompt_len"], SERVE["requests"],
+                                      "prefill"),
+                          serve_rc(scfg, SERVE), serve_time["kernels"]["prefill_ms"],
+                          cache_len=SERVE["prompt_len"] + SERVE["gen"] + 8)
+    check(read_counts() == before, "phase roofline launched a kernel")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase roofline: {out['seconds']:.1f} s (the dry run {out['dryrun_seconds']:.1f})")
+    return out
 
 
 def _loss_and_grads(torch, cfg, rc, params, batch, kernels):
@@ -2994,6 +3090,7 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
     K2's forward with its logsumexp."""
     import torch.nn.functional as F
 
+    from repro_torch.core import roofline as RL
     from repro_torch.kernels import flash_attention_bwd, fused_attention, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
@@ -3042,9 +3139,9 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
         ms, one = time_kernel(torch, {"kernel": kernel, "library": library})
         plain_ms = time_ms(torch, {"plain": plain}, 3 if label == "train" else REPS)["plain"]
         es = q.element_size()
-        pairs = _visible_pairs(Sq, Skv, causal, window, chunk)
-        flops = 10 * B * H * hd * pairs  # five products of 2 hd flops a pair and head
-        n_bytes = es * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+        shapes = dict(q=tuple(q.shape), kv=tuple(k.shape), itemsize=es, **mask)
+        kc = RL.kernel_cost("flash_attention_bwd", **shapes)
+        flops, n_bytes = kc.flops, kc.bytes
         t_b = spec.memory_seconds(n_bytes) * 1e3
         t_o = spec.compute_seconds(flops, es) * 1e3
         backend = sdpa_kernel_names(torch, library,
@@ -3087,8 +3184,8 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
             del want_o, want_lse, got_o, got_lse
             fms, fone = time_kernel(torch, {"kernel": fwd_kernel, "library": fwd_library})
             fplain = time_ms(torch, {"plain": fwd_plain}, 3)["plain"]
-            fflops = 4 * B * H * hd * pairs
-            fbytes = es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+            fkc = RL.kernel_cost("flash_attention", **shapes, lse=True)
+            fflops, fbytes = fkc.flops, fkc.bytes
             ft_b = spec.memory_seconds(fbytes) * 1e3
             ft_o = spec.compute_seconds(fflops, es) * 1e3
             frow = {"case": "train_forward_lse", "shape": list(shape), "dtype": dname,
@@ -3367,6 +3464,7 @@ def main(argv=None) -> int:
               "flash_attention twice each, the forward and its recompute under full "
               "remat, flash_attention_bwd once)")
         train_time = phase_train_time(torch, train_run, args.seed)
+        roofline = phase_roofline(torch, card, train_time, serve_time)
         train_parity = phase_train_parity(torch, args.seed)
         torch.cuda.empty_cache()
 
@@ -3424,7 +3522,7 @@ def main(argv=None) -> int:
         "serve_moe_time": moe_time, "serve_encdec": encdec_run,
         "serve_encdec_counts": encdec_counts, "serve_encdec_time": encdec_time,
         "serve_ring": ring, "train": train_run, "train_counts": train_counts,
-        "train_time": train_time, "train_parity": train_parity,
+        "train_time": train_time, "roofline": roofline, "train_parity": train_parity,
         "train_sharded": train_sharded,
         "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
         "train_kernel": bwd_rows, "kernels": entries,

@@ -306,6 +306,12 @@ class GPUSpec:
     they are NVIDIA's published H100 SXM values.  The peak rates are always
     data-sheet values (dense, at the full 700 W power limit): a card set
     to a lower power limit runs slower under load.
+
+    ``link_bw`` is the interconnect term of the step roofline
+    (:mod:`repro_torch.core.roofline`): NVLink 4 on the H100 SXM moves 900
+    GB/s in total, 450 GB/s each way, and a collective's output bytes are
+    divided by the 450 GB/s one direction carries.  :attr:`peak_flops` is
+    the one peak the roofline's compute term uses, the dense bfloat16 rate.
     """
 
     name: str = "NVIDIA H100 SXM (datasheet)"
@@ -316,7 +322,13 @@ class GPUSpec:
     peak_fp32_flops: float = 67e12  # CUDA cores, no tensor cores
     peak_bf16_flops: float = 989e12  # tensor cores, dense
     peak_tf32_flops: float = 494.7e12  # tensor cores, dense TF32
+    link_bw: float = 450e9  # bytes/s, NVLink 4, one direction of 900 GB/s
     source: str = "datasheet"
+
+    @property
+    def peak_flops(self) -> float:
+        """The roofline's compute peak: dense bfloat16 on the tensor cores."""
+        return self.peak_bf16_flops
 
     def compute_seconds(self, flops: float, dtype_bytes: int = 4) -> float:
         """Compute-bound time at the peak rate for the operand type."""

@@ -12,6 +12,17 @@ K3, K4), :data:`PLAIN` (their plain versions, for comparison) and
 the scan in the model's own torch ops, as the reference trains them
 through ``jnp``).  K1, K3 and K4 have no backward
 kernel and raise on CUDA tensors that require grad.
+
+The kernels are reached through ``ctypes``, so a trace (``make_fx``) or
+``FlopCounterMode`` sees neither them nor their work.  :func:`traced_kernels`
+swaps each kernel of a set for a marker op (``repro_torch::traced_*``, a
+``torch.library.custom_op`` whose fake implementation gives the launch's
+output shapes and whose body is the plain version): a fake-tensor trace of
+a step through it holds one node per launch, with the launch's shapes and
+dtypes, which :mod:`repro_torch.core.hlo_cost` bills as one fusion group
+(:data:`MARKERS`).  The attention marker's backward is K2's backward
+marker.  The sets the model runs on the card keep their ``ctypes``
+launches: the markers are for tracing only.
 """
 from __future__ import annotations
 
@@ -85,11 +96,12 @@ class FusedKernels:
     attention: Callable = fused_attention.flash_attention
     mlp: Callable = fused_mlp.fused_mlp
     ssm_scan: Callable = mamba_scan.selective_scan
+    conv3x3: Callable = fused_conv.fused_conv3x3
 
 
 KERNELS = FusedKernels()
 PLAIN = FusedKernels(attention=ref.flash_attention_ref, mlp=ref.fused_mlp_ref,
-                     ssm_scan=ref.selective_scan_ref)
+                     ssm_scan=ref.selective_scan_ref, conv3x3=ref.fused_conv3x3_ref)
 
 
 def train_kernels(mamba_chunk: int = 256) -> FusedKernels:
@@ -136,3 +148,152 @@ def fused_conv_fn(plan=None, *, device: "str | torch.device" = "cuda"):
         return conv3x3(x, w, b, pool=pool, device=device)
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Marker ops: one traced node per kernel launch
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::traced_flash_attention", mutates_args=())
+def _attention_marker(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      window: int, chunk: int, with_lse: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 as one op: (out, the float32 logsumexp (B, H, Sq), or an empty
+    tensor without ``with_lse``)."""
+    mask = dict(causal=causal, window=window, chunk=chunk)
+    lse = (ref.attention_lse_ref(q, k, **mask) if with_lse
+           else q.new_empty((0,), dtype=torch.float32))
+    return ref.flash_attention_ref(q, k, v, **mask), lse
+
+
+@_attention_marker.register_fake
+def _(q, k, v, causal, window, chunk, with_lse):
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Sq) if with_lse else (0,),
+                                            dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::traced_flash_attention_bwd", mutates_args=())
+def _attention_bwd_marker(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                          causal: bool, window: int, chunk: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's backward as one op: (dq, dk, dv)."""
+    return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                                       window=window, chunk=chunk)
+
+
+@_attention_bwd_marker.register_fake
+def _(q, k, v, out, dout, lse, causal, window, chunk):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, causal, window, chunk, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.mask = (causal, window, chunk)
+
+
+def _attention_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _attention_bwd_marker(q, k, v, out, dout.contiguous(), lse, *ctx.mask)
+    return dq, dk, dv, None, None, None, None
+
+
+_attention_marker.register_autograd(_attention_backward, setup_context=_attention_setup)
+
+
+@torch.library.custom_op("repro_torch::traced_fused_mlp", mutates_args=())
+def _mlp_marker(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                w3: torch.Tensor | None, act: str) -> torch.Tensor:
+    """K3 as one op."""
+    return ref.fused_mlp_ref(x, w1, w2, w3, act=act)
+
+
+@_mlp_marker.register_fake
+def _(x, w1, w2, w3, act):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::traced_mamba_scan", mutates_args=())
+def _scan_marker(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
+                 h0: torch.Tensor | None, final_state: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 as one op: (y, the final state, or an empty tensor without
+    ``final_state``)."""
+    y, h = ref.selective_scan_ref(dA, dBx, C, h0)
+    return y, (h.clone() if final_state else dA.new_empty((0,)))
+
+
+@_scan_marker.register_fake
+def _(dA, dBx, C, h0, final_state):
+    B, S, di, ds = dA.shape
+    return (dA.new_empty((B, S, di), dtype=torch.float32),
+            dA.new_empty((B, di, ds) if final_state else (0,), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::traced_fused_conv3x3", mutates_args=())
+def _conv_marker(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 pool: bool) -> torch.Tensor:
+    """K1 as one op."""
+    return ref.fused_conv3x3_ref(x, w, b, pool=pool)
+
+
+@_conv_marker.register_fake
+def _(x, w, b, pool):
+    B, H, W, _ = x.shape
+    hw = (H // 2, W // 2) if pool else (H, W)
+    return x.new_empty((B, *hw, w.shape[-1]))
+
+
+def traced_attention(q, k, v, *, causal: bool = True, window: int = 0, chunk: int = 0,
+                     block_q=None, block_k=None):
+    """:func:`fused_attention.flash_attention` through the K2 marker: with
+    the logsumexp (and the backward marker) when an input needs a
+    gradient, as the kernel's own wrapper."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _attention_marker(q, k, v, causal, window, chunk, grad)[0]
+
+
+def traced_mlp(x, w1, w2, w3=None, *, act: str = "swiglu", block_m=None, block_f=None):
+    """:func:`fused_mlp.fused_mlp` through the K3 marker."""
+    return _mlp_marker(x, w1, w2, w3, act)
+
+
+def traced_ssm_scan(dA, dBx, C, h0=None, *, final_state: bool = True, chunk=None,
+                    block_d=None):
+    """:func:`mamba_scan.selective_scan` through the K4 marker."""
+    y, h = _scan_marker(dA, dBx, C, h0, final_state)
+    return y, (h if final_state else None)
+
+
+def traced_conv3x3(x, w, b, *, pool: bool = False):
+    """:func:`fused_conv.fused_conv3x3` through the K1 marker."""
+    return _conv_marker(x, w, b, pool)
+
+
+# marker op -> the kernel whose launch it stands for
+MARKERS = {
+    torch.ops.repro_torch.traced_flash_attention.default: "flash_attention",
+    torch.ops.repro_torch.traced_flash_attention_bwd.default: "flash_attention_bwd",
+    torch.ops.repro_torch.traced_fused_mlp.default: "fused_mlp",
+    torch.ops.repro_torch.traced_mamba_scan.default: "selective_scan",
+    torch.ops.repro_torch.traced_fused_conv3x3.default: "fused_conv3x3",
+}
+_TRACED = {
+    fused_attention.flash_attention: traced_attention,
+    fused_mlp.fused_mlp: traced_mlp,
+    mamba_scan.selective_scan: traced_ssm_scan,
+    fused_conv.fused_conv3x3: traced_conv3x3,
+}
+
+
+def traced_kernels(kernels: FusedKernels = KERNELS) -> FusedKernels:
+    """``kernels`` with every hand-written kernel swapped for its marker op
+    (the torch ops of a set, as :func:`train_kernels`' MLP and scan, stay):
+    a trace of a step through it records one node per launch the step
+    makes on the card.  The default is every kernel."""
+    return FusedKernels(**{f.name: _TRACED.get(getattr(kernels, f.name),
+                                               getattr(kernels, f.name))
+                           for f in dataclasses.fields(kernels)})

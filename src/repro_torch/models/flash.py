@@ -133,13 +133,13 @@ class _FlashVJP(torch.autograd.Function):
 
 def flash_attention_vjp(q, k, v, *, q_pos, kv_pos, mixer="attn", window=0,
                         chunk=0, kv_block=1024, bf16_tiles=False,
-                        logit_cap=0.0):
+                        logit_cap=0.0, flash=None):
     """Causal attention of ``q`` (B, Sq, H, hd) over ``k``, ``v`` (B, Skv,
     KV, hd) under the mixer's mask (a sliding ``window`` for
     ``attn_local``, ``chunk``-local for ``attn_chunked``), whose backward
     recomputes the probabilities from the saved logsumexp.  A CUDA tensor
-    runs the kernels (positions must be 0..S-1 for both); a CPU tensor the
-    plain version."""
+    runs the kernels through ``flash`` (default: the K2 wrapper; positions
+    must be 0..S-1 for both); a CPU tensor the plain version."""
     if logit_cap != 0.0:
         raise NotImplementedError("softcap unsupported in the flash-vjp path")
     window = int(window) if mixer == "attn_local" else 0
@@ -152,5 +152,5 @@ def flash_attention_vjp(q, k, v, *, q_pos, kv_pos, mixer="attn", window=0,
             and isinstance(kv_pos, range) and kv_pos == range(Skv)):
         raise NotImplementedError(
             "the flash_attention kernels take queries and keys at positions 0..")
-    return fused_attention.flash_attention(q, k, v, causal=True, window=window,
-                                           chunk=chunk)
+    flash = fused_attention.flash_attention if flash is None else flash
+    return flash(q, k, v, causal=True, window=window, chunk=chunk)

@@ -445,7 +445,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
         out = flash_attention_vjp(
             q, k, v, q_pos=positions, kv_pos=kv_pos, mixer=mixer,
             window=cfg.window_size, chunk=cfg.chunk_size, kv_block=kv_block,
-            bf16_tiles=bf16_tiles)
+            bf16_tiles=bf16_tiles, flash=flash)
         return out.reshape(B, S, H * hd) @ params["wo"], None
 
     kw = dict(q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,

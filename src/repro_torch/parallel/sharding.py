@@ -39,6 +39,7 @@ import dataclasses
 import math
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -462,6 +463,17 @@ def replicate(mesh, tree):
 # ---------------------------------------------------------------------------
 
 
+def rank_grid(mesh) -> np.ndarray:
+    """The mesh's global ranks as a numpy array of its shape, made once and
+    kept on the mesh object, so that code traced over fake tensors (the dry
+    run's) reads the ranks without a tensor op."""
+    cached = vars(mesh).get("_repro_rank_grid")
+    if cached is None:
+        cached = vars(mesh)["_repro_rank_grid"] = np.asarray(mesh.mesh.tolist(),
+                                                            dtype=np.int64)
+    return cached
+
+
 def mesh_coordinate(mesh, rank: int | None = None) -> dict[str, int]:
     """Axis name -> this rank's (or ``rank``'s) index along it."""
     names = mesh_axis_names(mesh)
@@ -470,13 +482,13 @@ def mesh_coordinate(mesh, rank: int | None = None) -> dict[str, int]:
         if coord is None:
             raise ValueError("this rank is not in the mesh")
     else:
-        coord = [int(c) for c in (mesh.mesh == rank).nonzero()[0]]
+        coord = np.argwhere(rank_grid(mesh) == rank)[0]
     return dict(zip(names, (int(c) for c in coord)))
 
 
 def mesh_ranks(mesh) -> list[int]:
     """The global ranks of the mesh, row-major."""
-    return [int(r) for r in mesh.mesh.flatten().tolist()]
+    return [int(r) for r in rank_grid(mesh).flatten()]
 
 
 def shard_counts(sharding: NamedSharding, ndim: int) -> list[int]:
@@ -548,22 +560,35 @@ def full_shape(local: torch.Tensor, sharding: NamedSharding) -> tuple[int, ...]:
 
 def gather(local: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """The full tensor from every rank's piece (``local`` is this rank's):
-    an all-gather over the mesh's ranks, each piece put back where
-    :func:`local_slices` took it from.  A replicated tensor is copied."""
+    one all-gather of the pieces into a buffer in rank order, laid out as
+    the mesh's grid of pieces and permuted so that each piece lands where
+    :func:`local_slices` took it from (a mesh axis the spec does not split
+    over holds copies, of which the first is kept).  A replicated tensor is
+    copied."""
     import torch.distributed as dist
 
     if not is_split(sharding):
         return local.clone()
     mesh = sharding.mesh
+    names = mesh_axis_names(mesh)
+    sizes = mesh_axis_sizes(mesh)
     ranks = mesh_ranks(mesh)
     if ranks != list(range(dist.get_world_size())):
         raise ValueError("the mesh must span the default process group, in rank order")
-    pieces = [torch.empty_like(local) for _ in ranks]
-    dist.all_gather(pieces, local.contiguous())
-    out = torch.empty(full_shape(local, sharding), dtype=local.dtype, device=local.device)
-    for r, piece in zip(ranks, pieces):
-        out[local_slices(sharding, out.shape, mesh_coordinate(mesh, r))] = piece
-    return out
+    local = local.contiguous()
+    buf = torch.empty((len(ranks) * local.shape[0], *local.shape[1:]), dtype=local.dtype,
+                      device=local.device)
+    ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    ag(buf, local)
+    spec = tuple(sharding.spec) + (None,) * (local.dim() - len(sharding.spec))
+    used = [a for e in spec for a in _axes(e)]
+    kept = [a for a in names if a in used]
+    grid = buf.reshape(*(sizes[a] for a in names), *local.shape)
+    grid = grid[tuple(slice(None) if a in used else 0 for a in names)]
+    order = []
+    for d, e in enumerate(spec):
+        order += [kept.index(a) for a in _axes(e)] + [len(kept) + d]
+    return grid.permute(order).reshape(full_shape(local, sharding))
 
 
 def axis_group(mesh, axes: tuple[str, ...]):
@@ -583,12 +608,12 @@ def axis_group(mesh, axes: tuple[str, ...]):
     sizes = mesh_axis_sizes(mesh)
     others = [a for a in names if a not in axes]
     me = dist.get_rank()
-    grid = mesh.mesh
+    grid = rank_grid(mesh)
     mine = None
     for fixed in itertools.product(*(range(sizes[a]) for a in others)):
         index = tuple(fixed[others.index(a)] if a in others else slice(None)
                       for a in names)
-        ranks = sorted(int(r) for r in grid[index].flatten().tolist())
+        ranks = sorted(int(r) for r in grid[index].flatten())
         group = dist.new_group(ranks)
         if me in ranks:
             mine = (group, ranks)
