@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's twelve main paths through the entry points a user calls,
+Drives the port's thirteen main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -181,23 +181,49 @@ PyTorch version.  Phases, one line each:
                time, the plain version's, SDPA's backward and the bound;
                flash_attention with its logsumexp at the training shape;
 28. train_sharded   the sharded training path -- the twelfth main path:
-               qwen3-0.6b as in phase train, 3 steps through
+               qwen3-0.6b as in phase train, TRAIN_SHARDED's steps through
                ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
                "model") NCCL mesh of this process (counts zeroed just before
                and read just after: flash_attention twice and
-               flash_attention_bwd once per layer per microbatch) against 3
-               single-device steps from the same state and batches: losses
-               bit-equal, every parameter and moment bit-equal (or within
-               TRAIN_PARITY_TOL, the differing leaves printed), ms a step
-               and peak memory of both; 8 steps of the int8-compressed step
+               flash_attention_bwd once per layer per microbatch) against as
+               many single-device steps from the same state and batches:
+               losses bit-equal, every parameter and moment bit-equal (or
+               within TRAIN_PARITY_TOL, the differing leaves printed), ms a
+               step and peak memory of both, one profiled step of each (the
+               device's busy time; the sharded step's collective calls); 8
+               steps of the int8-compressed step
                on a (1, 1, 1) ("pod", "data", "model") mesh (counts zeroed
                and read around them), losses finite and falling, every
                gradient leaf's payload handed to ``all_reduce`` as int8;
                ``resume_on_mesh`` of phase train's checkpoint, exactly the
                saved tensors; ``pipeline_apply`` at one stage, 6
                microbatches, bit-equal to the sequential result;
-29. the kernels line, then the result line.  Every kernel row's bytes and
+29. train_tp    the partitioned training path -- the thirteenth main path:
+               qwen3-0.6b at full width and depth on a (1, 2) ("data",
+               "model") mesh of two processes on the one card, joined by
+               gloo (NCCL refuses two ranks on one GPU); each rank computes
+               8 of the 16 heads and 1,536 of the 3,072 MLP columns.  Each
+               rank first checks that gloo carries every collective of the
+               path for CUDA tensors; then TRAIN_TP's steps through
+               ``make_train_step(grad_shardings=...)`` and TRAIN_TP's
+               prefills through ``make_prefill_step(shardings=...)``,
+               counts zeroed just before and read just after each
+               (flash_attention twice and flash_attention_bwd once per layer
+               a step at 8 local heads; flash_attention and fused_mlp once
+               per layer a prefill, at 8 heads and 1,536 columns), against
+               the single-device steps and prefills from the same state: the
+               first step's gradients (Adam's m after it) per leaf by
+               relative L2 within TP_GRAD_TOL, the losses within
+               TRAIN_PARITY_TOL, every parameter within what AdamW can move
+               it, the logits within PREFILL_TOL; ms a step
+               (warm steps apart from the first) and each rank's peak
+               memory, one profiled step's device busy time and the host
+               time spent in the collectives, the prefills' ms (cold, then
+               warm);
+30. the kernels line, then the result line.  Every kernel row's bytes and
     FLOPs (its bound) come from ``repro_torch.core.roofline.kernel_cost``.
+    The kernels launched at the partitioned path's local shapes have their
+    own entries (``"path": "train_tp"``).
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -327,6 +353,8 @@ SERVE_ATTENTION = [
     ("seamless_cross", (8, 512, 1024, 16, 16, 64), False, 0),        # 24
     ("gemma3_local", (8, 1280, 1280, 32, 16, 128), True, 1024),      # 5
     ("gemma3_global", (8, 1280, 1280, 32, 16, 128), True, 0),        # 1
+    ("tp_prefill", (8, 512, 512, 8, 4, 128), True, 0),               # 28, 8 of 16 heads
+    ("tp_train", (2, 2048, 2048, 8, 4, 128), True, 0),               # 56 a train_tp step
 ]
 # fused_mlp's bfloat16 shapes there: (label, (T, d, ff, act)).
 SERVE_MLP = [
@@ -335,6 +363,7 @@ SERVE_MLP = [
     ("seamless_decode", (8, 1024, 8192, "relu")),       # 24 a step: 744
     ("gemma3_prefill", (10240, 5376, 21504, "geglu")),  # 6
     ("gemma3_decode", (8, 5376, 21504, "geglu")),       # 6 a step: 186
+    ("tp_prefill", (4096, 1024, 1536, "swiglu")),       # 28, 1,536 of 3,072 columns
 ]
 
 # The training run of the eleventh main path: qwen3-0.6b at full width and
@@ -375,6 +404,7 @@ REPLACES["flash_attention_bwd"] = "src/repro/models/flash.py:107"
 # causal, window, chunk); "train" is qwen3's training microbatch.
 TRAIN_KERNEL_CASES = [
     ("train", (4, 4096, 4096, 16, 8, 128), "bfloat16", True, 0, 0),
+    ("train_tp", (2, 2048, 2048, 8, 4, 128), "bfloat16", True, 0, 0),
     ("window", (2, 1024, 1024, 16, 8, 128), "bfloat16", True, 256, 0),
     ("chunk", (2, 1024, 1024, 16, 8, 128), "bfloat16", True, 0, 256),
     ("hd64_noncausal_gqa4", (2, 512, 512, 16, 4, 64), "bfloat16", False, 0, 0),
@@ -2826,7 +2856,7 @@ def phase_train_parity(torch, seed: int) -> dict:
 # bits; a parameter or moment that differs is held to
 # TRAIN_PARITY_TOL["bfloat16"] (largest relative difference per leaf) with
 # the differing leaves printed.
-TRAIN_SHARDED = {"steps": 3, "compressed_steps": 8, "compressed_batch": 4,
+TRAIN_SHARDED = {"steps": 5, "compressed_steps": 8, "compressed_batch": 4,
                  "pp_micro": 6, "pp_rows": 4096}
 
 
@@ -2937,9 +2967,15 @@ def phase_train_sharded(torch, seed: int, train_ckpt: Path) -> dict:
             print(f"phase train_sharded: {what}: {len(differ)} of {len(equal)} leaves "
                   f"not bit-equal, largest relative difference {max(rel):.3g} (<= "
                   f"{TRAIN_PARITY_TOL['bfloat16']}); differing leaves: {differ[:8]}")
+    # One more step of each from the final states, profiled (its results
+    # dropped): the device's busy time, and the collective calls the
+    # sharded step makes at one rank.
+    trace1 = _device_busy(torch, lambda: single(p1, o1, batches[0]))
+    with _CollectiveClock(dist) as clock:
+        trace2 = _device_busy(torch, lambda: sharded(p2, o2, batches[0]))
     del p1, o1, p2, o2, leaves
     torch.cuda.empty_cache()
-    ms_1, ms_2 = statistics.median(ms1), statistics.median(ms2)
+    ms_1, ms_2 = statistics.median(ms1[1:]), statistics.median(ms2[1:])
     print(f"phase train_sharded: {cfg.name} bfloat16, {n} steps of {TRAIN_RUN['batch']} x "
           f"{TRAIN_RUN['seq']} tokens on a {tuple(mesh.shape)} {mesh.mesh_dim_names} "
           f"nccl mesh of {world} rank against as many single-device steps from the same "
@@ -2947,14 +2983,22 @@ def phase_train_sharded(torch, seed: int, train_ckpt: Path) -> dict:
           + ("bit-equal" if loss1 == loss2 else f"against {loss1}")
           + "; parameters / m / v bit-equal in "
           + ", ".join(f"{parity[w]['bit_equal']} / {parity[w]['leaves']}" for w in parity)
-          + f" leaves; ms a step {', '.join(f'{t:.3f}' for t in ms2)} (median {ms_2:.3f}) "
-          f"sharded, {', '.join(f'{t:.3f}' for t in ms1)} (median {ms_1:.3f}) single; peak "
+          + f" leaves; ms a step {', '.join(f'{t:.3f}' for t in ms2)} (median of the "
+          f"warm steps after the first {ms_2:.3f}) sharded, "
+          f"{', '.join(f'{t:.3f}' for t in ms1)} (median {ms_1:.3f}) single; peak "
           f"device memory {peak2 / 2**30:.3f} GiB sharded ({rise2 / 2**30:.3f} above its "
           f"start), {peak1 / 2**30:.3f} GiB single ({rise1 / 2**30:.3f} above its start)")
+    print(f"phase train_sharded: a profiled step of each: single wall "
+          f"{trace1['wall_ms']:.3f} ms, device busy {trace1['device_busy_ms']:.3f} ms (idle "
+          f"share {trace1['device_idle_share']:.4f}); sharded wall {trace2['wall_ms']:.3f} "
+          f"ms, device busy {trace2['device_busy_ms']:.3f} ms (idle share "
+          f"{trace2['device_idle_share']:.4f}), {clock.calls} collective calls taking "
+          f"{clock.ms:.3f} ms of the host's time")
     out.update({"losses_sharded": loss2, "losses_single": loss1, "ms_sharded": ms2,
                 "ms_single": ms1, "peak_sharded": peak2, "peak_single": peak1,
                 "rise_sharded": rise2, "rise_single": rise1, "parity": parity,
-                "counts": counts})
+                "counts": counts, "trace_single": trace1, "trace_sharded": trace2,
+                "collective_calls": clock.calls, "collective_host_ms": clock.ms})
 
     # The int8-compressed step over the pod axis.
     mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
@@ -3057,6 +3101,347 @@ def phase_train_sharded(torch, seed: int, train_ckpt: Path) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase train_sharded: {out['seconds']:.1f} s")
     return out
+
+
+# The partitioned training path (main path 13): qwen3-0.6b at full width
+# and depth on a (1, 2) ("data", "model") mesh of two processes on the one
+# card over gloo.  The batch is cut to 2 sequences of 2,048 tokens (one
+# microbatch) a step: gloo carries a CUDA tensor's collectives through the
+# host, and a layer makes six all-reduces of the (2, 2048, 1024) bfloat16
+# activations a step (forward, remat recompute, backward), so the train_4k
+# step of phase train would spend minutes in them.  TRAIN_TP's steps (the
+# first warms up, the rest are timed warm), one more step under the
+# profiler (the device's busy time and the host time spent in the
+# collectives' calls), and TRAIN_TP's prefills of 8 x 512 prompt tokens
+# (SERVE's; the first cold, the rest warm), against the single-device
+# steps and prefills from the same state.
+#
+# What holds the partitioned backward: the first step's gradients.  Its
+# learning rate is 0 (warmup_cosine at step 0), and Adam's first moment
+# after it is 0.1 x the clipped gradient, so the moments m of the two
+# paths after step 1 are compared per leaf by relative L2, at TP_GRAD_TOL.
+# The parameters after the last step cannot show a gradient's fault: Adam
+# moves each element by about lr whatever the gradient.  They are held to
+# that ceiling (_adam_ceiling), which any gradients meet, as a check that
+# the pieces are updated and gathered where they belong (a misplaced piece
+# is off by |w|, some 50x the ceiling).  The losses (forward passes) are
+# held at TRAIN_PARITY_TOL["bfloat16"], the prefill's logits at
+# PREFILL_TOL["bfloat16"] x max |logit|.
+TRAIN_TP = {"arch": "qwen3", "mesh": (1, 2), "batch": 2, "seq": 2048, "steps": 4,
+            "prefills": 4, "timeout_s": 480}
+# The first step's gradients, partitioned against single-device, relative
+# L2 per leaf.  In bfloat16 the row-parallel products' partial sums are
+# rounded and added in another order, and the differences grow over 28
+# layers; the norm scales' gradients, sums over 4,096 tokens with
+# cancellation, differ most: 0.0186 at most on the sound tree (NVIDIA H100
+# 80GB HBM3, 700.00 W; median 0.0065 over 310 leaves), where float32 on the
+# CPU agrees to 1e-6.  A planted fault, the q-norm scale used without
+# enter_model (each rank's gradient its own heads' share), gives its 28
+# leaves 0.355-0.858.  5e-2 sits 2.7x above the one and 7x below the other.
+TP_GRAD_TOL = 5e-2
+# The collectives the partitioned path makes, each checked on CUDA tensors
+# over gloo before the path runs.
+TP_COLLECTIVES = ("all_reduce", "all_reduce_max", "all_gather_into_tensor")
+
+
+def phase_train_tp(torch, card: str, seed: int, tmp: Path) -> dict:
+    """Main path 13: start the two ranks (this script with ``--tp-worker
+    RANK DIR``), wait for them, and print what rank 0 checked and measured
+    (it fails, and so does this phase, if a check does)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed",
+                               str(seed), "--tp-worker", str(r), str(tmp)])
+             for r in range(2)]
+    deadline = time.monotonic() + TRAIN_TP["timeout_s"]
+    try:  # a rank that fails leaves its peer waiting in a collective: stop both
+        while (any(p.poll() is None for p in procs) and time.monotonic() < deadline
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 0], f"the train_tp ranks exited with {rcs} (killed: -9; after "
+          f"at most {TRAIN_TP['timeout_s']} s)")
+    ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text()) for r in range(2)]
+    out = dict(ranks[0])
+    out["peak_per_rank"] = [r["peak"] for r in ranks]
+    out["seconds"] = time.perf_counter() - t0
+    n, cfg_layers = TRAIN_TP["steps"], out["layers"]
+    g, tr = out["grad_rel_l2"], out["trace"]
+    print(f"phase main_path train_tp: launches {out['train_counts']} ({n} steps x "
+          f"{cfg_layers} layers at {out['local_heads']} of {out['heads']} heads); "
+          f"prefill {out['prefill_counts']} ({TRAIN_TP['prefills']} prefills, fused_mlp "
+          f"at {out['local_ff']} of {out['ff']} columns)")
+    print(f"phase train_tp: {card}; qwen3-0.6b bfloat16 on a {TRAIN_TP['mesh']} "
+          f"('data', 'model') mesh of 2 processes on one card over gloo (CUDA "
+          f"collectives checked: {', '.join(k for k, v in out['probe'].items() if v)}); "
+          f"{n} steps of {TRAIN_TP['batch']} x {TRAIN_TP['seq']} tokens")
+    print(f"phase train_tp: first step's gradients (Adam's m after step 1), "
+          f"partitioned vs single-device, relative L2 per leaf over {len(g)} leaves: "
+          f"median {statistics.median(g):.4g}, max {max(g):.4g} ({out['grad_worst']}; "
+          f"<= {TP_GRAD_TOL})")
+    print(f"phase train_tp: losses " + ", ".join(f"{x:.6f}" for x in out["losses_tp"])
+          + " against single-device " + ", ".join(f"{x:.6f}" for x in out["losses_single"])
+          + f"; parameters after {n} steps: the largest difference per leaf "
+          f"{out['param_share_of_ceiling']:.4g} of what AdamW can move them "
+          f"({out['param_far']}; <= 1)")
+    print(f"phase train_tp: ms a step, partitioned: first {out['ms_tp'][0]:.3f}, warm "
+          + ", ".join(f"{t:.3f}" for t in out["ms_tp"][1:])
+          + f" (median {statistics.median(out['ms_tp'][1:]):.3f}); single: first "
+          f"{out['ms_single'][0]:.3f}, warm " + ", ".join(f"{t:.3f}" for t in
+                                                       out["ms_single"][1:])
+          + f" (median {statistics.median(out['ms_single'][1:]):.3f}); peak device "
+          f"memory per rank {', '.join(f'{b / 2**30:.3f}' for b in out['peak_per_rank'])} "
+          f"GiB (single {out['peak_single'] / 2**30:.3f} GiB)")
+    print(f"phase train_tp: a profiled partitioned step (rank 0): wall "
+          f"{tr['wall_ms']:.3f} ms, device busy {tr['device_busy_ms']:.3f} ms, idle share "
+          f"{tr['device_idle_share']:.4f}; {tr['collective_calls']} collective calls "
+          f"took {tr['collective_host_ms']:.3f} ms of the host's time "
+          f"({tr['collective_host_ms'] / tr['wall_ms']:.4f} of the wall)")
+    print(f"phase train_tp: prefill 8 x 512: logits max |diff| {out['prefill_max_abs']:.4g} "
+          f"of max |logit| {out['prefill_max_logit']:.4g} (<= {PREFILL_TOL['bfloat16']} x); "
+          f"ms partitioned: cold {out['prefill_ms'][0]:.3f}, warm "
+          + ", ".join(f"{t:.3f}" for t in out["prefill_ms"][1:])
+          + f"; single: cold {out['prefill_ms_single'][0]:.3f}, warm "
+          + ", ".join(f"{t:.3f}" for t in out["prefill_ms_single"][1:])
+          + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def _probe_gloo(torch, dist, rank: int) -> dict:
+    """Which of TP_COLLECTIVES gloo computes right on CUDA tensors (an
+    exception counts as no)."""
+    ok = {}
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    for name in TP_COLLECTIVES:
+        try:
+            if name == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok[name] = bool((y == 3.0).all())
+            elif name == "all_reduce_max":
+                y = x.clone()
+                dist.all_reduce(y, op=dist.ReduceOp.MAX)
+                ok[name] = bool((y == 2.0).all())
+            else:
+                buf = torch.empty(8, device="cuda")
+                dist.all_gather_into_tensor(buf, x)
+                ok[name] = bool(torch.equal(buf.cpu(), torch.tensor([1.0] * 4 + [2.0] * 4)))
+        except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+            print(f"train_tp rank {rank}: gloo {name} on CUDA tensors raised {e!r}",
+                  flush=True)
+            ok[name] = False
+    return ok
+
+
+class _CollectiveClock:
+    """While entered, every call of ``torch.distributed``'s all-reduce and
+    all-gathers (the collectives of the partitioned step at one data rank)
+    is counted and its host time (the call's wall time, which
+    for gloo includes staging the CUDA tensor through the host and waiting
+    for the peer) added up."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "all_gather_single")
+
+    def __init__(self, dist):
+        self.dist, self.calls, self.ms, self.saved = dist, 0, 0.0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.dist, name, None)
+            if fn is None:
+                continue
+            self.saved[name] = fn
+
+            def timed(*args, _fn=fn, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.calls += 1
+                    self.ms += (time.perf_counter() - t0) * 1e3
+
+            setattr(self.dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _adam_ceiling(lrs: list, wd: float, top: float) -> float:
+    """The most two AdamW runs from the same bfloat16 weights can differ by
+    in one element of a leaf whose largest |w| is ``top``, after steps at
+    the learning rates ``lrs``, whatever their gradients: each update is at
+    most 1.01 lr (by Cauchy-Schwarz on the bias-corrected moments, 1.003 at
+    b1 0.9, b2 0.95 and up to 5 steps) plus lr x wd x |w|, and each step
+    rounds the weight to bfloat16 (half an ulp, 2^-8 of |w|)."""
+    return sum(2 * lr * (1.01 + wd * top) + 2 * 2.0 ** -8 * top for lr in lrs)
+
+
+def _timed_prefills(torch, pre, params, cache, tokens, n: int) -> tuple:
+    """``n`` prefills of ``tokens`` into the same cache: the last logits and
+    each call's host ms up to a synchronise."""
+    times = []
+    with torch.no_grad():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = pre(params, cache, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return logits, times
+
+
+def tp_worker(rank: int, work: Path, seed: int) -> int:
+    """One rank of phase train_tp: the partitioned steps and prefills, and,
+    on rank 0, the single-device ones it holds them to.  Writes
+    ``WORK/tp_rank<RANK>.json``."""
+    import dataclasses
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import resolve
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.runtime.steps import make_init, make_prefill_step, make_train_step
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=2)
+    probe = _probe_gloo(torch, dist, rank)
+    check(all(probe.values()), f"gloo does not carry {probe} for CUDA tensors")
+    cfg = resolve(TRAIN_TP["arch"])
+    rc = dataclasses.replace(train_rc(cfg), microbatches=1)
+    opt_cfg = AdamWConfig(state_dtype=rc.opt_state_dtype, weight_decay=rc.weight_decay,
+                          grad_clip=rc.grad_clip)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params0, opt0 = make_init(cfg, rc, opt_cfg, device="cuda")(gen)
+    batches = [make_batch(cfg, TRAIN_TP["batch"], TRAIN_TP["seq"], seed=seed, step=600 + i)
+               for i in range(TRAIN_TP["steps"])]
+    mesh = make_mesh(TRAIN_TP["mesh"], ("data", "model"))
+    pshard = SH.param_shardings(mesh, M.abstract_params(cfg))
+    oshard = SH.opt_state_shardings(mesh, opt0, pshard)
+    mshard = pytree.tree_leaves(oshard["m"])
+
+    def gathered(tree, shards):
+        return [SH.gather(x, sh) for x, sh in zip(pytree.tree_leaves(tree), shards)]
+
+    step = make_train_step(cfg, rc, opt_cfg, grad_shardings=pshard)
+    p2, o2 = SH.place(params0, pshard), SH.place(opt0, oshard)
+    zero_counts()
+    p2, o2, loss2, ms2, peak2, _rise = _timed_steps(torch, step, p2, o2, batches[:1])
+    m_tp = gathered(o2["m"], mshard)
+    p2, o2, loss_b, ms_b, peak_b, _rise = _timed_steps(torch, step, p2, o2, batches[1:])
+    train_counts = read_counts()
+    loss2, ms2, peak2 = loss2 + loss_b, ms2 + ms_b, max(peak2, peak_b)
+    check(all(math.isfinite(x) for x in loss2), f"non-finite partitioned losses {loss2}")
+    full = gathered(p2, pytree.tree_leaves(pshard))
+    holder = {}
+
+    def one_step():
+        holder["state"] = step(p2, o2, batches[0])
+
+    with _CollectiveClock(dist) as clock:
+        if rank == 0:
+            trace = _device_busy(torch, one_step)
+        else:
+            one_step()
+            torch.cuda.synchronize()
+    del holder, o2
+    trace = {} if rank else dict(trace, collective_calls=clock.calls,
+                                 collective_host_ms=clock.ms)
+
+    B, S = SERVE["requests"], SERVE["prompt_len"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 60)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")
+    serve = dataclasses.replace(rc, remat="none", flash_vjp=False)
+    cache_abs = M.abstract_cache(cfg, B, S)
+    cshard = SH.cache_shardings(mesh, cache_abs)
+    pre = make_prefill_step(cfg, serve, shardings=(pshard, cshard))
+    ppieces = SH.place(params0, pshard)
+    cache = SH.place(M.init_cache(cfg, B, S, device="cuda"), cshard)
+    zero_counts()
+    logits2, prefill_ms = _timed_prefills(torch, pre, ppieces, cache, tokens,
+                                          TRAIN_TP["prefills"])
+    prefill_counts = read_counts()
+    del ppieces, cache
+    out = {"rank": rank, "probe": probe, "losses_tp": loss2, "ms_tp": ms2, "peak": peak2,
+           "train_counts": train_counts, "prefill_counts": prefill_counts,
+           "prefill_ms": prefill_ms, "layers": cfg.n_layers, "heads": cfg.n_heads,
+           "local_heads": cfg.n_heads // TRAIN_TP["mesh"][1], "ff": cfg.d_ff,
+           "local_ff": cfg.d_ff // TRAIN_TP["mesh"][1], "trace": trace}
+    if rank == 0:
+        n = TRAIN_TP["steps"]
+        check(train_counts == {"fused_conv3x3": 0, "flash_attention": 2 * cfg.n_layers * n,
+                               "fused_mlp": 0, "selective_scan": 0,
+                               "flash_attention_bwd": cfg.n_layers * n},
+              f"the partitioned steps launched {train_counts}, not flash_attention twice "
+              f"and flash_attention_bwd once per layer a step ({n} x {cfg.n_layers})")
+        n = TRAIN_TP["prefills"]
+        check(prefill_counts == {"fused_conv3x3": 0, "flash_attention": cfg.n_layers * n,
+                                 "fused_mlp": cfg.n_layers * n, "selective_scan": 0,
+                                 "flash_attention_bwd": 0},
+              f"the partitioned prefills launched {prefill_counts}, not flash_attention "
+              f"and fused_mlp once per layer a prefill ({n} x {cfg.n_layers})")
+        single = make_train_step(cfg, rc, opt_cfg)
+        p1, o1, loss1, ms1, peak1, _rise = _timed_steps(torch, single, params0, opt0,
+                                                        batches[:1])
+        m_single = pytree.tree_leaves(o1["m"])
+        grad_rel = _rel_l2(torch, [m.float() for m in m_tp], [m.float() for m in m_single])
+        del m_tp, m_single
+        p1, o1, loss_b, ms_b, peak_b, _rise = _timed_steps(torch, single, p1, o1,
+                                                           batches[1:])
+        loss1, ms1, peak1 = loss1 + loss_b, ms1 + ms_b, max(peak1, peak_b)
+        names = ["/".join(map(str, k)) for k, _ in pytree.tree_flatten_with_path(p1)[0]]
+        worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+        check(max(grad_rel) <= TP_GRAD_TOL,
+              f"partitioned first-step gradients: relative L2 {grad_rel[worst]:.4g} at "
+              f"{names[worst]} > {TP_GRAD_TOL} (median "
+              f"{statistics.median(grad_rel):.4g}; over "
+              + ", ".join(f"{names[i]} {r:.3g}" for i, r in enumerate(grad_rel)
+                          if r > TP_GRAD_TOL)[:2000] + ")")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss2, loss1))
+        check(loss_rel <= TRAIN_PARITY_TOL["bfloat16"],
+              f"partitioned losses {loss2} against single-device {loss1}")
+        lrs = [float(warmup_cosine(torch.tensor(t), peak_lr=rc.learning_rate,
+                                   warmup_steps=rc.warmup_steps))
+               for t in range(TRAIN_TP["steps"])]
+        share = [float((a.float() - b.float()).abs().max())
+                 / _adam_ceiling(lrs, rc.weight_decay, float(b.float().abs().max()))
+                 for a, b in zip(full, pytree.tree_leaves(p1))]
+        far = max(range(len(share)), key=share.__getitem__)
+        check(share[far] <= 1.0,
+              f"partitioned parameters: {names[far]} differs from the single-device "
+              f"step's by {share[far]:.4g} x what AdamW can move it in "
+              f"{TRAIN_TP['steps']} steps")
+        del p1, o1, full
+        cache = M.init_cache(cfg, B, S, device="cuda")
+        logits1, prefill_ms1 = _timed_prefills(torch, make_prefill_step(cfg, serve), params0,
+                                               cache, tokens, TRAIN_TP["prefills"])
+        diff = float((logits2 - logits1).abs().max())
+        top = float(logits1.abs().max())
+        check(diff <= PREFILL_TOL["bfloat16"] * top,
+              f"partitioned prefill logits differ by {diff} (max |logit| {top})")
+        out.update({"losses_single": loss1, "ms_single": ms1, "peak_single": peak1,
+                    "grad_rel_l2": grad_rel, "grad_worst": names[worst],
+                    "param_share_of_ceiling": share[far], "param_far": names[far],
+                    "prefill_max_abs": diff, "prefill_max_logit": top,
+                    "prefill_ms_single": prefill_ms1})
+    (work / f"tp_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def _sdpa_backward(torch, q, k, v, dout, causal: bool, window: int, chunk: int):
@@ -3260,6 +3645,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of every generator (default 0)")
+    parser.add_argument("--tp-worker", nargs=2, metavar=("RANK", "DIR"),
+                        help=argparse.SUPPRESS)  # one rank of phase train_tp
     args = parser.parse_args(argv)
 
     try:
@@ -3273,6 +3660,8 @@ def main(argv=None) -> int:
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from the "
              "root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    if args.tp_worker:
+        return tp_worker(int(args.tp_worker[0]), Path(args.tp_worker[1]), args.seed)
     from repro_torch.configs import resolve
     from repro_torch.core.arch import gpu_spec
     from repro_torch.core.ir import vgg16_ir
@@ -3475,6 +3864,12 @@ def main(argv=None) -> int:
         train_sharded = phase_train_sharded(torch, args.seed, Path(tmp))
         torch.cuda.empty_cache()
 
+    # ---- main path 13, the partitioned training path on two ranks: each
+    # rank zeroes the counts just before its steps and its prefill and reads
+    # them just after (checked in the phase) ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        train_tp = phase_train_tp(torch, card, args.seed, Path(tmp))
+
     layer_rows = phase_layers(torch, spec, args.seed)
     plan = plan_model(qwen, 4096, spec)
     att_rows = phase_attention(torch, spec, args.seed,
@@ -3507,6 +3902,20 @@ def main(argv=None) -> int:
                     [(row(bwd_rows, "train", "bfloat16"), train_counts["flash_attention_bwd"])],
                     train_counts["flash_attention_bwd"]),
     ]
+    tpc, tpp = train_tp["train_counts"], train_tp["prefill_counts"]
+    entries += [dict(e, path="train_tp") for e in (
+        serve_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    [(row(att_rows, "tp_train", "bfloat16"), tpc["flash_attention"]),
+                     (row(att_rows, "tp_prefill", "bfloat16"), tpp["flash_attention"])],
+                    tpc["flash_attention"] + tpp["flash_attention"]),
+        serve_entry("fused_mlp", "src/repro_torch/kernels/csrc/fused_mlp.cu",
+                    [(row(mlp_rows, "tp_prefill", "bfloat16"), tpp["fused_mlp"])],
+                    tpp["fused_mlp"]),
+        serve_entry("flash_attention_bwd",
+                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    [(row(bwd_rows, "train_tp", "bfloat16"), tpc["flash_attention_bwd"])],
+                    tpc["flash_attention_bwd"]),
+    )]
 
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
@@ -3523,7 +3932,7 @@ def main(argv=None) -> int:
         "serve_encdec_counts": encdec_counts, "serve_encdec_time": encdec_time,
         "serve_ring": ring, "train": train_run, "train_counts": train_counts,
         "train_time": train_time, "roofline": roofline, "train_parity": train_parity,
-        "train_sharded": train_sharded,
+        "train_sharded": train_sharded, "train_tp": train_tp,
         "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
         "train_kernel": bwd_rows, "kernels": entries,
         "seconds": time.perf_counter() - t_start,

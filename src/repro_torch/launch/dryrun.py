@@ -11,19 +11,25 @@ The per-device program is the port's own step as a rank of the mesh would
 run it, every kernel through its marker op (:func:`repro_torch.kernels.ops.
 traced_kernels`):
 
-* train: the sharded ``make_train_step(grad_shardings=...)`` (ZeRO-3
-  style) on this rank's pieces of the parameters and the optimizer state
-  (``param_shardings`` / ``opt_state_shardings``), the whole batch given;
-  it gathers every parameter (one all-gather a leaf), computes its data
-  rows, reduce-scatters the float32 gradient sums;
-* prefill and decode: the port has no sharded serving step, so the program
-  is its serving step under the same policy: the parameters gathered at use
-  and ``make_prefill_step`` / ``make_decode_step`` run on this rank's rows
-  of the batch (all of them when ``seq_shard`` keeps the batch whole) with
-  a cache of those rows at full width.  The ``model`` axis computes nothing
-  in parallel, and the cache's split over it (``cache_shardings``) is
-  stored, not used: the program's arguments hold all KV heads of the rank's
-  rows, where ``resident_bytes_per_device`` holds the reference's piece.
+* train: the sharded ``make_train_step(grad_shardings=...)`` on this
+  rank's pieces of the parameters and the optimizer state
+  (``param_shardings`` / ``opt_state_shardings``), the whole batch given:
+  it gathers each parameter over the data axes, computes its data rows
+  with this rank's share of the ``model`` axis (heads, MLP columns,
+  experts, Mamba channels, vocabulary rows), and reduce-scatters each
+  microbatch's gradients into float32 sums of its pieces;
+* prefill and decode: the sharded ``make_prefill_step`` /
+  ``make_decode_step(shardings=...)``, the counterpart of the reference's
+  serving steps jitted with the parameter and cache shardings, on this
+  rank's pieces of the parameters and of the cache (``cache_shardings``)
+  and the whole batch: the same split of the compute, the cache pieces
+  read where they lie (a cache the model reads whole, a KV cache whose
+  heads do not split or a sequence split over the data axes, gathered one
+  layer at a time).
+
+A parameter whose ``model`` piece does not fall on whole heads, experts or
+channels is gathered over ``model`` and computed replicated: correct, only
+redundant.  Each record lists these leaves (``model_gathered``).
 
 The fake tensors are on the ``meta`` device: a CPU-only PyTorch cannot
 index a fake CUDA tensor (its device guard needs CUDA), and every branch of
@@ -188,18 +194,6 @@ def _pieces(tree, shards, mode):
          for x, s in zip(leaves, sh)], spec)
 
 
-def _gathered(step, shards):
-    """``step(params, *rest)`` on the parameters gathered from this rank's
-    pieces (one all-gather a leaf), as the sharded train step gathers them."""
-
-    def program(params, *rest):
-        flat, spec = pytree.tree_flatten(params)
-        full = [SH.gather(p, s) for p, s in zip(flat, shards)]
-        return step(pytree.tree_unflatten(full, spec), *rest)
-
-    return program
-
-
 def program_at(cfg, shape, rc, mesh, mode):
     """(fn, args): the cell's per-device program at ``cfg``'s depth and its
     fake arguments."""
@@ -211,13 +205,16 @@ def program_at(cfg, shape, rc, mesh, mode):
             cfg, rc, grad_shardings=pshard,
             kernels=ops.traced_kernels(ops.train_kernels(rc.mamba_chunk)))
         return step, (params, _pieces(*args["opt"], mode), _fake_like(args["batch"][0], mode))
-    rows = shape.global_batch
-    if not rc.seq_shard:
-        part = ST.data_rows(rows, mesh, SH.data_axes(mesh))
-        rows = part.stop - part.start
-    step, (_, cache, inputs) = one_device_program(
-        cfg, dataclasses.replace(shape, global_batch=rows), rc, mode)
-    return _gathered(step, pytree.tree_leaves(pshard)), (params, cache, inputs)
+    acache, cshard = args["cache"]
+    cache = _pieces(_with_len(acache, shape.seq_len - 1 if shape.kind == "decode" else 0),
+                    cshard, mode)
+    if shape.kind == "prefill":
+        step = ST.make_prefill_step(cfg, rc, kernels=ops.traced_kernels(),
+                                    shardings=(pshard, cshard))
+        return step, (params, cache, _fake_like(args["batch"][0], mode))
+    step = ST.make_decode_step(cfg, rc, kernels=ops.traced_kernels(),
+                               shardings=(pshard, cshard))
+    return step, (params, cache, _fake_like(IS.decode_token_specs(shape), mode))
 
 
 def one_device_program(cfg, shape, rc, mode, *, cache_len: int | None = None):
@@ -377,6 +374,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: pathlib.Path,
         "resident_total_gib": sum(resident.values()) / 2**30,
         "roofline": rl.row(),
         "params": cfg.param_counts(),
+        "model_gathered": SH.model_gathered_paths(SH.param_shardings(
+            mesh, M.abstract_params(cfg), fsdp=rc.fsdp), cfg),
         "trace": {"device": FAKE_DEVICE, "depths": walked["depths"],
                   "nodes": walked["nodes"], "n_layers": cfg.n_layers},
     }
@@ -394,9 +393,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: pathlib.Path,
         flush=True,
     )
     print(f"  memory_analysis: {walked['live']}", flush=True)
+    print(f"  gathered over model: {_gathered_summary(record['model_gathered'])}", flush=True)
     print(f"  cost: flops/dev={rl.flops:.3e} bytes/dev={rl.hbm_bytes:.3e} "
           f"coll/dev={rl.coll_bytes:.3e} {rl.row()['coll_breakdown']}", flush=True)
     return record
+
+
+def _gathered_summary(paths: list[str]) -> dict:
+    """{module/leaf: count} of the leaves gathered over ``model``."""
+    out: dict = {}
+    for p in paths:
+        key = "/".join(p.split("/")[-2:])
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def sweep(cells, mesh_kinds, out_dir: pathlib.Path, jobs: int, force: bool):

@@ -8,8 +8,10 @@ checkpoints.  It takes the reference's flags plus ``--device`` (default
 ``--mesh``), it builds the reference's (1, world) ``("data", "model")``
 mesh (NCCL on CUDA, gloo on the CPU) and trains through the sharded step
 (:func:`repro_torch.runtime.steps.make_train_step` with the parameters'
-shardings); each rank then checkpoints its own pieces under
-``<ckpt-dir>/rank<r>``.  Otherwise it trains on one device.
+shardings), which splits each step's compute over the ``model`` axis
+(heads, MLP columns, experts, Mamba channels, vocabulary rows); each rank
+then checkpoints its own pieces under ``<ckpt-dir>/rank<r>``.  Otherwise
+it trains on one device.
 ``--reduced`` (the default) trains ``scaled_down(cfg)``; ``--full`` the
 config at full width and depth.  Weights come from a ``torch.Generator``
 seeded with ``--seed``, at the reference's initialisation scales; the

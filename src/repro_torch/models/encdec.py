@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..parallel import sharding as SH
 from . import layers as L
 
 
@@ -106,7 +107,7 @@ def encode(params, cfg, rc, frames: torch.Tensor, *,
                                    flash=kernels.attention)
         x = x + out
         h = L.rmsnorm(p["norm2"], x, cfg.rmsnorm_eps)
-        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp)
+        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp, width=cfg.d_ff)
 
     layer = _remat_wrap(layer, rc)
     for p in params["enc_stack"]:
@@ -117,22 +118,31 @@ def encode(params, cfg, rc, frames: torch.Tensor, *,
 def cross_kv(params, cfg, enc_h: torch.Tensor, out: list | None = None) -> list:
     """Per-decoder-layer cross-attention ``{"k", "v": (B, S_enc, KV, hd)}``,
     computed once.  ``out`` (a cache's ``"xkv"``): the products are written
-    into its buffers, which must have that shape, and returned."""
+    into its buffers, which must have that shape, and returned.  On a mesh
+    a ``wk`` / ``wv`` of fewer columns gives this rank's KV heads; a cache
+    piece gathered at use (``sharding.cache_open``) takes its share of the
+    whole product."""
     B, Se, d = enc_h.shape
-    shape = (B, Se, cfg.n_kv_heads, cfg.resolved_head_dim)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     flat = enc_h.reshape(B * Se, d)
     layers = []
     for i, p in enumerate(params["dec_stack"]):
         kv = {}
         for name, w in (("k", p["xattn"]["wk"]), ("v", p["xattn"]["wv"])):
+            KVl = w.shape[1] // hd
+            shape = (B, Se, KVl, hd)
+            src = SH.enter_model(flat) if KVl < KV else flat
             if out is None:
-                kv[name] = (flat @ w).reshape(shape)
+                kv[name] = (src @ w).reshape(shape)
                 continue
             buf = out[i][name]
-            if tuple(buf.shape) != shape:
+            if SH.cache_registered(buf):
+                SH.cache_store(buf, (src @ w).reshape(shape))
+            elif tuple(buf.shape) != shape:
                 raise ValueError(f"the cache's cross-attention buffers are "
                                  f"{tuple(buf.shape)}, the encoder gives {shape}")
-            torch.mm(flat, w, out=buf.view(B * Se, -1))
+            else:
+                torch.mm(src, w, out=buf.view(B * Se, -1))
             kv[name] = buf
         layers.append(kv)
     return layers
@@ -144,7 +154,7 @@ def decode_stack(params, cfg, rc, tokens: torch.Tensor, xkv: list,
     """Decoder trunk over ``tokens`` (B, S).  ``cache``: ``{"self": [{"k",
     "v": (B, max_seq, KV, hd)}, ...], "len": int}``.  Returns (hidden,
     new cache | None)."""
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab_size)
     start = cache["len"] if cache is not None else 0
     positions = range(start, start + x.shape[1])
 
@@ -160,7 +170,8 @@ def decode_stack(params, cfg, rc, tokens: torch.Tensor, xkv: list,
                                    kv_block=rc.attn_chunk_kv, flash=kernels.attention)
         x = x + out
         h = L.rmsnorm(p["norm2"], x, cfg.rmsnorm_eps)
-        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp), nc
+        return x + L.mlp_block(p["mlp"], h, cfg.ffn_act, fused=kernels.mlp,
+                               width=cfg.d_ff), nc
 
     if cache is None:  # training / an uncached forward: each layer under the run's remat
         from .transformer import _remat_wrap

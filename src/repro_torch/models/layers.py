@@ -32,7 +32,17 @@ Conventions
   of :mod:`repro_torch.models.flash`, which lands on the same kernels on
   the card.  :func:`chunked_cross_entropy` recomputes each chunk's logits
   in the backward.
-* The reference's sharding hints are dropped (one device).
+* On a mesh (``parallel.sharding.use_mesh``) a parameter narrower than
+  the config says is this rank's piece on the ``model`` axis, and the
+  function computes its share, as the reference's sharding hints have
+  GSPMD partition it: q heads (k and v too when the KV heads split whole,
+  else the q heads' KV heads of a replicated k / v), MLP columns, the
+  vocabulary rows of the embedding and the head.  It enters such compute
+  through ``sharding.enter_model`` and leaves it through
+  ``sharding.leave_model`` (one all-reduce after a row-parallel product);
+  a cache piece the model reads whole is gathered at use
+  (``sharding.cache_open``).  Off a mesh every parameter is whole and
+  nothing changes.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel import sharding as SH
 
 NEG_INF = -1e30
 GATED_ACTS = ("swiglu", "geglu")
@@ -395,17 +406,24 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hl = params["wq"].shape[1] // hd  # this rank's q heads (H off a mesh)
+    xin = SH.enter_model(x) if Hl < H else x
 
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    q = (xin @ params["wq"]).reshape(B, S, Hl, hd)
     if cross_kv is None:
-        k = (x @ params["wk"]).reshape(B, S, KV, hd)
-        v = (x @ params["wv"]).reshape(B, S, KV, hd)
+        KVl = params["wk"].shape[1] // hd
+        xk = xin if KVl < KV else x
+        k = (xk @ params["wk"]).reshape(B, S, KVl, hd)
+        v = (xk @ params["wv"]).reshape(B, S, KVl, hd)
     else:
-        k, v = cross_kv
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.rmsnorm_eps)
+        k, v = SH.cache_open(cross_kv[0]), SH.cache_open(cross_kv[1])
+    if cfg.qk_norm:  # a replicated scale on this rank's heads enters their compute
+        q = rmsnorm(SH.enter_model(params["q_norm"]) if Hl < H else params["q_norm"], q,
+                    cfg.rmsnorm_eps)
         if cross_kv is None:
-            k = rmsnorm(params["k_norm"], k, cfg.rmsnorm_eps)
+            k_norm = params["k_norm"]
+            k = rmsnorm(SH.enter_model(k_norm) if k.shape[2] < KV else k_norm, k,
+                        cfg.rmsnorm_eps)
     if cross_kv is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -415,9 +433,11 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
         kv_pos, kv_len, causal = range(k.shape[1]), None, False
     elif cache is not None and ring:
         start = cache["len"]
-        k_ring = ring_insert(cache["k"], k, start)
-        v_ring = ring_insert(cache["v"], v, start)
-        new_cache = {"k": k_ring, "v": v_ring, "len": start + S}
+        k_ring = ring_insert(SH.cache_open(cache["k"]), k, start)
+        v_ring = ring_insert(SH.cache_open(cache["v"]), v, start)
+        SH.cache_store(cache["k"], k_ring)
+        SH.cache_store(cache["v"], v_ring)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": start + S}
         if S == 1:
             k, v = k_ring, v_ring
             kv_pos = ring_positions(k.shape[1], start, device=x.device)
@@ -426,17 +446,23 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
             kv_pos, kv_len = positions, start + S
     elif cache is not None:
         start = cache["len"]
-        cache["k"][:, start:start + S] = k
-        cache["v"][:, start:start + S] = v
+        k_buf, v_buf = SH.cache_open(cache["k"]), SH.cache_open(cache["v"])
+        k_buf[:, start:start + S] = k
+        v_buf[:, start:start + S] = v
+        SH.cache_store(cache["k"], k_buf)
+        SH.cache_store(cache["v"], v_buf)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": start + S}
         if start == 0 and S > 1:
             kv_pos, kv_len = positions, None
         else:
-            k = cache["k"][:, :start + S]
-            v = cache["v"][:, :start + S]
+            k = k_buf[:, :start + S]
+            v = v_buf[:, :start + S]
             kv_pos, kv_len = range(start + S), start + S
     else:
         kv_pos, kv_len = positions, None
+    if Hl < H and k.shape[2] == KV:  # replicated k / v: this rank's q heads' groups
+        k = local_kv_heads(SH.enter_model(k), H, Hl)
+        v = local_kv_heads(SH.enter_model(v), H, Hl)
 
     if (flash_vjp and cache is None and cross_kv is None and S > 1
             and cfg.logit_softcap == 0.0):
@@ -446,7 +472,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
             q, k, v, q_pos=positions, kv_pos=kv_pos, mixer=mixer,
             window=cfg.window_size, chunk=cfg.chunk_size, kv_block=kv_block,
             bf16_tiles=bf16_tiles, flash=flash)
-        return out.reshape(B, S, H * hd) @ params["wo"], None
+        return _heads_out(out.reshape(B, S, Hl * hd), params["wo"], Hl < H), None
 
     kw = dict(q_pos=positions, kv_pos=kv_pos, mixer=mixer, causal=causal,
               window=cfg.window_size, chunk=cfg.chunk_size, kv_len=kv_len,
@@ -455,7 +481,28 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
         out = attention_reference(q, k, v, **kw)
     else:
         out = attention_chunked(q, k, v, **kw, kv_block=kv_block, flash=flash)
-    return out.reshape(B, S, H * hd) @ params["wo"], new_cache
+    return _heads_out(out.reshape(B, S, Hl * hd), params["wo"], Hl < H), new_cache
+
+
+def _heads_out(out: torch.Tensor, wo: torch.Tensor, split: bool) -> torch.Tensor:
+    """The output projection; a rank's heads give a partial sum, which the
+    model axis adds up (a row-parallel product)."""
+    y = out @ wo
+    return SH.leave_model(y) if split else y
+
+
+def local_kv_heads(k: torch.Tensor, H: int, Hl: int) -> torch.Tensor:
+    """The KV heads (B, S, KV, hd) that this rank's ``Hl`` of ``H`` q heads
+    read, contiguous: a run of whole groups, or the one group they share,
+    or else one KV head per q head."""
+    KV = k.shape[2]
+    G = H // KV
+    start = SH.head_slice(H, Hl).start
+    idx = [(start + j) // G for j in range(Hl)]
+    n = idx[-1] - idx[0] + 1
+    if Hl % n == 0 and all(i == idx[0] + j // (Hl // n) for j, i in enumerate(idx)):
+        return k[:, :, idx[0]:idx[-1] + 1].contiguous()
+    return k[:, :, idx].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -471,16 +518,50 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, act: str, dtype) -> dict:
     return p
 
 
-def mlp_block(params: dict, x: torch.Tensor, act: str, *, fused=None) -> torch.Tensor:
+def mlp_block(params: dict, x: torch.Tensor, act: str, *, fused=None,
+              width: int | None = None) -> torch.Tensor:
     """``act(x @ w1) [* (x @ w3)] @ w2`` over the rows of ``x`` (..., d),
     through ``fused(x, w1, w2, w3, act=)`` (default: the K3 wrapper — the
     kernel on a CUDA tensor, its plain float32 version on a CPU one).  ``x``
     keeps its leading shape, as in the reference, so a traced gate has the
-    reference's frame."""
+    reference's frame.  A ``w1`` narrower than ``width`` (the config's
+    d_ff) is this rank's columns on the model axis: the fusion group runs
+    on them and the model axis adds up the partial outputs.  On a mesh
+    whose model axis has several ranks, ``width`` must be given
+    (ValueError): without it a piece could not be told from the whole."""
     if act not in ACTS:
         raise ValueError(act)
+    if width is None and SH.model_parallel() is not None:
+        raise ValueError("mlp_block on a model-parallel mesh needs width= (the d_ff "
+                         "its w1 is a piece of)")
     fused = ops.KERNELS.mlp if fused is None else fused
-    return fused(x, params["w1"], params["w2"], params.get("w3"), act=act)
+    split = width is not None and params["w1"].shape[1] < width
+    if split:
+        x = SH.enter_model(x)
+    y = fused(x, params["w1"], params["w2"], params.get("w3"), act=act)
+    return SH.leave_model(y) if split else y
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The rows of ``table`` (vocab, d) for ``tokens``.  A table of fewer
+    rows is this rank's vocabulary piece on the model axis: it looks up the
+    tokens it holds (zeros for the others) and the model axis sums."""
+    if table.shape[0] == vocab:
+        return table[tokens]
+    v0 = SH.head_slice(vocab, table.shape[0]).start
+    local = tokens - v0
+    held = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(held, local, 0)] * held[..., None].to(table.dtype)
+    return SH.leave_model(rows)
+
+
+def vocab_logits(h: torch.Tensor, head: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``h @ head`` in float32 over the whole vocabulary: a head of fewer
+    columns is this rank's piece, its logits gathered over the model
+    axis."""
+    if head.shape[1] == vocab:
+        return (h @ head).float()
+    return SH.gather_model((SH.enter_model(h) @ head).float(), -1)
 
 
 # ---------------------------------------------------------------------------
@@ -498,9 +579,25 @@ def _xent_chunk(hc: torch.Tensor, lm_head: torch.Tensor, lc: torch.Tensor,
     return torch.where(mc, lse - gold, 0.0).sum()
 
 
+def _xent_chunk_split(hc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                      mc: torch.Tensor, v0: int) -> torch.Tensor:
+    """:func:`_xent_chunk` over this rank's vocabulary columns ``[v0, v0 +
+    Vl)``: the logsumexp's max and sum, and the gold logit (from the rank
+    that holds it), taken over the model axis."""
+    logits = (hc @ head).float()
+    m = SH.all_max_model(logits.amax(dim=-1))
+    lse = m + torch.log(SH.leave_model(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = lc - v0
+    held = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(held, local, 0)[..., None])[..., 0]
+    gold = SH.leave_model(torch.where(held, gold, 0.0))
+    return torch.where(mc, lse - gold, 0.0).sum()
+
+
 def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          vocab: int | None = None) -> torch.Tensor:
     """Mean next-token NLL of ``h`` (B, S, d) under ``lm_head`` (d, V) over
     the positions where ``mask`` (B, S) is True, computed over sequence
     chunks of ``chunk`` (the whole sequence when S is not a multiple).
@@ -508,19 +605,29 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
     The (B, S, V) logits are the "intermediate frame" here: a chunk's (B,
     chunk, V) float32 logits live only while its NLL is taken and are
     recomputed in the backward (``torch.utils.checkpoint``), never stored.
+    A head narrower than ``vocab`` is this rank's vocabulary piece on the
+    model axis (:func:`_xent_chunk_split`); on a mesh whose model axis has
+    several ranks, ``vocab`` must be given (ValueError).
     """
+    if vocab is None and SH.model_parallel() is not None:
+        raise ValueError("chunked_cross_entropy on a model-parallel mesh needs vocab= "
+                         "(the vocabulary its head is a piece of)")
     B, S, d = h.shape
     if S % chunk:
         chunk = S
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.bool, device=h.device)
+    fn, extra = _xent_chunk, ()
+    if vocab is not None and lm_head.shape[1] < vocab:
+        h = SH.enter_model(h)
+        fn, extra = _xent_chunk_split, (SH.head_slice(vocab, lm_head.shape[1]).start,)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, chunk):
         part = (h[:, c0:c0 + chunk], lm_head, labels[:, c0:c0 + chunk],
-                mask[:, c0:c0 + chunk])
+                mask[:, c0:c0 + chunk], *extra)
         if torch.is_grad_enabled():
-            tot = tot + checkpoint(_xent_chunk, *part, use_reentrant=False)
+            tot = tot + checkpoint(fn, *part, use_reentrant=False)
         else:
-            tot = tot + _xent_chunk(*part)
+            tot = tot + fn(*part)
     cnt = mask.sum().to(torch.int32)
     return tot / torch.clamp(cnt, min=1)

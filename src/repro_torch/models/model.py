@@ -6,7 +6,10 @@ encoder-decoder (seamless).
 init_cache / abstract_cache / prefill / decode``, the port of the JAX package's ``models/model.py``, dispatch on
 ``cfg.is_encoder_decoder``; launch scripts and tests import this module.
 Entry points that create tensors default to ``device="cuda"`` and raise
-without CUDA.
+without CUDA.  Under ``parallel.sharding.use_mesh`` the parameters (and a
+cache) may be this rank's pieces on the ``model`` axis: every function
+computes its share and returns what one device would (the logits over the
+whole vocabulary).
 """
 from __future__ import annotations
 
@@ -94,7 +97,7 @@ def loss_fn(params, cfg, rc, batch: dict, *,
     labels = batch["labels"]
     mask = labels >= 0
     nll = L.chunked_cross_entropy(h, params["embed"].T, torch.clamp(labels, min=0).long(),
-                                  chunk=rc.xent_chunk, mask=mask)
+                                  chunk=rc.xent_chunk, mask=mask, vocab=cfg.vocab_size)
     return nll, {"nll": nll, "aux": aux}
 
 
@@ -133,7 +136,7 @@ def _logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:
     """Logits of the final position, float32; the encoder-decoder's head is
     its tied embedding."""
     if cfg.is_encoder_decoder:
-        return (h[:, -1:, :] @ params["embed"].T).float()
+        return L.vocab_logits(h[:, -1:, :], params["embed"].T, cfg.vocab_size)
     return T.logits_last(params, cfg, rc, h)
 
 

@@ -7,7 +7,18 @@ one-hots are ``(G, Sg, E, C)`` with ``C = ceil(top_k * Sg / E *
 capacity_factor)``; over-capacity tokens are dropped (combine weight 0),
 earlier tokens and lower k winning the slots.  One-hots are built as
 ``idx[..., None] == arange(E)``, which is what ``jax.nn.one_hot`` computes.
-The reference's sharding hints have no counterpart on one device.
+
+On a mesh (``parallel.sharding.use_mesh``), expert weights with fewer
+experts than the config are this rank's experts on the ``model`` axis
+(expert parallelism): the router runs replicated, each rank dispatches to,
+computes and combines its own experts, and one all-reduce over ``model``
+adds the ranks' outputs.  When the experts do not split over the axis
+(mixtral's 8 on 16 ranks) each rank holds its columns of every expert's
+d_ff instead, and computes those.  The load-balance statistics are summed
+over the data axes before their product, so the term is the whole
+microbatch's, as the reference's GSPMD program computes it.  The groups
+are the reference's: the group size comes from the whole microbatch's
+tokens.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import math
 import torch
 
 from ..kernels import ref
+from ..parallel import sharding as SH
 from . import layers as L
 from .layers import params_from_jax  # noqa: F401  (the reference tree as tensors)
 
@@ -72,9 +84,23 @@ def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
     ``mlp`` is the fusion group of arctic's dense residual, as
     ``layers.mlp_block``'s ``fused`` (default: the fused-MLP wrapper)."""
     B, S, d = x.shape
+    ctx = SH.ambient()
+    n_data = 1 if ctx is None else ctx.data_size
+    if n_data > 1 and min(cfg.moe_group_size, B * S * n_data) > B * S:
+        # The reference's groups span the data ranks' rows (a decode step's
+        # few tokens): route the whole microbatch on every data rank.
+        y, aux = _moe(params, SH.gather_data(x), cfg, mlp, 1)
+        return y.narrow(0, ctx.data_rank * B, B), aux
+    return _moe(params, x, cfg, mlp, n_data)
+
+
+def _moe(params: dict, x: torch.Tensor, cfg, mlp, n_data: int
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_block` on ``x``, one of ``n_data`` data ranks' rows."""
+    B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    Sg = min(cfg.moe_group_size, T)
+    Sg = min(cfg.moe_group_size, T * n_data)  # the whole microbatch's group size
     G = T // Sg
     if G * Sg != T:
         raise ValueError(f"tokens {T} not divisible by group size {Sg}")
@@ -85,10 +111,16 @@ def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
     logits = xg.float().to(torch.promote_types(torch.float32, router.dtype)) @ router
     gates, idx, probs = route_topk(logits, K)  # (G, Sg, K)
 
-    # Load-balance aux loss (Switch): E * sum_e f_e * p_e.
+    # Load-balance aux loss (Switch): E * sum_e f_e * p_e, both statistics
+    # over the whole microbatch (summed over the data axes).
     experts = torch.arange(E, device=dev)
-    me = probs.mean(dim=(0, 1))
-    fe = (idx[..., 0, None] == experts).float().mean(dim=(0, 1))
+    top1 = (idx[..., 0, None] == experts).float()
+    if n_data == 1:
+        me, fe = probs.mean(dim=(0, 1)), top1.mean(dim=(0, 1))
+    else:
+        n_tok = float(G * Sg * n_data)
+        me = SH.sum_data(probs.sum(dim=(0, 1))) / n_tok
+        fe = SH.sum_data(top1.sum(dim=(0, 1))) / n_tok
     aux = E * torch.sum(fe * me)
 
     C = _capacity(cfg, Sg)
@@ -105,15 +137,28 @@ def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
     dispatch = disp_flat.sum(dim=2)  # (G, Sg, E, C): <= 1 slot per expert
     combine = torch.einsum("gskec,gsk->gsec", disp_flat, gates.to(dt))
 
+    # This rank's experts (E off a mesh), or, when the experts do not split
+    # over the model axis, its columns of every expert's d_ff.
+    El = params["w1"].shape[0]
+    split = El < E or params["w1"].shape[-1] < cfg.d_ff
+    xe_in = xg
+    if split:
+        combine = SH.enter_model(combine)
+        xe_in = SH.enter_model(xg)
+    if El < E:
+        mine = SH.head_slice(E, El)
+        dispatch = dispatch[:, :, mine]
+        combine = combine[:, :, mine]
+
     # The products are written out so that each takes its operands in the
     # order of the reference's dot_generals (the one-hots on the left): a
     # traced graph then gives the dispatch and combine actmuls the
     # reference's frames, whatever path torch.einsum would choose.
-    xe = (dispatch.permute(0, 2, 3, 1).reshape(G, E * C, Sg) @ xg).reshape(G, E, C, d)
+    xe = (dispatch.permute(0, 2, 3, 1).reshape(G, El * C, Sg) @ xe_in).reshape(G, El, C, d)
 
     def per_expert(a, w):  # (G, E, C, i) x (E, i, o) -> (G, E, C, o)
-        o = a.transpose(0, 1).reshape(E, G * C, a.shape[-1]) @ w
-        return o.reshape(E, G, C, w.shape[-1]).transpose(0, 1)
+        o = a.transpose(0, 1).reshape(El, G * C, a.shape[-1]) @ w
+        return o.reshape(El, G, C, w.shape[-1]).transpose(0, 1)
 
     h = per_expert(xe, params["w1"])
     if cfg.ffn_act in L.GATED_ACTS:
@@ -121,8 +166,11 @@ def moe_block(params: dict, x: torch.Tensor, cfg, *, mlp=None
     else:
         h = ref.activation(h, cfg.ffn_act)
     ye = per_expert(h, params["w2"])
-    y = combine.reshape(G, Sg, E * C) @ ye.reshape(G, E * C, d)
+    y = combine.reshape(G, Sg, El * C) @ ye.reshape(G, El * C, d)
+    if split:
+        y = SH.leave_model(y)
 
     if "dense_residual" in params:  # arctic: parallel dense MLP
-        y = y + L.mlp_block(params["dense_residual"], xg, cfg.ffn_act, fused=mlp)
+        y = y + L.mlp_block(params["dense_residual"], xg, cfg.ffn_act, fused=mlp,
+                            width=cfg.dense_residual_ff)
     return y.reshape(B, S, d), aux

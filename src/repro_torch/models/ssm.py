@@ -16,6 +16,14 @@ in-chunk scan is a log-depth doubling loop, since PyTorch has no
 shapes as meta tensors.  The frontend passes its own ``scan`` (one marker
 op, so the recurrence traces to a single graph node); the model's path
 keeps ``ops.KERNELS.ssm_scan``.
+
+On a mesh (``parallel.sharding.use_mesh``), a ``conv_w`` narrower than
+``d_inner`` holds this rank's channels on the ``model`` axis (channel
+parallelism): ``in_proj`` comes whole (its column piece would hold x- or
+z-channels, not a rank's both) and the rank takes its channels' columns of
+it; the convolution, the discretisation and the scan (K4) run on the local
+channels; ``x_proj`` and ``out_proj`` are row-parallel, each followed by
+one all-reduce over ``model``.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
+from ..parallel import sharding as SH
 from . import layers as L
 from .layers import dense_init
 
@@ -87,7 +96,10 @@ def _ssm_inputs(params: dict, x_c: torch.Tensor, cfg
     C (B, S, ds).  With grad mode off the exponential and the last product
     are taken in place, which saves one (B, S, di, ds) temporary each."""
     dr, ds = cfg.dt_rank, cfg.ssm_state
-    proj = (x_c @ params["x_proj"]).float()  # (B, S, dr + 2 ds)
+    if params["x_proj"].shape[0] < cfg.d_inner:  # this rank's channels' rows
+        proj = SH.enter_model(SH.leave_model((x_c @ params["x_proj"]).float()))
+    else:
+        proj = (x_c @ params["x_proj"]).float()  # (B, S, dr + 2 ds)
     dt_low, Bs, Cs = torch.split(proj, [dr, ds, ds], dim=-1)
     dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])  # (B, S, di)
     A = -torch.exp(params["A_log"])  # (di, ds)
@@ -160,23 +172,36 @@ def mamba_block(params: dict, x: torch.Tensor, cfg, cache: dict | None = None, *
     ``x.dtype``; the discretisation, the scan and ``y + D x`` in float32.
     """
     scan = ops.KERNELS.ssm_scan if scan is None else scan
-    xz = x @ params["in_proj"]
+    di, dil = cfg.d_inner, params["conv_w"].shape[1]
+    split = dil < di  # this rank's channels of d_inner
+    if split:
+        mine = SH.head_slice(di, dil)
+        w = SH.enter_model(params["in_proj"])
+        w = torch.cat([w[:, mine], w[:, di + mine.start:di + mine.stop]], dim=1)
+        xz = SH.enter_model(x) @ w
+    else:
+        xz = x @ params["in_proj"]
     x_in, z = torch.chunk(xz, 2, dim=-1)
 
-    conv_state = cache["conv"] if cache is not None else None
+    conv_state = SH.cache_open(cache["conv"]) if cache is not None else None
     x_c, new_conv = causal_depthwise_conv(x_in, params["conv_w"], params["conv_b"],
                                           conv_state)
     x_c = F.silu(x_c)
 
     dA, dBx, Cs = _ssm_inputs(params, x_c, cfg)
-    h0 = cache["h"] if cache is not None else None
+    h0 = SH.cache_open(cache["h"]) if cache is not None else None
     y, h = scan(dA, dBx, Cs, h0)
     del dA, dBx
 
     y = y + params["D"][None, None, :] * x_c.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
-    new_cache = {"conv": new_conv, "h": h} if cache is not None else None
+    if split:
+        out = SH.leave_model(out)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": SH.cache_piece(cache["conv"], new_conv),
+                     "h": SH.cache_piece(cache["h"], h)}
     return out, new_cache
 
 

@@ -18,6 +18,11 @@ mixer-only).  Local-attention sublayers may keep a window-sized ring cache
 (``RunConfig.local_ring_cache`` with ``init_cache(ring=True)``).  The
 encoder-decoder (seamless) runs through :mod:`repro_torch.models.encdec`;
 :func:`check_supported` refuses it here.
+
+On a mesh (``parallel.sharding.use_mesh``) each sublayer computes this
+rank's share on the ``model`` axis (:mod:`repro_torch.models.layers`,
+``moe``, ``ssm``); a superblock recomputed under the run's remat replays
+its collectives in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -205,7 +210,8 @@ def _sublayer(sub, x, cfg, rc, mixer, is_moe, positions, cache, cache_len,
         out, a = MOE.moe_block(sub["moe"], h, cfg, mlp=kernels.mlp)
         aux = aux + a
         return x + out, new_cache, aux
-    return x + L.mlp_block(sub["mlp"], h, cfg.ffn_act, fused=kernels.mlp), new_cache, aux
+    return (x + L.mlp_block(sub["mlp"], h, cfg.ffn_act, fused=kernels.mlp, width=cfg.d_ff),
+            new_cache, aux)
 
 
 def block_forward(params, x, cfg, kinds, *, rc=None, attn_impl="reference",
@@ -275,7 +281,7 @@ def _remat_wrap(fn, rc):
 
 def embed_inputs(params, cfg, batch: dict) -> torch.Tensor:
     """Token (+ frontend stub) embedding (B, S, d)."""
-    tok_emb = params["embed"][batch["tokens"]]
+    tok_emb = L.embed_lookup(params["embed"], batch["tokens"], cfg.vocab_size)
     if cfg.frontend and "frontend" in batch:
         return torch.cat([batch["frontend"].to(tok_emb.dtype), tok_emb], dim=1)
     return tok_emb
@@ -339,7 +345,7 @@ def lm_head_matrix(params, cfg) -> torch.Tensor:
 
 def logits_last(params, cfg, rc, h: torch.Tensor) -> torch.Tensor:
     """Logits of the final position only (serving), float32."""
-    return (h[:, -1:, :] @ lm_head_matrix(params, cfg)).float()
+    return L.vocab_logits(h[:, -1:, :], lm_head_matrix(params, cfg), cfg.vocab_size)
 
 
 def loss_fn(params, cfg, rc, batch: dict, *,
@@ -353,6 +359,6 @@ def loss_fn(params, cfg, rc, batch: dict, *,
     mask = labels >= 0
     nll = L.chunked_cross_entropy(h, lm_head_matrix(params, cfg),
                                   torch.clamp(labels, min=0).long(),
-                                  chunk=rc.xent_chunk, mask=mask)
+                                  chunk=rc.xent_chunk, mask=mask, vocab=cfg.vocab_size)
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}

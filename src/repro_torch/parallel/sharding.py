@@ -542,7 +542,8 @@ def sharding_device(sharding: NamedSharding) -> torch.device:
 def place(tree, shardings):
     """This rank's pieces of the full tensors of ``tree`` under
     ``shardings`` (a tree of one structure), each on its sharding's device:
-    the counterpart of ``jax.device_put(tree, shardings)``."""
+    the counterpart of ``jax.device_put(tree, shardings)``.  A leaf that
+    is not a tensor (a cache's length) stays as it is."""
     from torch.utils import _pytree as pytree
 
     leaves, spec = pytree.tree_flatten(tree)
@@ -550,45 +551,80 @@ def place(tree, shardings):
     if len(leaves) != len(shards):
         raise ValueError(f"{len(leaves)} tensors, {len(shards)} shardings")
     return pytree.tree_unflatten(
-        [local_shard(x, s, device=sharding_device(s)) for x, s in zip(leaves, shards)],
-        spec)
+        [local_shard(x, s, device=sharding_device(s)) if isinstance(x, torch.Tensor) else x
+         for x, s in zip(leaves, shards)], spec)
 
 
 def full_shape(local: torch.Tensor, sharding: NamedSharding) -> tuple[int, ...]:
     return tuple(n * c for n, c in zip(local.shape, shard_counts(sharding, local.dim())))
 
 
-def gather(local: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """The full tensor from every rank's piece (``local`` is this rank's):
-    one all-gather of the pieces into a buffer in rank order, laid out as
-    the mesh's grid of pieces and permuted so that each piece lands where
-    :func:`local_slices` took it from (a mesh axis the spec does not split
-    over holds copies, of which the first is kept).  A replicated tensor is
-    copied."""
+def without(sharding: NamedSharding, axes) -> NamedSharding:
+    """``sharding`` with ``axes`` taken out of its spec: the layout of a
+    tensor gathered over them."""
+    out = []
+    for e in sharding.spec:
+        kept = tuple(a for a in _axes(e) if a not in axes)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return NamedSharding(sharding.mesh, P(*out))
+
+
+def gather(local: torch.Tensor, sharding: NamedSharding, axes=None, *,
+           strided: bool = False) -> torch.Tensor:
+    """The tensor gathered from the pieces of this rank's peers along
+    ``axes`` (default: every mesh axis, the full tensor): one all-gather of
+    the pieces into a buffer in rank order, laid out as the grid of pieces
+    and permuted so that each piece lands where :func:`local_slices` took it
+    from (an axis the spec does not split over holds copies, of which the
+    first is kept).  The result is this rank's piece under
+    ``without(sharding, axes)``; within a dimension split over several axes
+    the gathered ones must follow the kept ones (ValueError otherwise).
+    ``strided=True`` lifts that: where a gathered axis comes first, the
+    result holds the kept axes' pieces of that dimension that this rank's
+    peers hold, strided over it, concatenated in the gathered axes' order
+    (a set of independent channels, such as an MLP's columns, computes as
+    well on them).  A tensor not split over ``axes`` comes back as it is:
+    no copy and no collective."""
     import torch.distributed as dist
 
-    if not is_split(sharding):
-        return local.clone()
     mesh = sharding.mesh
     names = mesh_axis_names(mesh)
     sizes = mesh_axis_sizes(mesh)
-    ranks = mesh_ranks(mesh)
-    if ranks != list(range(dist.get_world_size())):
-        raise ValueError("the mesh must span the default process group, in rank order")
+    spec = tuple(sharding.spec) + (None,) * (local.dim() - len(sharding.spec))
+    if axes is None:
+        axes = names
+    axes = tuple(a for a in names if a in axes)
+    used = [a for e in spec for a in _axes(e) if a in axes]
+    if not any(sizes[a] > 1 for a in used):
+        return local
+    for e in spec:
+        inner = [a in axes for a in _axes(e)]
+        if inner != sorted(inner) and not strided:
+            raise ValueError(f"{sharding.spec}: gathering {axes} would leave the "
+                             "kept pieces strided")
     local = local.contiguous()
+    ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    if axes == names:
+        ranks = mesh_ranks(mesh)
+        if ranks != list(range(dist.get_world_size())):
+            raise ValueError("the mesh must span the default process group, in rank order")
+        group = None
+    else:
+        group, ranks = axis_group(mesh, axes)
     buf = torch.empty((len(ranks) * local.shape[0], *local.shape[1:]), dtype=local.dtype,
                       device=local.device)
-    ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    ag(buf, local)
-    spec = tuple(sharding.spec) + (None,) * (local.dim() - len(sharding.spec))
-    used = [a for e in spec for a in _axes(e)]
-    kept = [a for a in names if a in used]
-    grid = buf.reshape(*(sizes[a] for a in names), *local.shape)
-    grid = grid[tuple(slice(None) if a in used else 0 for a in names)]
+    if group is None:
+        ag(buf, local)
+    else:
+        ag(buf, local, group=group)
+    kept = [a for a in axes if a in used]
+    grid = buf.reshape(*(sizes[a] for a in axes), *local.shape)
+    grid = grid[tuple(slice(None) if a in used else 0 for a in axes)]
     order = []
     for d, e in enumerate(spec):
-        order += [kept.index(a) for a in _axes(e)] + [len(kept) + d]
-    return grid.permute(order).reshape(full_shape(local, sharding))
+        order += [kept.index(a) for a in _axes(e) if a in axes] + [len(kept) + d]
+    counts = [math.prod(sizes[a] for a in _axes(e) if a in axes) for e in spec]
+    return grid.permute(order).reshape([n * c for n, c in zip(local.shape, counts)])
 
 
 def axis_group(mesh, axes: tuple[str, ...]):
@@ -626,13 +662,17 @@ def reduce_scatter_sum(full: torch.Tensor, sharding: NamedSharding,
     """This rank's piece (under ``sharding``) of the sum of ``full`` over
     its peers along ``group_axes``: a reduce-scatter when the peers hold
     different pieces, an all-reduce of the piece when they hold the same
-    one (the spec does not split over ``group_axes``)."""
+    one (the spec does not split over ``group_axes``).  With no peers (a
+    group of one rank) it is this rank's piece of ``full`` itself: no copy
+    and no collective."""
     import torch.distributed as dist
 
     mesh = sharding.mesh
     group, members = axis_group(mesh, group_axes)
     me = mesh_coordinate(mesh)
     mine = local_slices(sharding, full.shape, me)
+    if len(members) == 1:
+        return full[mine]
     slices = [local_slices(sharding, full.shape, mesh_coordinate(mesh, r))
               for r in members]
     if all(s == mine for s in slices):
@@ -643,4 +683,410 @@ def reduce_scatter_sum(full: torch.Tensor, sharding: NamedSharding,
     out = torch.empty(full[mine].shape, dtype=full.dtype, device=full.device)
     rs = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     rs(out.view(-1), inp, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Compute on the mesh: the ambient mesh, the model axis' collectives, and
+# which parameters a rank computes with as pieces
+# ---------------------------------------------------------------------------
+
+# The reference's logical axis names: the data axes (whichever the mesh
+# has) and the tensor-parallel axis.
+DP = ("pod", "data")
+TP = "model"
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """What model code reads of the ambient mesh (:func:`use_mesh`): the
+    ``model`` axis' process group, size and this rank's coordinate on it,
+    the data axes' group and size, and the cache pieces to gather at use
+    (:func:`cache_open`)."""
+
+    mesh: Any
+    group: Any
+    size: int
+    rank: int
+    data_group: Any
+    data_size: int
+    data_rank: int = 0
+    cache_axes: dict = dataclasses.field(default_factory=dict)
+
+
+_AMBIENT: list = []
+
+
+class use_mesh:
+    """``with use_mesh(mesh):`` makes ``mesh`` the ambient mesh model code
+    computes on (the counterpart of ``jax.set_mesh``): :func:`ambient`
+    returns its :class:`MeshContext`.  Every rank of the mesh must enter it
+    at the same point: it makes the axes' process groups
+    (:func:`axis_group`) on first use.  A mesh of one rank sets nothing, so
+    the model computes as on one device.  ``rows_on_data=False``: every
+    rank holds the whole batch (a batch-1 long decode, its cache's sequence
+    on the data axes), so the model sums nothing over the data axes.
+    ``data``: the data axes whose ranks split one microbatch (default all;
+    the compressed step's pods each take their own)."""
+
+    def __init__(self, mesh, *, rows_on_data: bool = True, data=None):
+        sizes = mesh_axis_sizes(mesh)
+        tp = sizes.get(TP, 1)
+        daxes = data_axes(mesh) if data is None else tuple(data)
+        dsize = math.prod(sizes[a] for a in daxes) if rows_on_data else 1
+        self.ctx = None
+        if math.prod(sizes.values()) > 1:
+            group = axis_group(mesh, (TP,))[0] if tp > 1 else None
+            dgroup = axis_group(mesh, daxes)[0] if dsize > 1 else None
+            coord = mesh_coordinate(mesh)
+            rank = coord[TP] if tp > 1 else 0
+            drank = 0
+            for a in daxes if dsize > 1 else ():
+                drank = drank * sizes[a] + coord[a]
+            self.ctx = MeshContext(mesh, group, tp, rank, dgroup, dsize, drank)
+
+    def __enter__(self):
+        _AMBIENT.append(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        _AMBIENT.pop()
+
+
+def ambient() -> MeshContext | None:
+    """The ambient mesh's context, or None (one device, or no mesh)."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def model_parallel() -> MeshContext | None:
+    """The ambient context when its ``model`` axis has more than one rank."""
+    ctx = ambient()
+    return ctx if ctx is not None and ctx.size > 1 else None
+
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return y
+
+
+class _EnterModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a replicated tensor entering
+    compute that each rank of the model axis does on its own piece (a
+    column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _LeaveModel(torch.autograd.Function):
+    """All-reduce forward, identity backward: the partial sums of the
+    model axis' ranks made whole (after a row-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather forward along ``dim`` (the pieces in model-axis order),
+    this rank's slice backward: for a tensor the ranks then use alike."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank, dim):
+        import torch.distributed as dist
+
+        xt = x.movedim(dim, 0).contiguous()
+        buf = torch.empty((size * xt.shape[0], *xt.shape[1:]), dtype=x.dtype, device=x.device)
+        ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        ag(buf, xt, group=group)
+        ctx.slice = (dim, rank * x.shape[dim], x.shape[dim])
+        return buf.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, start, n = ctx.slice
+        return g.narrow(dim, start, n).contiguous(), None, None, None, None
+
+
+class _SumData(torch.autograd.Function):
+    """All-reduce forward and backward over the data axes: a statistic
+    summed over the ranks' rows, each rank's loss reading the sum (the
+    adjoint of a sum every rank reads is the sum of their gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _GatherData(torch.autograd.Function):
+    """All-gather forward over the data axes along dim 0 (the ranks' rows
+    in order), and the adjoint backward: the gradients of every rank's
+    loss summed, this rank's rows kept."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        buf = torch.empty((size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        ag(buf, x, group=group)
+        ctx.rows = (rank * x.shape[0], x.shape[0], group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        start, n, group = ctx.rows
+        return _all_reduce(g, group).narrow(0, start, n).contiguous(), None, None, None
+
+
+def gather_data(x: torch.Tensor) -> torch.Tensor:
+    """Every data rank's rows of ``x`` (dim 0), in order (no-op with one
+    data rank)."""
+    ctx = ambient()
+    if ctx is None or ctx.data_size == 1:
+        return x
+    return _GatherData.apply(x, ctx.data_group, ctx.data_size, ctx.data_rank)
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering per-rank compute on the model axis (no-op without
+    one)."""
+    ctx = model_parallel()
+    return x if ctx is None else _EnterModel.apply(x, ctx.group)
+
+
+def leave_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model axis' partial ``x`` (no-op without one)."""
+    ctx = model_parallel()
+    return x if ctx is None else _LeaveModel.apply(x, ctx.group)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model axis' pieces of ``x`` concatenated along ``dim`` (no-op
+    without one)."""
+    ctx = model_parallel()
+    if ctx is None:
+        return x
+    return _GatherModel.apply(x, ctx.group, ctx.size, ctx.rank, dim % x.dim())
+
+
+def sum_data(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ambient mesh's data axes (no-op with one
+    data rank)."""
+    ctx = ambient()
+    if ctx is None or ctx.data_size == 1:
+        return x
+    return _SumData.apply(x, ctx.data_group)
+
+
+def all_max_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model axis, no gradient (a
+    softmax's shift)."""
+    import torch.distributed as dist
+
+    ctx = model_parallel()
+    if ctx is None:
+        return x.detach()
+    return _all_reduce(x.detach(), ctx.group, dist.ReduceOp.MAX)
+
+
+def head_slice(n_full: int, n_local: int) -> slice:
+    """This rank's slice of ``n_full`` units when it holds ``n_local`` of
+    them, in model-axis order (the whole range without a model axis)."""
+    ctx = model_parallel()
+    if ctx is None or n_local == n_full:
+        return slice(0, n_full)
+    if n_local * ctx.size != n_full:
+        raise ValueError(f"{n_local} of {n_full} units is not a {ctx.size}-way piece")
+    return slice(ctx.rank * n_local, (ctx.rank + 1) * n_local)
+
+
+# -- cache pieces gathered at use --------------------------------------------
+
+
+def register_cache(tree, shardings, keep) -> None:
+    """Record, in the ambient context, the cache leaves of ``tree`` whose
+    pieces the model must gather before use: ``keep(names, sharding)``
+    gives the axes a leaf keeps split (its rows on the data axes, its KV
+    heads on ``model`` when the heads are split); the rest of its spec's
+    axes are gathered by :func:`cache_open`."""
+    from torch.utils import _pytree as pytree
+
+    ctx = ambient()
+    if ctx is None:
+        return
+    sizes = mesh_axis_sizes(ctx.mesh)
+    names = pytree.tree_leaves(map_layers(lambda path, ref, layer, leaf: "/".join(ref),
+                                          tree))
+    for name, leaf, sh in zip(names, pytree.tree_leaves(tree),
+                              pytree.tree_leaves(shardings)):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        kept = keep(name.split("/"), sh)
+        axes = tuple(a for e in sh.spec for a in _axes(e)
+                     if a not in kept and sizes[a] > 1)
+        if axes:
+            ctx.cache_axes[id(leaf)] = (leaf, sh, axes)
+
+
+def cache_registered(t: torch.Tensor) -> bool:
+    """True when ``t`` is a cache piece :func:`cache_open` gathers."""
+    ctx = ambient()
+    entry = None if ctx is None else ctx.cache_axes.get(id(t))
+    return entry is not None and entry[0] is t
+
+
+def cache_open(t: torch.Tensor) -> torch.Tensor:
+    """A registered cache piece gathered over the axes the model computes
+    whole (a copy); any other tensor as it is."""
+    ctx = ambient()
+    entry = None if ctx is None else ctx.cache_axes.get(id(t))
+    if entry is None or entry[0] is not t:
+        return t
+    return gather(t, entry[1], entry[2])
+
+
+def cache_piece(t: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of ``full`` (a new value for the cache leaf ``t``,
+    in the layout :func:`cache_open` gave) when ``t`` is registered, else
+    ``full``."""
+    if not cache_registered(t):
+        return full
+    _leaf, sh, axes = ambient().cache_axes[id(t)]
+    kept = tuple(a for a in mesh_axis_names(sh.mesh) if a not in axes)
+    return full[local_slices(without(sh, kept), full.shape,
+                             mesh_coordinate(sh.mesh))].contiguous()
+
+
+def cache_store(t: torch.Tensor, full: torch.Tensor) -> None:
+    """Write ``full`` (what :func:`cache_open` gave for ``t``, updated)
+    back into ``t``: its piece when ``t`` is registered, else the whole."""
+    if full is not t:
+        t.copy_(cache_piece(t, full))
+
+
+# -- which parameters are computed with as pieces ----------------------------
+
+
+def _on_model(sh: NamedSharding, dim: int, *, strided: bool = False) -> bool:
+    """True when ``model`` (of size > 1) splits dimension ``dim`` of the
+    spec and nothing else, as the outer axis of that dimension's entry
+    (any axis of it with ``strided``: see :func:`gather`)."""
+    if mesh_axis_sizes(sh.mesh).get(TP, 1) <= 1:
+        return False
+    where = [d for d, e in enumerate(sh.spec) if TP in _axes(e)]
+    return where == [dim] and (strided or _axes(sh.spec[dim])[0] == TP)
+
+
+def _has_model(sh: NamedSharding) -> bool:
+    return (mesh_axis_sizes(sh.mesh).get(TP, 1) > 1
+            and any(TP in _axes(e) for e in sh.spec))
+
+
+def _module_plan(names: set, node: dict, cfg, tp: int) -> dict:
+    """leaf -> gathered over ``model`` for one module's parameter dict."""
+
+    def split_if(ok: bool) -> dict:
+        return {k: (not ok) and _has_model(v) for k, v in node.items()
+                if isinstance(v, NamedSharding)}
+
+    if "wq" in names:  # attention
+        heads = (cfg.n_heads % tp == 0 and _on_model(node["wq"], 1)
+                 and _on_model(node["wo"], 0))
+        kv = (heads and cfg.n_kv_heads % tp == 0 and _on_model(node["wk"], 1)
+              and _on_model(node["wv"], 1))
+        out = split_if(heads)
+        for k in ("wk", "wv"):
+            out[k] = (not kv) and _has_model(node[k])
+        return out
+    if "in_proj" in names:  # mamba: channels of d_inner
+        cols = ("conv_w", "dt_proj")
+        rows = ("conv_b", "x_proj", "dt_bias", "A_log", "D", "out_proj")
+        ok = (cfg.d_inner % tp == 0 and all(_on_model(node[k], 1) for k in cols)
+              and all(_on_model(node[k], 0) for k in rows))
+        out = split_if(ok)
+        # in_proj's column piece holds x- or z-channels, not a rank's both.
+        out["in_proj"] = _has_model(node["in_proj"])
+        return out
+    if "router" in names:  # MoE: experts, else each expert's d_ff columns
+        experts = [node[k] for k in ("w1", "w2", "w3") if k in node]
+        ok = ((cfg.n_experts % tp == 0 and all(_on_model(s, 0) for s in experts))
+              or (_on_model(node["w1"], 2, strided=True)
+                  and _on_model(node["w2"], 1, strided=True)
+                  and ("w3" not in node or _on_model(node["w3"], 2, strided=True))))
+        return split_if(ok)
+    # a dense MLP: d_ff columns of w1 / w3, rows of w2
+    ok = (_on_model(node["w1"], 1, strided=True) and _on_model(node["w2"], 0, strided=True)
+          and ("w3" not in node or _on_model(node["w3"], 1, strided=True)))
+    return split_if(ok)
+
+
+def model_gathered(shardings, cfg):
+    """A tree of bools shaped like the parameter shardings: True for a
+    leaf the model cannot compute with as its ``model`` piece, so the step
+    gathers it over ``model`` too and computes it replicated.  A module
+    computes on pieces when its pieces fall on whole units: attention heads
+    (and KV heads, each q head's group whole), MLP columns, experts, Mamba
+    channels; the embedding and the head on whole vocabulary rows.  MLP
+    columns (an MoE's experts' too, when the experts do not split) may be
+    strided pieces (``gather(strided=True)``).  Mamba's ``in_proj`` is
+    always gathered: its column piece holds a rank's x- or z-channels, not
+    both."""
+    tp = 1
+    from torch.utils import _pytree as pytree
+
+    for sh in pytree.tree_leaves(shardings):
+        tp = mesh_axis_sizes(sh.mesh).get(TP, 1)
+        break
+
+    def walk(node):
+        if isinstance(node, NamedSharding):
+            return _has_model(node)
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        names = set(node)
+        leafy = {k for k, v in node.items() if isinstance(v, NamedSharding)}
+        if tp > 1 and ({"wq", "in_proj", "router"} & leafy
+                       or {"w1", "w2"} <= leafy):
+            plan = _module_plan(names, node, cfg, tp)
+            return {k: (plan[k] if k in plan else walk(v)) for k, v in node.items()}
+        out = {}
+        for k, v in node.items():
+            if k == "embed" and isinstance(v, NamedSharding):
+                out[k] = _has_model(v) and not _on_model(v, 0)
+            elif k == "lm_head" and isinstance(v, NamedSharding):
+                out[k] = _has_model(v) and not _on_model(v, 1)
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(shardings)
+
+
+def model_gathered_paths(shardings, cfg) -> list[str]:
+    """The paths (``/``-joined, one entry per layer) of the leaves
+    :func:`model_gathered` marks."""
+    flags = model_gathered(shardings, cfg)
+    out = []
+    map_layers(lambda path, ref, layer, leaf: out.append("/".join(path)) if leaf else None,
+               flags)
     return out

@@ -10,7 +10,9 @@ carried between steps.
 
 Parameters and optimizer state are replicated (every rank holds them
 whole); the batch is split over ``pod`` and, inside a pod, over the other
-data axes.  Ranks along ``model`` compute the same rows.
+data axes.  Ranks along ``model`` compute the same rows.  An MoE config's
+load-balance term is each pod's, its statistics summed over the pod's data
+ranks, as the reference's per-pod program computes it.
 """
 from __future__ import annotations
 
@@ -56,8 +58,9 @@ def make_compressed_train_step(cfg, rc, mesh, opt_cfg: AdamWConfig | None = None
         (w,) = token_weights([mb], inner_group)
         flat, spec = pytree.tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in flat]
-        loss, _aux = M.loss_fn(pytree.tree_unflatten(leaves, spec), cfg, rc, mb,
-                               kernels=kernels)
+        with SH.use_mesh(mesh, data=inner):  # an MoE term over the pod's microbatch
+            loss, _aux = M.loss_fn(pytree.tree_unflatten(leaves, spec), cfg, rc, mb,
+                                   kernels=kernels)
         loss = loss * w
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, g)]

@@ -49,21 +49,25 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
 
     ``grad_shardings`` (a tree of :class:`~repro_torch.parallel.sharding.
     NamedSharding` shaped like the parameters, from ``param_shardings``)
-    makes it the sharded step, ZeRO-3 style: ``params`` and ``opt_state``
-    are this rank's pieces under those shardings (``opt_state_shardings``)
-    and the result is too.  Each step gathers the parameters, computes the
-    gradients of this rank's rows of each microbatch (the rows split over
-    the mesh's data axes, as ``batch_shardings`` splits them; the batch is
-    given whole, the same on every rank), sums them in float32 over the
-    data axes with one reduce-scatter to each rank's pieces, clips by the
-    whole gradient's norm (each piece counted once) and runs AdamW on the
-    pieces.  The loss is the global masked mean: each rank's weighted by
-    its share of the microbatch's tokens.  The ``model`` axis stores
-    pieces but computes nothing in parallel: its ranks compute the same
-    rows (column- and row-parallel products are a later step).  An MoE
-    config's load-balance term is each rank's own, token-weighted: a
-    product of batch statistics, it differs from the whole microbatch's
-    when the data axes have more than one rank.
+    makes it the sharded step, the counterpart of the reference's step
+    jitted with these shardings: ``params`` and ``opt_state`` are this
+    rank's pieces under them (``opt_state_shardings``) and the result is
+    too.  The batch is given whole, the same on every rank; each rank
+    computes its rows (split over the mesh's data axes, as
+    ``batch_shardings`` splits them).  The step gathers each parameter over
+    the data axes only (ZeRO-3 storage) and runs the model on the mesh
+    (``sharding.use_mesh``), which computes each rank's share on the
+    ``model`` axis: attention heads, MLP columns, experts, Mamba channels
+    and vocabulary rows.  A parameter whose ``model`` piece does not fall on
+    whole units (``sharding.model_gathered``) is gathered over ``model``
+    too and computed replicated.  Each microbatch's gradients are
+    reduce-scattered over the data axes into float32 sums of this rank's
+    pieces, as the reference pins them to the parameters' shardings; the
+    step clips by the whole gradient's norm (each piece counted once) and
+    runs AdamW on the pieces.  The loss is the global masked mean (each
+    rank's weighted by its share of the microbatch's tokens), and an MoE
+    config's load-balance term is the whole microbatch's (its statistics
+    summed over the data axes).
     """
     opt_cfg = opt_cfg or AdamWConfig(
         weight_decay=rc.weight_decay,
@@ -85,7 +89,7 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
         return loss.detach(), grads
 
     if grad_shardings is not None:
-        return _sharded_train_step(rc, opt_cfg, grad_shardings, grad_fn)
+        return _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn)
 
     def train_step(params, opt_state, batch):
         flat, spec = pytree.tree_flatten(params)
@@ -175,43 +179,52 @@ def sharded_grad_norm(grads: list, shardings: list, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _sharded_train_step(rc, opt_cfg, grad_shardings, grad_fn):
-    """The ZeRO-3 style step of :func:`make_train_step` (``grad_shardings``
+def _gather_plan(cfg, shardings) -> tuple[list, list]:
+    """(the axes each parameter is gathered over, the layout of the
+    tensor the gather gives): the data axes, and ``model`` too for a leaf
+    :func:`~repro_torch.parallel.sharding.model_gathered` marks."""
+    shards = pytree.tree_leaves(shardings)
+    daxes = SH.data_axes(shards[0].mesh)
+    over_model = pytree.tree_leaves(SH.model_gathered(shardings, cfg))
+    axes = [daxes + (SH.TP,) if g else daxes for g in over_model]
+    layouts = [sh if g else SH.without(sh, (SH.TP,)) for sh, g in zip(shards, over_model)]
+    return axes, layouts
+
+
+def _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn):
+    """The sharded step of :func:`make_train_step` (``grad_shardings``
     given)."""
     import torch.distributed as dist
 
     shards = pytree.tree_leaves(grad_shardings)
     mesh = shards[0].mesh
     daxes = SH.data_axes(mesh)
+    axes, layouts = _gather_plan(cfg, grad_shardings)
 
     def train_step(params, opt_state, batch):
         flat, spec = pytree.tree_flatten(params)
         if len(flat) != len(shards):
             raise ValueError(f"{len(flat)} parameters, {len(shards)} shardings")
         group, _members = SH.axis_group(mesh, daxes)
-        leaves = [SH.gather(p.detach(), sh).requires_grad_(True)
-                  for p, sh in zip(flat, shards)]
-        batch = batch_to_device(batch, opt_state["step"].device)
-        n = rc.microbatches
-        mbs = _microbatches(batch, n)
-        rows = data_rows(next(iter(mbs[0].values())).shape[0], mesh, daxes)
-        mbs = [{k: v[rows] for k, v in mb.items()} for mb in mbs]
-        weights = token_weights(mbs, group)
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves]
-        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for mb, w in zip(mbs, weights):
-            loss_i, g = grad_fn(leaves, spec, mb, w)
-            for a, b in zip(gsum, g):
-                a.add_(b.float())
-            del g
-            lsum = lsum + loss_i
-        del leaves
-        grads = []
-        for i, sh in enumerate(shards):
-            piece = SH.reduce_scatter_sum(gsum[i], sh, daxes)
-            gsum[i] = None
-            grads.append(piece / n if n > 1 else piece)
+        with SH.use_mesh(mesh):
+            leaves = [SH.gather(p.detach(), sh, ax, strided=True).requires_grad_(True)
+                      for p, sh, ax in zip(flat, shards, axes)]
+            batch = batch_to_device(batch, opt_state["step"].device)
+            n = rc.microbatches
+            mbs = _microbatches(batch, n)
+            rows = data_rows(next(iter(mbs[0].values())).shape[0], mesh, daxes)
+            mbs = [{k: v[rows] for k, v in mb.items()} for mb in mbs]
+            weights = token_weights(mbs, group)
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+            lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+            for mb, w in zip(mbs, weights):
+                loss_i, g = grad_fn(leaves, spec, mb, w)
+                for i, lay in enumerate(layouts):
+                    gsum[i].add_(SH.reduce_scatter_sum(g[i], lay, daxes).float())
+                    g[i] = None
+                lsum = lsum + loss_i
+            del leaves
+        grads = [s / n if n > 1 else s for s in gsum]
         dist.all_reduce(lsum, op=dist.ReduceOp.SUM, group=group)
         loss_val = lsum / n if n > 1 else lsum
         gnorm = sharded_grad_norm(grads, shards, mesh)
@@ -239,19 +252,101 @@ def make_init(cfg, rc, opt_cfg: AdamWConfig | None = None, *,
     return init
 
 
-def make_prefill_step(cfg, rc, *, kernels: ops.FusedKernels = ops.KERNELS):
-    """prefill_step(params, cache, batch) -> (logits (B, 1, V), cache)."""
+def make_prefill_step(cfg, rc, *, kernels: ops.FusedKernels = ops.KERNELS,
+                      shardings=None):
+    """prefill_step(params, cache, batch) -> (logits (B, 1, V), cache).
+
+    ``shardings`` = (parameter shardings, cache shardings), from
+    ``param_shardings`` / ``cache_shardings``: the sharded step, the
+    counterpart of the reference's prefill jitted with them (see
+    :func:`_sharded_serving`)."""
 
     def prefill_step(params, cache, batch):
         return M.prefill(params, cfg, rc, batch, cache, kernels=kernels)
 
+    if shardings is not None:
+        return _sharded_serving(cfg, rc, shardings, prefill_step)
     return prefill_step
 
 
-def make_decode_step(cfg, rc, *, kernels: ops.FusedKernels = ops.KERNELS):
-    """decode_step(params, cache, tokens) -> (logits (B, 1, V), cache)."""
+def make_decode_step(cfg, rc, *, kernels: ops.FusedKernels = ops.KERNELS,
+                     shardings=None):
+    """decode_step(params, cache, tokens) -> (logits (B, 1, V), cache);
+    ``shardings`` as :func:`make_prefill_step`'s."""
 
     def decode_step(params, cache, tokens):
         return M.decode(params, cfg, rc, tokens, cache, kernels=kernels)
 
+    if shardings is not None:
+        return _sharded_serving(cfg, rc, shardings, decode_step)
     return decode_step
+
+
+def _cache_keep(cfg, pshard, mesh, rows_split: bool):
+    """keep(names, sharding) for ``sharding.register_cache``: the axes a
+    cache piece keeps while the model computes on it, its rows on the data
+    axes (when the batch is split over them) and ``model`` where the model
+    computes on this rank's KV heads or Mamba channels; the model gathers
+    the rest at use."""
+    gathered = SH.model_gathered_paths(pshard, cfg)
+    kv_split = not any(p.endswith(("attn/wk", "attn/wv")) for p in gathered)
+    ch_split = not any(p.endswith("mamba/conv_w") for p in gathered)
+    daxes = SH.data_axes(mesh)
+    tp = SH.mesh_axis_sizes(mesh).get(SH.TP, 1)
+
+    def keep(names, sh):
+        kept = set()
+        lead = SH._axes(sh.spec[0]) if len(sh.spec) else ()
+        if rows_split and lead and set(lead) <= set(daxes):
+            kept |= set(lead)
+        name = names[-1]
+        if tp > 1 and ((name in ("k", "v") and kv_split and SH._on_model(sh, 2))
+                       or (name == "conv" and ch_split and SH._on_model(sh, 2))
+                       or (name == "h" and ch_split and SH._on_model(sh, 1))):
+            kept.add(SH.TP)
+        return kept
+
+    return keep
+
+
+def _sharded_serving(cfg, rc, shardings, step):
+    """``step(params, cache, inputs)`` as a rank of the mesh runs it: the
+    parameters gathered over the data axes (and over ``model`` where
+    ``sharding.model_gathered`` says), this rank's rows of the inputs (the
+    whole batch, given on every rank; all of it with ``rc.seq_shard``), the
+    cache as this rank's pieces under the cache shardings, and the model
+    on the mesh, which computes its share on the ``model`` axis and gathers
+    at use the cache pieces it reads whole (a KV cache whose heads do not
+    split, a sequence split over the data axes), writing back only this
+    rank's piece.  The logits of every row come back on every rank."""
+    pshard, cshard = shardings
+    shards = pytree.tree_leaves(pshard)
+    mesh = shards[0].mesh
+    daxes = SH.data_axes(mesh)
+    axes, _layouts = _gather_plan(cfg, pshard)
+    rows_split = not rc.seq_shard
+    keep = _cache_keep(cfg, pshard, mesh, rows_split)
+    logit_rows = SH.NamedSharding(mesh, SH.P(daxes))
+
+    def sharded_step(params, cache, inputs):
+        flat, spec = pytree.tree_flatten(params)
+        if len(flat) != len(shards):
+            raise ValueError(f"{len(flat)} parameters, {len(shards)} shardings")
+        with SH.use_mesh(mesh, rows_on_data=rows_split):
+            full = pytree.tree_unflatten(
+                [SH.gather(p, sh, ax, strided=True) for p, sh, ax in zip(flat, shards, axes)],
+                spec)
+            if rows_split:
+                if isinstance(inputs, dict):
+                    rows = data_rows(next(iter(inputs.values())).shape[0], mesh, daxes)
+                    inputs = {k: v[rows] for k, v in inputs.items()}
+                else:
+                    inputs = inputs[data_rows(inputs.shape[0], mesh, daxes)]
+            SH.register_cache(cache, cshard, keep)
+            logits, new_cache = step(full, cache, inputs)
+            del full
+        if rows_split:
+            logits = SH.gather(logits, logit_rows, daxes)
+        return logits, new_cache
+
+    return sharded_step

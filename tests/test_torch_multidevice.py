@@ -20,12 +20,24 @@ joined through a file store) run the port:
 * the compressed step on (2, 2, 2): the loss falls by more than 0.2 in 8
   steps with an int8 payload for every gradient leaf, and the first step's
   loss is within 1e-5 relative of the reference's;
+* tensor and expert parallelism on (2, 4): each rank's attention sees
+  H / 4 heads and its MLP d_ff / 4 columns; a 4-expert MoE (experts on
+  ``model``), a 2-expert one (each expert's d_ff columns on ``model``) and
+  a Mamba model (channels on ``model``) take two sharded
+  steps within 2e-4 of the reference's sharded steps and of the port's
+  single-device ones, and the MoE's load-balance term is the whole
+  microbatch's (within 1e-6 of the reference's), where this rank's own
+  rows give another; the sharded prefill and two decode steps (the dense,
+  MoE and Mamba models) give the float32 logits of the reference's jitted
+  sharded steps within 1e-5 x max |logit|, the cache kept as the pieces
+  ``cache_shardings`` places;
 * a one-rank mesh: the sharded step bit-equal to the single-device one;
 * ``launch.train`` through the mesh: with ``--mesh`` on one rank the same
   losses as on one device, and under ``torchrun`` on two gloo ranks the
   same first loss and the last within 2e-4, each rank checkpointing its
   own pieces.
 """
+import json
 import os
 import subprocess
 import sys
@@ -42,15 +54,21 @@ from repro_torch import checkpoint as CKPT  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_multirank as MR  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 8
 TIMEOUT_S = 300
 STEP_TOL = 2e-4  # tests/test_multidevice.py's bound, loss and parameters
+GRAD_TOL = 1e-5  # float32 gradients, relative L2 per leaf: sums in another order
+AUX_TOL = 1e-6  # float32 statistics of 256 tokens, summed in another order
+SERVE_TOL = 1e-5  # x max |logit| (and x max |entry| of a cache leaf), float32
 PP_TOL = 1e-5
 LOSS_REL_TOL = 1e-5
 
 REFERENCE = textwrap.dedent("""
-    import os, sys
+    import json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax, jax.experimental, jax.numpy as jnp, numpy as np
     if not hasattr(jax.experimental, "enable_x64"):
@@ -75,6 +93,10 @@ REFERENCE = textwrap.dedent("""
         return ModelConfig(name="t", family="dense", n_layers=2, d_model=64,
                            n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=vocab,
                            dtype="float32")
+
+    TP_CFGS = {k: ModelConfig(**{f: tuple(v) if isinstance(v, list) else v
+                                 for f, v in kw.items()})
+               for k, kw in json.load(open(f"{work}/tp_cfgs.json")).items()}
 
     def load(name, cfg):
         tree, _ = CKPT.restore(f"{work}/{name}", 0,
@@ -145,6 +167,60 @@ REFERENCE = textwrap.dedent("""
             params, opt, ef, m = jstep(params, opt, ef, batch)
             losses.append(float(m["loss"]))
     out["cs/losses"] = np.array(losses)
+
+    # tensor and expert parallelism: the MoE and Mamba steps on (2, 4), two
+    # steps each, and the whole microbatch's load-balance term
+    rc = RunConfig(xent_chunk=16, attn_chunk_kv=16, learning_rate=1e-3,
+                   warmup_steps=1, mamba_chunk=8)
+    mesh = make_mesh((2, 4), ("data", "model"))
+    for tag, name in (("moe", "refC"), ("ssm", "refD"), ("moe_ff", "refE")):
+        cfg = TP_CFGS[tag]
+        params = load(name, cfg)
+        opt = init_opt_state(params, AdamWConfig())
+        batch = {"tokens": jnp.asarray(inp[f"{tag}_tokens"]),
+                 "labels": jnp.asarray(inp[f"{tag}_labels"])}
+        out[f"{tag}/aux"] = np.float64(M.loss_fn(params, cfg, rc, batch)[1]["aux"])
+        pod0 = {k: v[:4] for k, v in batch.items()}  # pod 0's rows on (2, 2, 2)
+        out[f"{tag}/aux_pod0"] = np.float64(M.loss_fn(params, cfg, rc, pod0)[1]["aux"])
+        pshard = SH.param_shardings(mesh, jax.eval_shape(lambda: params))
+        bshard = SH.batch_shardings(mesh, jax.eval_shape(lambda: batch))
+        oshard = SH.opt_state_shardings(mesh, jax.eval_shape(lambda: opt), pshard)
+        with SH.use_mesh(mesh):
+            jstep = jax.jit(make_train_step(cfg, rc), in_shardings=(pshard, oshard, bshard))
+            p, o = jax.device_put(params, pshard), jax.device_put(opt, oshard)
+            losses = []
+            for _ in range(2):
+                p, o, m = jstep(p, o, jax.device_put(batch, bshard))
+                losses.append(float(m["loss"]))
+        out.update(flat(p, f"{tag}/sharded"))
+        out[f"{tag}/losses"] = np.array(losses)
+
+    # the jitted sharded prefill and decode, (2, 4)
+    from repro.runtime.steps import make_decode_step, make_prefill_step
+    for tag, name in (("A", "refA"), ("moe", "refC"), ("ssm", "refD")):
+        cfg = TP_CFGS[tag]
+        params = load(name, cfg)
+        cache = M.init_cache(cfg, 8, 20)
+        pshard = SH.param_shardings(mesh, jax.eval_shape(lambda: params))
+        cshard = SH.cache_shardings(mesh, jax.eval_shape(lambda: cache))
+        batch = {"tokens": jnp.asarray(inp["serve_prompt"])}
+        bshard = SH.batch_shardings(mesh, jax.eval_shape(lambda: batch))
+        tshard = SH.batch_shardings(mesh, jax.eval_shape(
+            lambda: jnp.asarray(inp["serve_next"][0])))
+        with SH.use_mesh(mesh):
+            pre = jax.jit(make_prefill_step(cfg, rc), in_shardings=(pshard, cshard, bshard),
+                          out_shardings=(None, cshard))
+            dec = jax.jit(make_decode_step(cfg, rc), in_shardings=(pshard, cshard, tshard),
+                          out_shardings=(None, cshard))
+            p = jax.device_put(params, pshard)
+            logits, cache = pre(p, jax.device_put(cache, cshard), batch)
+            steps = [np.asarray(logits)]
+            for t in inp["serve_next"]:
+                logits, cache = dec(p, cache, jnp.asarray(t))
+                steps.append(np.asarray(logits))
+        out[f"serve/{tag}/logits"] = np.stack(steps)
+        out.update({k: v for k, v in flat(cache, f"serve/{tag}/cache").items()
+                    if not k.endswith("/len")})
     np.savez(f"{work}/reference.npz", **out)
 """)
 
@@ -168,9 +244,12 @@ def _stacked(params):
 
 def _write_inputs(work: Path) -> dict:
     rng = np.random.default_rng(0)
-    for name, vocab, seed in (("A", 256, 0), ("B", 128, 1)):
+    cfgs = MR.tp_cfgs()
+    (work / "tp_cfgs.json").write_text(json.dumps(MR.TP_CFG_FIELDS))
+    for name, cfg, seed in (("A", _cfg(256), 0), ("B", _cfg(128), 1), ("C", cfgs["moe"], 2),
+                            ("D", cfgs["ssm"], 3), ("E", cfgs["moe_ff"], 4)):
         gen = torch.Generator().manual_seed(seed)
-        params = M.init_params(_cfg(vocab), generator=gen, device="cpu")
+        params = M.init_params(cfg, generator=gen, device="cpu")
         CKPT.save(work / f"port{name}", 0, {"params": params})
         CKPT.save(work / f"ref{name}", 0, {"params": _stacked(params)})
     inp = {
@@ -181,6 +260,14 @@ def _write_inputs(work: Path) -> dict:
         "pp_ws": (rng.standard_normal((4, 16, 16)) * 0.3).astype(np.float32),
         "pp_x": rng.standard_normal((6, 8, 16)).astype(np.float32),
         "cp_x": (rng.standard_normal((2, 1024)) * 3.0).astype(np.float32),
+        "moe_tokens": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "moe_labels": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "ssm_tokens": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "ssm_labels": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "moe_ff_tokens": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "moe_ff_labels": rng.integers(0, 256, (8, 32), dtype=np.int32),
+        "serve_prompt": rng.integers(0, 256, (8, 16), dtype=np.int32),
+        "serve_next": rng.integers(0, 256, (2, 8, 1), dtype=np.int32),
     }
     np.savez(work / "inputs.npz", **inp)
     return inp
@@ -257,6 +344,65 @@ def test_sharded_train_step_matches_the_reference_and_single_device(runs):
         if k.startswith("step/sharded_m/"):
             want = port[k.replace("step/sharded_m", "step/single_m", 1)]
             assert np.abs(v - want).max() < STEP_TOL, k
+
+
+def test_each_rank_computes_its_share_of_the_heads_and_columns(runs):
+    _inp, port, _ref = runs
+    cfg = _cfg(256)
+    assert list(port["split/heads"]) == [cfg.n_heads // 4]
+    assert list(port["split/ff_columns"]) == [cfg.d_ff // 4]
+
+
+@pytest.mark.parametrize("tag", ["moe", "ssm", "moe_ff"])
+def test_expert_and_channel_parallel_steps_match_the_reference(runs, tag):
+    _inp, port, ref = runs
+    losses = port[f"{tag}/losses"]
+    assert np.abs(losses - ref[f"{tag}/losses"]).max() < STEP_TOL
+    assert np.abs(losses - port[f"{tag}/losses_single"]).max() < STEP_TOL
+    _params_close(port, ref, f"{tag}/sharded", f"{tag}/sharded", STEP_TOL)
+    for k, v in port.items():
+        if k.startswith(f"{tag}/sharded/"):
+            want = port[k.replace(f"{tag}/sharded", f"{tag}/single", 1)]
+            assert np.abs(v - want).max() < STEP_TOL, k
+
+
+@pytest.mark.parametrize("tag", ["qk", "moe", "ssm", "moe_ff"])
+def test_the_partitioned_first_step_gradients_are_the_single_devices(runs, tag):
+    _inp, port, _ref = runs
+    rel = port[f"grads/{tag}"]
+    leaves = torch.utils._pytree.tree_leaves(M.abstract_params(MR.tp_cfgs()[tag]))
+    assert rel.size == len(leaves)  # every leaf, the q / k norm scales included
+    assert rel.max() <= GRAD_TOL, (rel.max(), int(rel.argmax()))
+
+
+def test_the_moe_load_balance_term_is_the_whole_microbatchs(runs):
+    _inp, port, ref = runs
+    assert abs(float(port["moe/aux"]) - float(ref["moe/aux"])) < AUX_TOL
+    # the input shows the fault the term had: one data rank's own rows
+    # give another statistic
+    assert abs(float(port["moe/aux_own"]) - float(ref["moe/aux"])) > 100 * AUX_TOL
+    # the compressed step's pods: each pod's microbatch, over its data ranks
+    assert abs(float(port["moe/aux_pod0"]) - float(ref["moe/aux_pod0"])) < AUX_TOL
+
+
+@pytest.mark.parametrize("tag", ["A", "moe", "ssm"])
+def test_sharded_prefill_and_decode_match_the_references_jitted_steps(runs, tag):
+    _inp, port, ref = runs
+    got, want = port[f"serve/{tag}/logits"], ref[f"serve/{tag}/logits"]
+    assert got.shape == want.shape == (3, 8, 1, 256)
+    for step in range(3):
+        assert np.abs(got[step] - want[step]).max() <= SERVE_TOL * np.abs(want[step]).max()
+    assert bool(port[f"serve/{tag}/pieces_ok"])
+    seen = 0
+    for key, leaf in port.items():
+        if not key.startswith(f"serve/{tag}/cache/"):
+            continue
+        rkey, layer = _port_to_ref_key(key)
+        w = ref[rkey] if layer is None else ref[rkey][layer]
+        assert leaf.shape == w.shape, key
+        assert np.abs(leaf - w).max() <= SERVE_TOL * max(np.abs(w).max(), 1e-30), key
+        seen += 1
+    assert seen
 
 
 @pytest.mark.parametrize("shape", ["2x2x2", "2x4"])
