@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's thirteen main paths through the entry points a user calls,
+Drives the port's fourteen main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -26,7 +26,21 @@ PyTorch version.  Phases, one line each:
                kernel, against the plain forward;
    phases 3-5 are the first main path: the launch counts are zeroed just
    before and read just after it;
-6. dag_search  the grouping search on DAGs -- the fourth main path, counts
+6. vgg_train   training VGG-16 through ``models.vgg`` -- the fourteenth
+               main path, counts zeroed just before and read just after:
+               224x224 x 3, 1,000 classes, float32, batch 8, weights from
+               ``init_params`` seeded by ``--seed``, 10 SGD+momentum steps
+               through ``loss_fn`` and autograd with cuDNN's TF32 off in
+               forward and backward; ms a step (median of the warm steps by
+               CUDA events), images/s, model TFLOP/s (3 x 30.94 GFLOP an
+               image) against the CUDA-core bound, peak memory, the losses;
+               the first step's gradients against float64 replaying the
+               float32 forward's ReLU and pool gates (relative L2 per leaf
+               within VGG_GRAD_TOL, and a step with TF32 on in the backward
+               shown to exceed it); the trained parameters' forward through
+               fused_conv3x3 (13 launches) against the plain forward within
+               LOGIT_TOL;
+7. dag_search  the grouping search on DAGs -- the fourth main path, counts
                zeroed just before and read just after (it launches none of
                the four kernels): resnet18_ir (224x224), residual_block_ir
                and encoder_decoder_ir, the frontier DP's locked optima with
@@ -36,7 +50,7 @@ PyTorch version.  Phases, one line each:
                262,144 = 83,886,080 candidates), re-timed with CUDA events,
                a seeded 4,096-cell sample held bit for bit to the scalar
                oracles and its least bandwidth to the DP optimum's;
-7. frontend    the tracing frontend -- the fifth main path, counts zeroed
+8. frontend    the tracing frontend -- the fifth main path, counts zeroed
                just before and read just after (it launches none of the
                four kernels): every model traced at full width over meta
                tensors on the host (VGG-16 both modes, ResNet-18 224x224,
@@ -51,7 +65,7 @@ PyTorch version.  Phases, one line each:
                ResNet-18's bit for bit to the sweep of ir.resnet18_ir; the
                ResNet-18 forward (batch 8, float32 against float64) and one
                mixtral MoE layer at full width (bfloat16 against float32);
-8. fleet       the fleet sweep -- the sixth main path, counts zeroed just
+9. fleet       the fleet sweep -- the sixth main path, counts zeroed just
                before and read just after (it launches none of the four
                kernels): run_fleet over VGG-16 and the encoder-decoder with
                every valid grouping (one (2, 320, 262144, 5) float64 plane,
@@ -66,7 +80,7 @@ PyTorch version.  Phases, one line each:
                degrades to one device; a poisoned winning cell is quarantined
                at its global index) -- every answer equal to the reference's
                (FLEET_LOCKS);
-9. service     the planning service -- the seventh main path, counts zeroed
+10. service     the planning service -- the seventh main path, counts zeroed
                just before and read just after (no kernel launches):
                benchmarks/bench_serve.py's traffic (the MLP block, the
                residual block, the encoder-decoder, ResNet-18; three budgets;
@@ -79,28 +93,28 @@ PyTorch version.  Phases, one line each:
                equals an offline run_fleet bit for bit; p50 / p99 ms,
                achieved QPS, degradation and plan-cache hit rates, the outcome
                taxonomy and the recovery ms;
-10. plan       plan_model for all 11 registry configs at 4096 tokens; every
+11. plan       plan_model for all 11 registry configs at 4096 tokens; every
                chosen tile (the selective scan's too, for the configs with
                Mamba layers) fits the card's opt-in shared memory;
-11. serve      ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
+12. serve      ``repro_torch.launch.serve.main`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16): 8 requests, prompt 512, 32
                generated tokens -- the second main path, counts zeroed just
                before and read just after: flash_attention once per layer
                in the prefill, fused_mlp once per layer per forward;
-12. serve_time prefill ms, decode ms per token and tokens/s through the
+13. serve_time prefill ms, decode ms per token and tokens/s through the
                kernels and, for comparison, through their plain versions;
                prefill logits through the kernels against the plain path in
                bfloat16 and in float32; a profiled prefill and four decode
                steps;
-13. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
+14. serve_ssm  ``serve.main`` on falcon-mamba-7b at full width and depth (64
                layers, bfloat16), 8 requests, prompt 512, 32 generated
                tokens -- the third main path, counts zeroed just before and
                read just after: selective_scan once per layer in the prefill
                and once per layer per decode step, no flash_attention or
                fused_mlp;
-14. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
+15. serve_ssm_time   as serve_time, for falcon-mamba (the float32 logits at a
                cut depth, printed);
-15. serve_moe  mixtral-8x7b at full width, 16 of its 32 layers (the 32-layer
+16. serve_moe  mixtral-8x7b at full width, 16 of its 32 layers (the 32-layer
                model's 93.1 GB of bfloat16 weights do not fit the card),
                through ``serve.run`` (runtime.steps' prefill and decode
                steps, as ``serve.main`` calls them), 8 requests, prompt 512,
@@ -109,10 +123,10 @@ PyTorch version.  Phases, one line each:
                layer in the prefill (the sliding window of 4096), no
                fused_mlp (the experts are batched products, as in the
                reference);
-16. serve_moe_time   as serve_time, for mixtral (the float32 logits at 2
+17. serve_moe_time   as serve_time, for mixtral (the float32 logits at 2
                layers); the bfloat16 logits also against a kernel-free
                reordering of the attention (the router's top-2 may flip);
-17. serve_encdec     ``serve.main`` on seamless-m4t-large-v2 at full width
+18. serve_encdec     ``serve.main`` on seamless-m4t-large-v2 at full width
                and depth (24 encoder + 24 decoder layers, bfloat16), 8
                requests of 1024 frames and a 512-token prompt, 32 generated
                tokens -- the ninth main path, counts zeroed just before and
@@ -120,9 +134,9 @@ PyTorch version.  Phases, one line each:
                (the encoder's non-causal self-attention, the decoder's
                causal one, cross-attention over the frames), fused_mlp once
                per layer per forward (48 in the prefill, 24 a decode step);
-18. serve_encdec_time   as serve_time, for seamless, both logits at full
+19. serve_encdec_time   as serve_time, for seamless, both logits at full
                depth, the bfloat16 ones also against the reordering;
-19. serve_ring gemma3-27b at full width, one superblock (5 sliding-window
+20. serve_ring gemma3-27b at full width, one superblock (5 sliding-window
                layers of 1024 + 1 global), 8 requests, prompt 1280, 32
                generated tokens, through runtime.steps with
                ``local_ring_cache`` and a ring cache -- the tenth main path,
@@ -131,23 +145,23 @@ PyTorch version.  Phases, one line each:
                once per layer per forward; then the same tokens through the
                full cache: the logits within the bfloat16 tolerance,
                each cache's bytes;
-20. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+21. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-21. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+22. attention, mlp   flash_attention and fused_mlp vs their plain versions at
                the serving shapes of the five serving paths and at the
                shapes of tests/test_kernels.py (masks, the planner's tiles,
                float32 and bfloat16), with the same four times, and every
                built tile at qwen3's serving shapes; kernel phases time a
                launch over runs of CALLS launches and also one call alone;
-22. scan       selective_scan vs its plain version at falcon-mamba's prefill
+23. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
                decode row also replays its CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-23. train      ``repro_torch.launch.train.run`` on qwen3-0.6b at full width
+24. train      ``repro_torch.launch.train.run`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16), train_4k's 4096 tokens, 16
                sequences a step in 4 microbatches, "full" remat and the
                custom-VJP flash attention, 8 steps through ResilientTrainer
@@ -159,10 +173,10 @@ PyTorch version.  Phases, one line each:
                the losses finite and falling, one failure and one restore,
                the replayed steps' losses against the first pass's, peak
                device memory;
-24. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
+25. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
                over three more steps, and a profiled step's device idle
                share;
-25. roofline   the cost tools (no kernel launches): ``launch.dryrun`` of
+26. roofline   the cost tools (no kernel launches): ``launch.dryrun`` of
                qwen3-0.6b's train_4k and decode_32k cells on the 16x16 and
                2x16x16 meshes, traced on the host (resident GiB/device,
                bound, step >= ms, mfu <=); the roofline of phase train's
@@ -171,16 +185,16 @@ PyTorch version.  Phases, one line each:
                reference-definition MFU of the measured step beside
                train_time's, and bound / measured, which fails the run
                above 1.0;
-26. train_parity   one microbatch's loss and every gradient leaf through the
+27. train_parity   one microbatch's loss and every gradient leaf through the
                kernels against the plain attention, bfloat16 at full depth
                (also against a kernel-free reordering) and float32 at 2
                layers;
-27. train_kernel   flash_attention_bwd vs its plain version at qwen3's
+28. train_kernel   flash_attention_bwd vs its plain version at qwen3's
                training shape, windowed, chunked, hd 64 non-causal GQA,
                ragged and float32 shapes, two runs bit for bit, with its
                time, the plain version's, SDPA's backward and the bound;
                flash_attention with its logsumexp at the training shape;
-28. train_sharded   the sharded training path -- the twelfth main path:
+29. train_sharded   the sharded training path -- the twelfth main path:
                qwen3-0.6b as in phase train, TRAIN_SHARDED's steps through
                ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
                "model") NCCL mesh of this process (counts zeroed just before
@@ -198,7 +212,7 @@ PyTorch version.  Phases, one line each:
                ``resume_on_mesh`` of phase train's checkpoint, exactly the
                saved tensors; ``pipeline_apply`` at one stage, 6
                microbatches, bit-equal to the sequential result;
-29. train_tp    the partitioned training path -- the thirteenth main path:
+30. train_tp    the partitioned training path -- the thirteenth main path:
                qwen3-0.6b at full width and depth on a (1, 2) ("data",
                "model") mesh of two processes on the one card, joined by
                gloo (NCCL refuses two ranks on one GPU); each rank computes
@@ -220,7 +234,12 @@ PyTorch version.  Phases, one line each:
                memory, one profiled step's device busy time and the host
                time spent in the collectives, the prefills' ms (cold, then
                warm);
-30. the kernels line, then the result line.  Every kernel row's bytes and
+31. examples   the five twins ``examples/*_torch.py`` (quickstart,
+               evaluate_design, serve_lm, train_lm at 100 of its 200
+               steps, vgg_pipeline), each in a fresh interpreter on the card (its
+               default device): exit 0, its output, its wall time; the VGG
+               twin's fused forward launched fused_conv3x3 13 times;
+32. the kernels line, then the result line.  Every kernel row's bytes and
     FLOPs (its bound) come from ``repro_torch.core.roofline.kernel_cost``.
     The kernels launched at the partitioned path's local shapes have their
     own entries (``"path": "train_tp"``).
@@ -233,6 +252,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1616,6 +1636,270 @@ def time_forward(torch, model, x) -> dict:
           f"{ms['fused']:.3f} ms ({BATCH / ms['fused'] * 1e3:.6g} images/s), "
           f"plain {ms['plain']:.3f} ms")
     return ms
+
+
+# ---------------------------------------------------------------------------
+# Training VGG-16 (models/vgg.py's functional half) and the examples' twins
+# ---------------------------------------------------------------------------
+
+# The VGG-16 training run: the paper's model at its published size, 10
+# SGD+momentum steps as examples/vgg_pipeline.py takes them.
+VGG_TRAIN = {"in_hw": 224, "n_classes": 1000, "batch": BATCH, "steps": 10,
+             "lr": 1e-3, "momentum": 0.9}
+# The first step's float32 gradients against the same step in float64 on the
+# card, relative L2 per leaf.  The float64 step replays the float32 forward's
+# gates (each ReLU's mask, each 2x2 pool's argmax): a float64 forward of its
+# own flips the gates of the few units whose pre-activation lies within
+# float32's rounding of zero, and on random labels a gradient is a sum of
+# terms that mostly cancel, so those flips alone move a conv leaf by 0.0089
+# (conv_w[0]), TF32 or not.  Against the replay (seed 0, NVIDIA H100 80GB
+# HBM3, 700.00 W) the sound step is within 2.16e-5 (conv_w[1], its weight
+# gradient a sum over 8 x 224 x 224 pixels; median 1.2e-6) and a step with
+# TF32 on in the backward 1.32e-3 (conv_w[3]; median 8.2e-4).  1e-4 sits
+# 4.6x above the one and 13x below the other.
+VGG_GRAD_TOL = 1e-4
+# The five example twins run on the card by phase examples, with the
+# arguments each is given there: train_lm at 100 of its 200 steps (its
+# failure at step 50, after the step-49 checkpoint), since at 200 (37.5 s)
+# the phase took 98.7 s, past its 90 s.
+EXAMPLES = {"quickstart": [], "evaluate_design": [], "serve_lm": [],
+            "train_lm": ["--steps", "100"], "vgg_pipeline": []}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def vgg_forward_flops(in_hw: int, n_classes: int) -> float:
+    """FLOPs of one image's VGG-16 forward (2 per multiply-add): the 13
+    convolutions at the plan's 224x224 frames and the classifier."""
+    from repro_torch.core.ir import VGG16_CONV_PLAN
+
+    conv = sum(2 * 9 * n_in * n_out * hw * hw for _n, n_in, n_out, hw, _p in VGG16_CONV_PLAN)
+    s = in_hw // 32
+    return float(conv + 2 * (512 * s * s * 4096 + 4096 * 4096 + 4096 * n_classes))
+
+
+def _vgg_loss_grads(torch, VGG, params: dict, batch: dict) -> tuple:
+    """(loss, the gradient of every leaf of ``params`` in tree order):
+    ``VGG.loss_fn`` through autograd on detached copies of the leaves."""
+    from torch.utils import _pytree as pytree
+
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    loss = VGG.loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def _vgg_gates(torch, VGG, params: dict, x) -> tuple:
+    """The float32 forward's discrete choices, from the ops ``loss_fn``
+    runs (TF32 off): every ReLU's mask (its output > 0, as ReLU's backward
+    reads it) and every 2x2 pool's argmax indices (None where unpooled)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.ir import VGG16_CONV_PLAN
+    from repro_torch.kernels import ref
+
+    masks, pools = [], []
+    with torch.no_grad(), ref.no_tf32():
+        for i, (_n, _ci, _co, _hw, pooled) in enumerate(VGG16_CONV_PLAN):
+            x = VGG.conv_bn_relu(x, {"w": params["conv_w"][i], "b": params["conv_b"][i]})
+            masks.append(x > 0)
+            idx = None
+            if pooled:
+                y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 2, return_indices=True)
+                x = y.permute(0, 2, 3, 1)
+            pools.append(idx)
+        x = x.reshape(x.shape[0], -1)
+        for w, b in zip(params["fc_w"][:2], params["fc_b"][:2]):
+            x = torch.relu(x @ w + b)
+            masks.append(x > 0)
+    return masks, pools
+
+
+def _vgg_gated_loss(torch, params: dict, batch: dict, masks: list, pools: list):
+    """VGG-16's loss with every ReLU and pool replaced by the given gates
+    (:func:`_vgg_gates`), in the dtype of ``params``: the same linear piece
+    of the network as the forward the gates came from."""
+    import torch.nn.functional as F
+
+    x = batch["images"]
+    for i, (w, b) in enumerate(zip(params["conv_w"], params["conv_b"])):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+        y = (y.permute(0, 2, 3, 1) + b) * masks[i]
+        if pools[i] is not None:
+            B, H, W, C = y.shape
+            flat = y.permute(0, 3, 1, 2).reshape(B, C, H * W)
+            y = flat.gather(2, pools[i].reshape(B, C, -1)).reshape(
+                B, C, H // 2, W // 2).permute(0, 2, 3, 1)
+        x = y
+    x = x.reshape(x.shape[0], -1)
+    for i, (w, b) in enumerate(zip(params["fc_w"], params["fc_b"])):
+        x = x @ w + b
+        if i < 2:
+            x = x * masks[len(params["conv_w"]) + i]
+    logp = torch.log_softmax(x, dim=-1)
+    return -torch.gather(logp, -1, batch["labels"][:, None]).mean()
+
+
+def phase_vgg_train(torch, spec, card: str, seed: int) -> dict:
+    """VGG-16 at 224x224 x 3 with 1,000 classes, float32, trained through
+    ``models.vgg.init_params`` / ``loss_fn`` and autograd for VGG_TRAIN's
+    SGD+momentum steps with cuDNN's TF32 off in forward and backward; the
+    first step's gradients against float64 (and, to show the bound catches
+    it, against a step with TF32 on in the backward); the trained
+    parameters' forward through fused_conv3x3 against the plain forward."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import fused_conv, ops, ref
+    from repro_torch.models import vgg as VGG
+
+    run = VGG_TRAIN
+    B, hw, n_cls = run["batch"], run["in_hw"], run["n_classes"]
+    params = VGG.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                             in_hw=hw, n_classes=n_cls)
+    bgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def next_batch():
+        return {"images": torch.randn((B, hw, hw, 3), generator=bgen, device="cuda"),
+                "labels": torch.randint(0, n_cls, (B,), generator=bgen, device="cuda")}
+
+    # the first step's gradients: float32 (TF32 off, then TF32 on in the
+    # backward, as autograd runs it when the caller does not scope it)
+    # against float64 replaying the float32 forward's gates, and against a
+    # float64 step of its own (printed)
+    batch0 = next_batch()
+    with ref.no_tf32():
+        _, g32 = _vgg_loss_grads(torch, VGG, params, batch0)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, g_tf32 = _vgg_loss_grads(torch, VGG, params, batch0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    masks, pools = _vgg_gates(torch, VGG, params, batch0["images"])
+    flat64, spec64 = pytree.tree_flatten(pytree.tree_map(lambda t: t.double(), params))
+    leaves64 = [p.requires_grad_(True) for p in flat64]
+    batch64 = {"images": batch0["images"].double(), "labels": batch0["labels"]}
+    g64 = torch.autograd.grad(_vgg_gated_loss(
+        torch, pytree.tree_unflatten(leaves64, spec64), batch64, masks, pools), leaves64)
+    del masks, pools, leaves64
+    _, g64_own = _vgg_loss_grads(torch, VGG, pytree.tree_unflatten(flat64, spec64), batch64)
+    sound = _rel_l2(torch, [g.double() for g in g32], g64)
+    tf32 = _rel_l2(torch, [g.double() for g in g_tf32], g64)
+    own = _rel_l2(torch, [g.double() for g in g32], g64_own)
+    del g32, g_tf32, g64, g64_own, flat64
+    names = [f"{k}[{i}]" for k, v in params.items() for i in range(len(v))]
+
+    def worst(rel):
+        i = max(range(len(rel)), key=rel.__getitem__)
+        return f"max {rel[i]:.6g} ({names[i]}), median {statistics.median(rel):.6g}"
+
+    print(f"phase vgg_train gradients: the first step, float32 against float64 on the "
+          f"card with the float32 forward's gates, relative L2 per leaf over "
+          f"{len(sound)} leaves: TF32 off {worst(sound)}; TF32 on in the backward "
+          f"{worst(tf32)}; bound {VGG_GRAD_TOL}; against a "
+          f"float64 step with gates of its own: {worst(own)}")
+    check(max(sound) <= VGG_GRAD_TOL,
+          f"VGG-16's float32 gradients differ from float64 by {max(sound)} > {VGG_GRAD_TOL}")
+    check(max(tf32) > VGG_GRAD_TOL,
+          f"a backward in TF32 stays within VGG_GRAD_TOL = {VGG_GRAD_TOL} "
+          f"(max {max(tf32)}): the bound would not catch it")
+
+    # the training run: every step's forward and backward with TF32 off
+    flat = pytree.tree_leaves(params)
+    momentum = [torch.zeros_like(p) for p in flat]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(run["steps"]):
+        batch = batch0 if step == 0 else next_batch()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with ref.no_tf32():
+            loss, grads = _vgg_loss_grads(torch, VGG, params, batch)
+        with torch.no_grad():
+            for p, m, g in zip(flat, momentum, grads):
+                m.mul_(run["momentum"]).add_(g)
+                p.sub_(run["lr"] * m)
+        e1.record()
+        e1.synchronize()
+        del grads
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses),
+          f"non-finite VGG-16 training losses: {losses}")
+    ms = statistics.median(step_ms[1:])
+    fwd = vgg_forward_flops(hw, n_cls)
+    step_flops = 3 * fwd * B
+    bound = spec.compute_seconds(step_flops, 4) * 1e3
+    print(f"phase vgg_train: VGG-16 {hw}x{hw}, {n_cls} classes, batch {B}, float32, "
+          f"TF32 off in forward and backward, {run['steps']} SGD+momentum steps (lr "
+          f"{run['lr']}, momentum {run['momentum']}) through loss_fn and autograd: "
+          f"{ms:.4f} ms a step (median of {len(step_ms) - 1} warm steps; the first "
+          f"{step_ms[0]:.4f}), {B / ms * 1e3:.6g} images/s, {step_flops / ms / 1e9:.6g} "
+          f"TFLOP/s model (3 x {fwd / 1e9:.6g} GFLOP an image = {step_flops / 1e9:.6g} "
+          f"GFLOP a step), bound {bound:.4f} ms at {spec.peak_fp32_flops / 1e12:g} "
+          f"TFLOP/s (CUDA cores; share {bound / ms:.4f}), peak memory "
+          f"{peak / 2**30:.4f} GiB; {card}")
+    print(f"phase vgg_train losses: {losses}")
+
+    # the trained parameters' forward through the kernel vs the plain one
+    x = next_batch()["images"]
+    before = fused_conv.fused_conv3x3.launches
+    with torch.inference_mode():
+        y = VGG.forward(params, x, fused_conv_fn=ops.fused_conv_fn())
+        torch.cuda.synchronize()
+        launched = fused_conv.fused_conv3x3.launches - before
+        y_plain = VGG.forward(params, x)
+    check(launched == 13, f"the trained forward launched fused_conv3x3 {launched} "
+          "times, not 13")
+    check(bool(torch.isfinite(y).all()), "non-finite logits of the trained VGG-16")
+    err = float((y - y_plain).abs().max())
+    scale = float(y_plain.abs().max())
+    check(err <= LOGIT_TOL * scale,
+          f"the trained VGG-16's fused logits differ from plain by {err} > "
+          f"{LOGIT_TOL} x {scale}")
+    print(f"phase vgg_train forward: the trained parameters through fused_conv3x3 "
+          f"({launched} launches), logits max |fused - plain| = {err:.6g} (max |logit| "
+          f"{scale:.6g}, tolerance {LOGIT_TOL} x max)")
+    return {"ms_per_step": ms, "step_ms": step_ms, "images_per_s": B / ms * 1e3,
+            "model_tflops": step_flops / ms / 1e9, "step_gflop": step_flops / 1e9,
+            "bound_ms": bound, "peak_bytes": peak, "losses": losses,
+            "grad_rel_l2_max": max(sound), "grad_rel_l2_tf32_max": max(tf32),
+            "grad_rel_l2_own_gates_max": max(own),
+            "grad_rel_l2": dict(zip(names, sound)),
+            "grad_rel_l2_tf32": dict(zip(names, tf32)),
+            "grad_rel_l2_own_gates": dict(zip(names, own)),
+            "launches": launched, "max_abs_err": err, "max_abs_logit": scale,
+            "card": card}
+
+
+def phase_examples(card: str) -> dict:
+    """Each twin in ``examples/*_torch.py`` in a fresh interpreter with its
+    default device (the card): exit 0, its output, its wall time."""
+    import re
+
+    rows = {}
+    for name, args in EXAMPLES.items():
+        path = ROOT / "examples" / f"{name}_torch.py"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(path), *args], cwd=ROOT,
+                              capture_output=True, text=True, check=False,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"  {name}_torch | {line}")
+        check(proc.returncode == 0,
+              f"examples/{name}_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+        given = (f" {' '.join(args)} (cut from its default to keep the phase near 90 s)"
+                 if args else "")
+        print(f"phase examples: examples/{name}_torch.py{given} exit 0 in "
+              f"{wall:.3f} s (wall, interpreter start included); {card}")
+        rows[name] = {"args": args, "seconds": wall, "stdout": proc.stdout}
+    found = re.search(r"\((\d+) fused_conv3x3 launches\)", rows["vgg_pipeline"]["stdout"])
+    check(found is not None and int(found.group(1)) == 13,
+          "vgg_pipeline_torch.py's fused forward did not launch fused_conv3x3 13 times")
+    return rows
 
 
 def phase_layers(torch, spec, seed: int) -> list:
@@ -3615,7 +3899,8 @@ def serve_entry(name: str, source: str, parts: list, launches: int) -> dict:
 
 def kernels_entry(rows: list, launches: int, spec) -> dict:
     """The fused_conv3x3 entry of the kernels line: times summed over the
-    13 layers at the main path's shapes (batch 8, float32)."""
+    13 layers at the main paths' shapes (batch 8, float32: the forward of
+    phase forward and the trained forward of phase vgg_train)."""
     main = [r for r in rows if r["batch"] == BATCH and r["dtype"] == "float32"]
     t_bytes = spec.memory_seconds(sum(r["bytes"] for r in main)) * 1e3
     flops = sum(r["flops"] for r in main)
@@ -3687,6 +3972,18 @@ def main(argv=None) -> int:
     print(f"phase main_path vgg16: launches {vgg_counts}")
     forward["ms"] = time_forward(torch, model, x)
     del model, x
+    torch.cuda.empty_cache()
+
+    # ---- main path 14, training VGG-16: counts zeroed just before, read just
+    # after (its steps run the torch ops; the trained forward runs K1) ----
+    zero_counts()
+    vgg_train = phase_vgg_train(torch, spec, card, args.seed)
+    vgg_train_counts = read_counts()
+    check(vgg_train_counts == {"fused_conv3x3": 13, "flash_attention": 0, "fused_mlp": 0,
+                               "selective_scan": 0, "flash_attention_bwd": 0},
+          f"training VGG-16 launched {vgg_train_counts}, not fused_conv3x3 13 times "
+          "(the trained forward) and nothing else")
+    print(f"phase main_path vgg_train: launches {vgg_train_counts}")
     torch.cuda.empty_cache()
 
     # ---- main path 4, the grouping search on DAGs: counts zeroed just
@@ -3869,6 +4166,7 @@ def main(argv=None) -> int:
     # them just after (checked in the phase) ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         train_tp = phase_train_tp(torch, card, args.seed, Path(tmp))
+    examples = phase_examples(card)
 
     layer_rows = phase_layers(torch, spec, args.seed)
     plan = plan_model(qwen, 4096, spec)
@@ -3882,7 +4180,8 @@ def main(argv=None) -> int:
         return next(r for r in rows if r["case"] == case and r.get("dtype") == dtype)
 
     entries = [
-        kernels_entry(layer_rows, vgg_counts["fused_conv3x3"], spec),
+        kernels_entry(layer_rows,
+                      vgg_counts["fused_conv3x3"] + vgg_train_counts["fused_conv3x3"], spec),
         serve_entry("flash_attention",
                     "src/repro_torch/kernels/csrc/flash_attention.cu",
                     [(row(att_rows, "serve", "bfloat16"), n_layers)],
@@ -3920,7 +4219,8 @@ def main(argv=None) -> int:
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
         "card": card, "build": build, "paper_flow": paper,
-        "exhaustive": exhaustive, "forward": forward, "dag_search": dag,
+        "exhaustive": exhaustive, "forward": forward, "vgg_train": vgg_train,
+        "vgg_train_counts": vgg_train_counts, "examples": examples, "dag_search": dag,
         "dag_search_counts": dag_counts, "frontend": frontend,
         "frontend_counts": frontend_counts, "fleet": fleet,
         "fleet_counts": fleet_counts, "service": service,

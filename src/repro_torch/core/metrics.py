@@ -189,6 +189,10 @@ def pe_energy_count_ref(ir: NetworkIR | GraphIR, hw: DLAConfig) -> float:
     return total * hw.pe_units
 
 
+# Back-compat alias (pre-calibration name), as in the reference.
+pe_block_cycles_ref = pe_energy_count_ref
+
+
 def energy_ref(ir: NetworkIR | GraphIR, cuts: np.ndarray, hw: DLAConfig) -> float:
     """Eq. (3): E = E_DRAM*C_DRAM + E_SRAM*C_SRAM + E_PB*C_PB   [nJ]."""
     c_dram = bandwidth_ref(ir, cuts)

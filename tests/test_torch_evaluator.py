@@ -166,6 +166,13 @@ def test_scalar_oracles_bit_identical(pool_mode):
                           RM.bandwidth_batch_graph(rg, cuts))
 
 
+def test_pe_block_cycles_alias_matches_reference():
+    rh, ph = _hw_pair(37)
+    assert (TM.pe_block_cycles_ref(TI.vgg16_ir(), ph)
+            == RM.pe_block_cycles_ref(RI.vgg16_ir(), rh))
+    assert TM.pe_block_cycles_ref is TM.pe_energy_count_ref
+
+
 # ---------------------------------------------------------------------------
 # The batched sweep: raw and composed planes
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """The port stands alone: no JAX, nothing of ``repro``, and no silent CPU run.
 
 * an AST scan finds no import of ``jax`` or of ``repro`` in the port's
-  package or in ``chip_smoke.py``;
+  package, in ``chip_smoke.py`` or in the examples' twins
+  (``examples/*_torch.py``);
 * importing the whole port in a fresh interpreter loads no JAX module;
 * on a host without CUDA the entry points raise unless given
-  ``device="cpu"``, and ``chip_smoke.py`` exits non-zero with no result.
+  ``device="cpu"``, the twins exit non-zero unless given ``--device cpu``,
+  and ``chip_smoke.py`` exits non-zero with no result.
 """
 import ast
 import os
@@ -21,7 +23,8 @@ import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
@@ -129,6 +132,21 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         assert svc.plan(req, timeout=120).ok
     with pytest.raises(ValueError, match="unsupported device"):
         flow.run_flow(vgg, groupings="pool", device="meta")
+
+
+def test_there_are_five_example_twins():
+    assert [p.name for p in TWINS] == [
+        "evaluate_design_torch.py", "quickstart_torch.py", "serve_lm_torch.py",
+        "train_lm_torch.py", "vgg_pipeline_torch.py"]
+
+
+@pytest.mark.parametrize("twin", TWINS, ids=[p.name for p in TWINS])
+def test_twin_without_a_device_fails_without_cuda(twin):
+    _no_cuda()
+    proc = _run("", script=twin)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert proc.stdout == ""  # it raised before printing a result
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():

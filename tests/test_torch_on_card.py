@@ -27,6 +27,7 @@ from repro_torch.core import arch, flow, fusion, ir, metrics
 from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
                                  fused_conv, fused_mlp, mamba_scan, ops, ref)
 from repro_torch.models import model as M
+from repro_torch.models import vgg as VGG
 from repro_torch.models.vgg import VGG16
 
 pytestmark = pytest.mark.cuda
@@ -189,6 +190,46 @@ def test_vgg_forward_through_the_kernel_matches_plain(cuda):
     assert fused_conv.fused_conv3x3.launches == before + 13
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-4 * scale
+
+
+def _vgg_train_inputs(seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = VGG.init_params(gen, in_hw=32, n_classes=10)
+    batch = {"images": torch.randn((2, 32, 32, 3), generator=gen, device="cuda"),
+             "labels": torch.randint(0, 10, (2,), generator=gen, device="cuda")}
+    return params, batch
+
+
+def test_vgg_loss_through_the_kernel_refuses_grad(cuda):
+    params, batch = _vgg_train_inputs()
+    for t in params["conv_w"]:
+        t.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        VGG.loss_fn(params, batch, fused_conv_fn=ops.fused_conv_fn())
+    # torch.func's transform raises too: no silent switch to the plain path
+    plain = {k: [t.detach() for t in v] for k, v in params.items()}
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        torch.func.grad(lambda p: VGG.loss_fn(p, batch, fused_conv_fn=ops.fused_conv_fn()))(plain)
+
+
+# The plain path's float32 gradients against float64 at 32x32, relative L2
+# per leaf, TF32 off: float32 sums reordered over 16 layers (1e-6 on the
+# CPU against the reference); TF32 in the backward gives about 1e-3.
+VGG_GRAD_TOL = 1e-4
+
+
+def test_vgg_float32_gradients_match_float64_with_tf32_off(cuda):
+    params, batch = _vgg_train_inputs(1)
+    with ref.no_tf32():
+        g32, loss32 = torch.func.grad_and_value(VGG.loss_fn)(params, batch)
+    p64 = {k: [t.double() for t in v] for k, v in params.items()}
+    b64 = {"images": batch["images"].double(), "labels": batch["labels"]}
+    g64, loss64 = torch.func.grad_and_value(VGG.loss_fn)(p64, b64)
+    assert abs(float(loss32) - float(loss64)) <= 1e-5 * abs(float(loss64))
+    for k in g64:
+        for a, b in zip(g32[k], g64[k]):
+            rel = float(torch.linalg.vector_norm(a.double() - b) / torch.linalg.vector_norm(b))
+            assert rel <= VGG_GRAD_TOL, (k, rel)
 
 
 # ---------------------------------------------------------------------------
