@@ -11,10 +11,13 @@ PyTorch version.  Phases, one line each:
                nvcc from the checkout, one nvcc each, together; for
                flash_attention_bwd the registers, spills and HMMA
                instructions of each instantiation, failing if one that
-               training launches has no HMMA; for flash_attention and fused_mlp
-               the registers, spills and tensor-core (HMMA / HGMMA)
-               instructions of each bfloat16 instantiation, failing if one
-               that serving launches has none; for fused_conv3x3 those of
+               training launches has no HGMMA or spills; for
+               flash_attention and fused_mlp the registers, spills and
+               tensor-core (HMMA / HGMMA) instructions of each bfloat16
+               instantiation, failing if one that serving launches has
+               none, and if flash_attention's wgmma instantiations that
+               serving and training launch have no HGMMA, spill or are
+               serialized by ptxas; for fused_conv3x3 those of
                its float32 (3xTF32) and bfloat16 instantiations, failing
                if one has no HMMA or spills;
 3. paper flow  run_flow on the paper's configuration set and compare_fusion,
@@ -153,7 +156,8 @@ PyTorch version.  Phases, one line each:
                the serving shapes of the five serving paths and at the
                shapes of tests/test_kernels.py (masks, the planner's tiles,
                float32 and bfloat16), with the same four times, and every
-               built tile at qwen3's serving shapes; kernel phases time a
+               built tile at qwen3's serving shapes and (flash_attention
+               with its logsumexp) its training shape; kernel phases time a
                launch over runs of CALLS launches and also one call alone;
 23. scan       selective_scan vs its plain version at falcon-mamba's prefill
                and decode shapes, the shapes of tests/test_kernels.py and
@@ -626,6 +630,13 @@ def phase_device(torch) -> str:
     return card
 
 
+def serialized_wgmma(log: str) -> list:
+    """The kernels (mangled names) of an ``nvcc -Xptxas -v`` log where
+    ptxas notes that it serializes their wgmma (C7515 / C7520)."""
+    return [line.split("in the function", 1)[-1].strip(" '") for line in log.splitlines()
+            if "wgmma.mma_async instructions are serialized" in line]
+
+
 def phase_build() -> dict:
     """Build the five kernel libraries from the checkout's sources, one
     nvcc each, all started together.  For the attention backward, each
@@ -634,9 +645,14 @@ def phase_build() -> dict:
     whose bfloat16 bodies run on the tensor cores: each bf16
     instantiation's registers and spills (``-Xptxas -v``) and its HMMA /
     HGMMA instructions in the SASS (``cuobjdump -sass``); fails if a bf16
-    instantiation that serving launches has none.  For K1, whose float32 (3xTF32) and bfloat16 bodies
+    instantiation that serving launches has none, and if K2's wgmma
+    instantiations that serving and training launch (``default_tile`` at
+    their lengths) have no HGMMA, spill or have their wgmma serialized.
+    For K1, whose float32 (3xTF32) and bfloat16 bodies
     both run on the tensor cores, the same for every instantiation; fails
     if one has no HMMA or spills."""
+    import torch
+
     from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
                                      fused_conv, fused_mlp)
 
@@ -655,11 +671,17 @@ def phase_build() -> dict:
               f"{max(regs, default=0)}, {len(spilling)} spilling")
         out["libraries"][kernel.name] = {"seconds": built.seconds,
                                          "kernels": len(report), "spilling": spilling}
-    tc = fused_attention.DEFAULT_TILE
     bm, bf = fused_mlp.default_tile(SERVE["requests"] * SERVE["prompt_len"])
     dm, df = fused_mlp.default_tile(SERVE["requests"])
-    serving = {  # the bf16 instantiations qwen3's serve launches (swiglu: gated)
-        fused_attention.KERNEL.name: [f"flash_attention_mma_kernelILi128ELi{tc[0]}ELi{tc[1]}E"],
+    serving = {  # the bf16 instantiations the serving and training paths launch
+        # K2's wgmma body: head dims 128 and 64 at the serving lengths'
+        # tile (qwen3, mixtral, gemma3's superblock; seamless), 128 at the
+        # training length's (with and without lse: one instantiation)
+        fused_attention.KERNEL.name: [
+            f"flash_attention_wgmma_kernelILi{hd}ELi{t[0]}ELi{t[1]}E"
+            for hd, t in ((128, fused_attention.default_tile(128, torch.bfloat16, SERVE["prompt_len"])),
+                          (64, fused_attention.default_tile(64, torch.bfloat16, SERVE["prompt_len"])),
+                          (128, fused_attention.default_tile(128, torch.bfloat16, TRAIN_RUN["seq"])))],
         fused_mlp.KERNEL.name: [f"fused_mlp_mma_prefill_kernelILi{bm}ELi{bf}ELb1E",
                                 f"fused_mlp_mma_decode_kernelILi{dm}ELi{df}ELb1E"],
     }
@@ -668,23 +690,35 @@ def phase_build() -> dict:
             continue
         report = builder.ptxas_report(built.log)
         sass = builder.sass_counts(built.path)
-        bf16 = sorted(n for n in sass if "_mma_" in n)
+        serialized = serialized_wgmma(built.log)
+        bf16 = sorted(n for n in sass if "_mma_" in n or "_wgmma_" in n)
         f32 = [n for n in sass if "_f32_kernel" in n]
         for want in serving[kernel.name]:
             check(any(want in n for n in bf16),
                   f"{built.path.name}: no bf16 kernel {want} in the SASS")
         for name in bf16:
             ops, ptx = sass[name], report.get(name, {})
-            short = name.split("_mma_", 1)[1].split("EEv", 1)[0]
+            body = "wgmma" if "_wgmma_" in name else "mma"
+            short = f"{body} " + name.split(f"_{body}_", 1)[1].split("EEv", 1)[0]
             serve = any(w in name for w in serving[kernel.name])
-            out["tensor_core"][f"{kernel.name}:{short}"] = {**ops, **ptx, "serving": serve}
+            serial = any(name in f for f in serialized)
+            spills = (ptx.get("spill_stores"), ptx.get("spill_loads"))
+            out["tensor_core"][f"{kernel.name}:{short}"] = {
+                **ops, **ptx, "serving": serve, "wgmma_serialized": serial}
             print(f"  {kernel.name} bf16 {short}{' (serving)' if serve else ''}: "
                   f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; {ptx.get('registers')} "
-                  f"registers, spills {ptx.get('spill_stores')} / {ptx.get('spill_loads')} "
-                  "bytes")
+                  f"registers, spills {spills[0]} / {spills[1]} bytes"
+                  + ("; ptxas serializes its wgmma" if serial else ""))
             check(not serve or ops["HMMA"] + ops["HGMMA"] > 0,
                   f"{kernel.name}'s serving instantiation {short} has no tensor-core "
                   "instruction in its SASS")
+            if serve and body == "wgmma":
+                check(ops["HGMMA"] > 0, f"{kernel.name}'s serving instantiation {short} "
+                      "has no HGMMA")
+                check(not any(spills), f"{kernel.name}'s serving instantiation {short} "
+                      f"spills {spills} bytes")
+                check(not serial, f"ptxas serializes the wgmma of {kernel.name}'s serving "
+                      f"instantiation {short}")
         n_tc = sum(1 for n in f32 if sass[n]["HMMA"] + sass[n]["HGMMA"])
         print(f"  {kernel.name}: {len(bf16)} bf16 kernels, "
               f"{sum(1 for n in bf16 if sass[n]['HMMA'] + sass[n]['HGMMA'])} with "
@@ -696,9 +730,7 @@ def phase_build() -> dict:
     bwd = builds[kernels.index(flash_attention_bwd.KERNEL)]
     report = builder.ptxas_report(bwd.log)
     sass = builder.sass_counts(bwd.path)
-    serialized = [line.split("in the function", 1)[-1].strip(" '")
-                  for line in bwd.log.splitlines()
-                  if "wgmma.mma_async instructions are serialized" in line]
+    serialized = serialized_wgmma(bwd.log)
     training = ("flash_bwd_dkdv_wgmma_kernelILi128E", "flash_bwd_dq_wgmma_kernelILi128E")
     for want in training:
         check(any(want in n for n in sass), f"{bwd.path.name}: no kernel {want} in the SASS")
@@ -2579,7 +2611,7 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, Skv, KV, hd), generator=gen, device="cuda").to(dtype)
-        bq, bk = tile if tile else fused_attention.DEFAULT_TILE
+        bq, bk = tile if tile else fused_attention.default_tile(hd, dtype, Skv)
         mask = dict(causal=causal, window=window, chunk=chunk)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window or chunk:
@@ -2646,6 +2678,18 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         ref.flash_attention_ref(q, k, v).float(), fused_attention.TILES,
         ATT_TOL["bfloat16"], RL.kernel_cost("flash_attention", q=tuple(q.shape),
                                             kv=tuple(k.shape), itemsize=2).flops)
+    # qwen3's training shape, with the logsumexp the training forward writes
+    B, S, H, KV, hd = TRAIN_RUN["batch"] // TRAIN_RUN["microbatches"], TRAIN_RUN["seq"], 16, 8, 128
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    rows += tile_sweep(
+        torch, "attention train bfloat16 lse",
+        lambda t: fused_attention.flash_attention_lse(q, k, v, block_q=t[0], block_k=t[1])[0],
+        ref.flash_attention_ref(q, k, v).float(), fused_attention.TILES,
+        ATT_TOL["bfloat16"], RL.kernel_cost("flash_attention", q=tuple(q.shape),
+                                            kv=tuple(k.shape), itemsize=2, lse=True).flops)
+    del q, k, v
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -1,6 +1,7 @@
 // What the flash-attention forward (flash_attention.cu) and backward
 // (flash_attention_bwd.cu) share: the masks, so that both mask the same
-// (query, key) pairs, and the cp.async row loader of their bfloat16 tiles.
+// (query, key) pairs, the exponential of their bfloat16 bodies and the
+// cp.async row loader of their bfloat16 tiles.
 // Positions are absolute, 0..Sq-1 and 0..Skv-1: causal k <= q; a sliding
 // window (q - k) < window, and also (k - q) < window when not causal (the
 // model's attention_bias); a chunk q / chunk == k / chunk.
@@ -52,6 +53,15 @@ __device__ __forceinline__ bool tile_visible(int q_lo, int q_hi, int k_lo,
                      k_hi / chunk == k_lo / chunk))
     return false;
   return true;
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error ~2^-22,
+// results below 2^-126 flushed to 0), without exp2f's rescaling of such
+// results: P is rounded to bf16 (2^-9) before it is used.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // cp.async of `rows` rows of HD bf16 (row `row0` on, `stride` elements

@@ -49,7 +49,8 @@ STAGES = 3  # ring of streamed tiles of the wgmma bodies
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention_bwd.cu"
 KERNEL = builder.KernelSource("flash_attention_bwd", SOURCE, builder.BASE_FLAGS,
-                              (CSRC / "mma_bf16.cuh", CSRC / "flash_common.cuh"))
+                              (CSRC / "mma_bf16.cuh", CSRC / "flash_common.cuh",
+                               CSRC / "tma_wgmma.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,12 +7,19 @@ which cuts attention's traffic from O(Sq * Skv) to O(Sq * hd + Skv * hd).
 The kernel is hand-written CUDA for Hopper, ``csrc/flash_attention.cu``
 (its head comment gives the design), built by
 :mod:`repro_torch.kernels.builder` at its first launch and loaded with
-``ctypes``.  bfloat16 runs on the tensor cores (warp-level ``mma.sync``,
-K/V tiles double-buffered by ``cp.async``, P kept in registers and rounded
-to bf16 before PV); float32 runs on the CUDA cores, since TF32 would miss
-the float32 tolerance.  It is built for the head dims :data:`HEAD_DIMS` and
-the (block_q, block_k) tiles :data:`TILES`; :func:`smem_bytes` is its shared
-memory per block for each dtype, which the planner sizes against.
+``ctypes``.  bfloat16 at head dims 64 and 128 (:data:`WGMMA_HEAD_DIMS`)
+runs on Hopper's warpgroup tensor cores: one or two consumer warpgroups of
+64 queries a block and a producer warp that brings the Q tile and a ring of
+K/V tiles by TMA into 128-byte-swizzled shared memory; S = Q K^T is a
+``wgmma`` with both operands in shared memory, the online softmax runs on
+its float32 accumulators, and P, rounded to bf16, is the register operand
+of the ``wgmma`` for P V.  bfloat16 at head dims 32 and 96 runs on
+warp-level ``mma.sync`` (K/V tiles double-buffered by ``cp.async``);
+float32 on the CUDA cores, since TF32 would miss the float32 tolerance.
+It is built for the head dims :data:`HEAD_DIMS` and the (block_q, block_k)
+tiles :data:`TILES`; :func:`smem_bytes` is its shared memory per block for
+each dtype, which the planner sizes against, and :func:`default_tile` the
+tile a launch takes when none is given.
 
 :func:`flash_attention` is the wrapper: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.kernels.ref.flash_attention_ref`,
@@ -40,25 +47,54 @@ import torch
 from . import builder, flash_attention_bwd, ref
 
 HEAD_DIMS = (32, 64, 96, 128)  # head widths the kernel is built for
+WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 on wgmma; the others on mma.sync
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))  # (block_q, block_k)
-DEFAULT_TILE = (64, 64)  # two blocks per SM at head_dim 128
-ALIGN = 16  # bytes: the bf16 body copies rows in 16-byte cp.async chunks
+DEFAULT_TILE = (128, 128)  # the wgmma body's from LONG_KV keys on (training)
+SHORT_TILE = (64, 64)  # below LONG_KV keys (serving), and the other bodies'
+LONG_KV = 2048  # keys from which DEFAULT_TILE's longer tiles pay on the wgmma body
+ALIGN = 16  # bytes: the bf16 bodies copy rows in 16-byte chunks (cp.async, TMA)
+BARRIER_BYTES = 64  # the wgmma body's mbarriers
+ATOM = 1024  # bytes: the slack that aligns its swizzle atoms
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 NVCC_FLAGS = builder.BASE_FLAGS
 KERNEL = builder.KernelSource("flash_attention", SOURCE, NVCC_FLAGS,
-                              (CSRC / "mma_bf16.cuh", CSRC / "flash_common.cuh"))
+                              (CSRC / "mma_bf16.cuh", CSRC / "flash_common.cuh",
+                               CSRC / "tma_wgmma.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_wgmma(hd: int, dtype: torch.dtype) -> bool:
+    """Whether a launch at head dim ``hd`` and ``dtype`` runs the wgmma
+    body (bfloat16 at :data:`WGMMA_HEAD_DIMS`)."""
+    return dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+
+
+def default_tile(hd: int, dtype: torch.dtype, skv: int) -> tuple[int, int]:
+    """The (block_q, block_k) a launch over ``skv`` keys takes when none is
+    given: :data:`DEFAULT_TILE` on the wgmma body from :data:`LONG_KV` keys
+    on, where two warpgroups sharing each 128-key tile make fewer, longer
+    blocks pay; :data:`SHORT_TILE` below it (more blocks fill the card at
+    serving lengths) and on the other bodies."""
+    return DEFAULT_TILE if on_wgmma(hd, dtype) and skv >= LONG_KV else SHORT_TILE
 
 
 def smem_bytes(block_q: int, block_k: int, hd: int,
                dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory one block stages (bytes) — the Hopper counterpart of
     the reference kernel's ``vmem_bytes``.  bfloat16 (the serving dtype,
-    the default): the Q tile and two stages of K and V tiles, rows padded by
-    8 elements.  float32: the Q tile and one K-or-V tile, rows padded by 4
+    the default) at head dims 64 and 128: the Q tile and a ring of K and V
+    tiles in unpadded 128-byte-swizzled rows (3 stages for two warpgroups,
+    block_q 128, which hold the SM alone; 2 for one, whose SM holds a
+    second block), the mbarriers and the slack that aligns the swizzle
+    atoms.  bfloat16 at 32 and 96: the Q tile and two stages of K and V
+    tiles, rows padded by 8 elements.  float32: the Q tile and one K-or-V tile, rows padded by 4
     floats, and the (block_q, block_k + 4) probability tile."""
+    if on_wgmma(hd, dtype):
+        row = 2 * hd
+        stages = 3 if block_q == 128 else 2
+        return block_q * row + stages * 2 * block_k * row + BARRIER_BYTES + ATOM
     if dtype == torch.bfloat16:
         return (block_q + 4 * block_k) * (hd + 8) * 2
     if dtype == torch.float32:
@@ -136,8 +172,9 @@ def _launch(q, k, v, *, causal: bool, window: int, chunk: int, block_q, block_k,
     """One launch of the kernel on CUDA tensors: (o, lse or None)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    bq = DEFAULT_TILE[0] if block_q is None else block_q
-    bk = DEFAULT_TILE[1] if block_k is None else block_k
+    tile = default_tile(q.shape[3], q.dtype, k.shape[1])
+    bq = tile[0] if block_q is None else block_q
+    bk = tile[1] if block_k is None else block_k
     _check_cuda(q, k, v, bq, bk)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -194,7 +231,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (chunked-local; 0 = off) mask by absolute position.  A CPU tensor takes
     the plain version (tiles ignored); a CUDA tensor launches the kernel
     (counted in ``flash_attention.launches``) at the tile ``block_q`` x
-    ``block_k`` (default :data:`DEFAULT_TILE`) or raises.  On CUDA tensors
+    ``block_k`` (default :func:`default_tile`) or raises.  On CUDA tensors
     of which one requires grad, with grad mode on, the result is
     differentiable through the backward kernel.
     """

@@ -193,6 +193,26 @@ def test_attention_tensor_core_rounding_matches_reference(case):
     assert not torch.equal(got, kept)
 
 
+@pytest.mark.parametrize("case", K2_ROUNDING_CASES, ids=str)
+def test_attention_tensor_core_rounding_at_the_wgmma_tile(case):
+    # the wgmma body's training tile takes 128 keys at a time: its online
+    # softmax and P's rounding over those tiles against the Pallas kernel
+    B, Sq, Skv, H, KV, hd, window, chunk = case
+    assert hd in fused_attention.WGMMA_HEAD_DIMS
+    bq, bk = fused_attention.DEFAULT_TILE
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(B, Sq, Skv, H, KV, hd, 7), "bfloat16")
+    got = _k2_tensor_core(tq, tk, tv, window=window, chunk=chunk, block_k=bk)
+    assert torch.isfinite(got.float()).all()
+    # the Pallas kernel takes blocks that divide the sequences
+    kernel = r_fa.flash_attention(jq, jk, jv, window=window, chunk=chunk,
+                                  block_q=bq if Sq % bq == 0 else 64,
+                                  block_k=bk if Skv % bk == 0 else 64)
+    _close(got.float().numpy(), kernel, ATT_TOL["bfloat16"])
+    _close(got.float().numpy(), r_ref.flash_attention_ref(jq, jk, jv, window=window,
+                                                          chunk=chunk),
+           ATT_TOL["bfloat16"])
+
+
 def test_attention_refuses_window_and_chunk_together():
     q, k, v = (torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 1, 32),
                torch.zeros(1, 8, 1, 32))
@@ -287,6 +307,25 @@ def test_attention_tiles_fit_a_hopper_block(hd, tile):
         fused_attention.smem_bytes(bq, bk, hd, torch.bfloat16)
     assert bq % 16 == 0 and bk % 16 == 0 and hd % 16 == 0
     assert fused_attention.DEFAULT_TILE in fused_attention.TILES
+    assert fused_attention.SHORT_TILE in fused_attention.TILES
+    if hd in fused_attention.WGMMA_HEAD_DIMS:
+        # the wgmma body: 64-row warpgroups, S's wgmma N 64 or 128; the Q
+        # tile, 3 stages (two warpgroups) or 2 (one) of K and V in unpadded
+        # 128-byte-swizzled rows, the mbarriers, the alignment
+        assert bq % 64 == 0 and bk in (64, 128)
+        row = 2 * hd
+        assert fused_attention.smem_bytes(bq, bk, hd) == (
+            bq * row + (3 if bq == 128 else 2) * 2 * bk * row + 64 + 1024)
+        long, short = fused_attention.LONG_KV, fused_attention.LONG_KV - 1
+        assert fused_attention.default_tile(hd, torch.bfloat16, long) == \
+            fused_attention.DEFAULT_TILE
+        assert fused_attention.default_tile(hd, torch.bfloat16, short) == \
+            fused_attention.SHORT_TILE
+        assert fused_attention.default_tile(hd, torch.float32, long) == \
+            fused_attention.SHORT_TILE
+    else:
+        assert fused_attention.default_tile(hd, torch.bfloat16, 1 << 20) == \
+            fused_attention.SHORT_TILE
 
 
 @pytest.mark.parametrize("hd", flash_attention_bwd.HEAD_DIMS)
@@ -344,3 +383,24 @@ def test_kernel_sources_name_what_they_replace_and_build_for_sm90a():
     for mod in (fused_attention, fused_mlp):
         assert '#include "mma_bf16.cuh"' in mod.SOURCE.read_text()
         assert header in mod.KERNEL.headers
+
+
+def test_attention_forward_and_backward_share_one_copy_of_the_tma_helpers():
+    # the TMA, mbarrier and wgmma-descriptor helpers and the host's
+    # tensor-map encoder live in one header, part of both libraries' build
+    # hashes; neither source defines its own
+    header = fused_attention.CSRC / "tma_wgmma.cuh"
+    text = header.read_text()
+    for helper in ("mbar_init", "mbar_expect", "mbar_wait", "tma_tile", "desc_kmajor",
+                   "desc_mnmajor", "aligned_smem", "tensor_map", "cuTensorMapEncodeTiled"):
+        assert helper in text
+    for mod in (fused_attention, flash_attention_bwd):
+        src = mod.SOURCE.read_text()
+        assert '#include "tma_wgmma.cuh"' in src and header in mod.KERNEL.headers
+        assert "cp.async.bulk.tensor" not in src and "mbarrier.init" not in src
+        assert "typedef CUresult (*EncodeTiled)" not in src
+    # K2's forward at head dims 64 and 128 is the wgmma body, with the
+    # producer's empty/full ring
+    src = fused_attention.SOURCE.read_text()
+    assert "flash_attention_wgmma_kernel" in src and "mbar_arrive(empty" in src
+    assert fused_attention.WGMMA_HEAD_DIMS == flash_attention_bwd.WGMMA_HEAD_DIMS

@@ -329,6 +329,80 @@ def test_flash_attention_rows_fully_masked_in_the_first_tile(cuda, tile, dtype):
     _assert_att(got, ref.flash_attention_ref(q, k, v, window=16), dtype)
 
 
+# The wgmma body's tile edges (bfloat16 at head dims 64 and 128): 64-row
+# warpgroups, 64- or 128-key tiles, the rows the TMA zero-fills past Sq and
+# Skv, the tiles a warpgroup skips or masks.
+WG_EDGE_CASES = [  # (B, Sq, Skv, H, KV, hd, causal, window, chunk)
+    (1, 300, 300, 8, 4, 128, True, 0, 0),    # Sq, Skv not multiples of 64 or 128
+    (1, 200, 72, 4, 2, 128, True, 0, 48),    # Sq > Skv, chunked: queries 96.. see no key
+    (1, 200, 72, 4, 2, 64, False, 0, 48),    # the same, not causal, hd 64
+    (2, 256, 256, 16, 2, 64, True, 0, 0),    # GQA 8 at hd 64
+    (2, 320, 320, 4, 2, 128, False, 0, 0),   # non-causal hd 128
+    (1, 256, 256, 2, 1, 128, True, 16, 0),   # window 16: whole first tiles masked
+    (1, 256, 256, 2, 1, 64, True, 16, 0),    # the same at hd 64
+    (1, 333, 333, 4, 2, 64, False, 48, 0),   # non-causal window, ragged
+]
+
+
+@pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
+@pytest.mark.parametrize("case", WG_EDGE_CASES, ids=[str(c) for c in WG_EDGE_CASES])
+def test_flash_attention_wgmma_tile_edges(cuda, case, tile):
+    # out against the plain version, lse against the plain logsumexp on the
+    # rows that see a key, and the serving launch bit for bit the same
+    B, Sq, Skv, H, KV, hd, causal, window, chunk = case
+    assert hd in fused_attention.WGMMA_HEAD_DIMS
+    q, k, v = _att_inputs((B, Sq, Skv, H, KV, hd), torch.bfloat16, seed=21)
+    mask = dict(causal=causal, window=window, chunk=chunk)
+    before = fused_attention.flash_attention.launches
+    out, lse = fused_attention.flash_attention_lse(q, k, v, block_q=tile[0],
+                                                   block_k=tile[1], **mask)
+    torch.cuda.synchronize()
+    assert fused_attention.flash_attention.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    _assert_att(out, ref.flash_attention_ref(q, k, v, **mask), torch.bfloat16)
+    seen = ref._visible(Sq, Skv, causal, window, chunk, "cuda").any(dim=1)
+    want = ref.attention_lse_ref(q, k, **mask)
+    tol = LSE_TOL[torch.bfloat16]
+    torch.testing.assert_close(lse[:, :, seen], want[:, :, seen], atol=tol, rtol=tol)
+    again = fused_attention.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1], **mask)
+    assert torch.equal(again, out)
+
+
+def test_flash_attention_bf16_at_64_and_128_runs_the_wgmma_body(cuda, monkeypatch):
+    # no fallback: the plain version and SDPA are never called, and the
+    # profiler sees the wgmma kernel, never the mma.sync one, at head dims
+    # 64 and 128 (and the mma.sync one at 32 and 96)
+    from torch.profiler import ProfilerActivity, profile
+
+    def no_call(*args, **kwargs):
+        raise AssertionError("a plain or library attention ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", no_call)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", no_call)
+    for hd in fused_attention.HEAD_DIMS:
+        q, k, v = _att_inputs((1, 128, 128, 4, 2, hd), torch.bfloat16, seed=22)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_attention.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "flash_attention" in e.key]
+        if not names:
+            pytest.skip("the profiler records no CUDA kernel on this machine")
+        body = "wgmma" if hd in fused_attention.WGMMA_HEAD_DIMS else "mma"
+        other = "mma" if body == "wgmma" else "wgmma"
+        assert any(f"flash_attention_{body}_kernel" in n for n in names), (hd, names)
+        assert not any(f"flash_attention_{other}_kernel" in n for n in names), (hd, names)
+
+
+def test_flash_attention_shared_memory_is_the_wrappers(cuda):
+    lib = fused_attention._library()  # checks the same when it loads
+    for dtype, code in fused_attention._DTYPES.items():
+        for hd in fused_attention.HEAD_DIMS:
+            for bq, bk in fused_attention.TILES:
+                assert lib.flash_attention_smem_bytes(hd, bq, bk, code) == \
+                    fused_attention.smem_bytes(bq, bk, hd, dtype)
+    assert lib.flash_attention_smem_bytes(48, 64, 64, 1) == -1
+
+
 @pytest.mark.parametrize("shape", MLP_SHAPES, ids=[str(s) for s in MLP_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_mlp_matches_plain_version(cuda, shape, dtype):
@@ -417,8 +491,10 @@ def test_libraries_report_their_builds(cuda):
 
 def test_bf16_bodies_run_on_the_tensor_cores(cuda):
     # every bf16 instantiation's SASS holds tensor-core instructions (HMMA,
-    # or HGMMA for K3's wgmma prefill body), the float32 ones none; K3's
-    # bf16 kernels come gated and not.  K1's float32 (3xTF32) and bf16
+    # or HGMMA for K2's and K3's wgmma bodies), the float32 ones none; K3's
+    # bf16 kernels come gated and not.  K2: the wgmma body (HGMMA, no HMMA,
+    # no spill) at head dims 64 and 128, the mma.sync body (HMMA) at 32 and
+    # 96, one body per (head dim, tile).  K1's float32 (3xTF32) and bf16
     # instantiations, both tiles, hold HMMA and spill nothing
     if builder.cuobjdump() is None:
         pytest.skip("cuobjdump not found beside nvcc or on PATH")
@@ -432,12 +508,30 @@ def test_bf16_bodies_run_on_the_tensor_cores(cuda):
     assert not any(r.get("spill_stores") or r.get("spill_loads") for r in report.values())
     for mod, n_bf16, n_f32 in ((fused_attention, 16, 16), (fused_mlp, 8, 4)):
         counts = builder.sass_counts(mod.build().path)
-        bf16 = {name: c for name, c in counts.items() if "_mma_" in name}
+        bf16 = {name: c for name, c in counts.items()
+                if "_mma_" in name or "_wgmma_" in name}
         f32 = [c for name, c in counts.items() if "_f32_kernel" in name]
         assert len(bf16) == n_bf16 and len(f32) == n_f32
         assert all(c["HMMA"] + c["HGMMA"] > 0 for c in bf16.values())
         assert all(c["HGMMA"] > 0 for name, c in bf16.items() if "prefill" in name)
         assert not any(c["HMMA"] + c["HGMMA"] for c in f32)
+    built = fused_attention.build()
+    counts = builder.sass_counts(built.path)
+    report = builder.ptxas_report(built.log)
+    for hd in fused_attention.HEAD_DIMS:
+        body = "wgmma" if hd in fused_attention.WGMMA_HEAD_DIMS else "mma"
+        other = "mma" if body == "wgmma" else "wgmma"
+        assert not any(f"flash_attention_{other}_kernelILi{hd}E" in n for n in counts)
+        for bq, bk in fused_attention.TILES:
+            want = f"flash_attention_{body}_kernelILi{hd}ELi{bq}ELi{bk}E"
+            (name,) = [n for n in counts if want in n]
+            c = counts[name]
+            if body == "wgmma":
+                assert c["HGMMA"] > 0 and c["HMMA"] == 0, (name, c)
+                assert not report[name].get("spill_stores"), name
+                assert not report[name].get("spill_loads"), name
+            else:
+                assert c["HMMA"] > 0, (name, c)
 
 
 def test_prefill_and_decode_through_the_kernels_match_plain(cuda):
