@@ -17,9 +17,12 @@ PyTorch version.  Phases, one line each:
                instantiation, failing if one that serving launches has
                none, and if flash_attention's wgmma instantiations that
                serving and training launch have no HGMMA, spill or are
-               serialized by ptxas; for fused_conv3x3 those of
-               its float32 (3xTF32) and bfloat16 instantiations, failing
-               if one has no HMMA or spills;
+               serialized by ptxas; for fused_conv3x3 those of its float32
+               instantiations (3xTF32 on wgmma), failing if one that the
+               VGG path launches has no HGMMA, spills or has its wgmma
+               serialized by ptxas, of its bfloat16 ones (mma.sync), failing
+               if one has no HMMA or spills, and of its weight-prep and
+               input-staging kernels;
 3. paper flow  run_flow on the paper's configuration set and compare_fusion,
                held to the reference suite's locks (tests/test_flow.py);
 4. exhaustive  run_flow over the 320-point default space x all 2^17 VGG-16
@@ -648,9 +651,11 @@ def phase_build() -> dict:
     instantiation that serving launches has none, and if K2's wgmma
     instantiations that serving and training launch (``default_tile`` at
     their lengths) have no HGMMA, spill or have their wgmma serialized.
-    For K1, whose float32 (3xTF32) and bfloat16 bodies
-    both run on the tensor cores, the same for every instantiation; fails
-    if one has no HMMA or spills."""
+    For K1: its float32 body (3xTF32 on wgmma) at each tile, failing if an
+    instantiation the VGG path launches has no HGMMA, spills or has its
+    wgmma serialized; its bfloat16 body (mma.sync), failing if one has no
+    HMMA or spills; its weight-prep and input-staging kernels, failing if
+    one spills."""
     import torch
 
     from repro_torch.kernels import (builder, flash_attention_bwd, fused_attention,
@@ -750,25 +755,54 @@ def phase_build() -> dict:
               f"flash_attention_bwd's training instantiation {short} has no HGMMA")
         check(not train or not any(spills),
               f"flash_attention_bwd's training instantiation {short} spills {spills} bytes")
-    # K1: every instantiation (float32 3xTF32 and bfloat16, both tiles) is
-    # launched by the VGG path or phase layers.
+    # K1: the float32 body (3xTF32 on wgmma) at each tile the VGG path
+    # launches (batch 8: tile 16, and tile 8 at 14x14) must hold HGMMA, spill
+    # nothing and keep its wgmma asynchronous; the bfloat16 body (mma.sync,
+    # phase layers) HMMA and no spill; the weight prep and the input staging
+    # no spill.
+    import re
+
+    from repro_torch.core.ir import VGG16_CONV_PLAN
+
     conv = builds[kernels.index(fused_conv.KERNEL)]
     report = builder.ptxas_report(conv.log)
     sass = builder.sass_counts(conv.path)
-    names = sorted(n for n in sass if "fused_conv3x3_kernel" in n)
-    check(len(names) == 2 * len(fused_conv.TILES),
-          f"{conv.path.name}: {len(names)} fused_conv3x3 kernels in the SASS, not "
-          f"{2 * len(fused_conv.TILES)}")
-    for name in names:
+    serialized = serialized_wgmma(conv.log)
+    vgg_tiles = {fused_conv.choose_tile(BATCH, hw, hw, cout)
+                 for _, _, cout, hw, _ in VGG16_CONV_PLAN}
+    bodies = {n: re.search(r"fused_conv3x3_(f32|bf16)_kernelILi(\d+)E", n) for n in sass}
+    bodies = {n: (m.group(1), int(m.group(2))) for n, m in bodies.items() if m}
+    aux = {n: kind for kind in ("prep_weights", "stage_input") for n in sass
+           if f"fused_conv3x3_{kind}_kernel" in n}
+    for dname in ("f32", "bf16"):
+        check(sorted(t for d, t in bodies.values() if d == dname) == sorted(fused_conv.TILES),
+              f"{conv.path.name}: the {dname} kernels in the SASS are not one a tile "
+              f"{fused_conv.TILES}")
+    check(sorted(aux.values()) == ["prep_weights", "stage_input"],
+          f"{conv.path.name}: the weight-prep and staging kernels in the SASS are "
+          f"{sorted(aux.values())}")
+    for name in sorted(bodies, key=lambda n: bodies[n]) + sorted(aux):
         ops, ptx = sass[name], report.get(name, {})
-        short = name.split("fused_conv3x3_kernel", 1)[1].split("EEv", 1)[0]
-        dname = "float32 3xTF32" if short.startswith("If") else "bfloat16"
+        dname, tile = bodies.get(name, (aux.get(name), None))
+        vgg = dname == "f32" and tile in vgg_tiles
+        serial = any(name in f for f in serialized)
         spills = (ptx.get("spill_stores"), ptx.get("spill_loads"))
-        out["tensor_core"][f"{fused_conv.KERNEL.name}:{short}"] = {**ops, **ptx}
-        print(f"  {fused_conv.KERNEL.name} {dname} {short}: {ops['HMMA']} HMMA; "
-              f"{ptx.get('registers')} registers, spills {spills[0]} / {spills[1]} bytes")
-        check(ops["HMMA"] > 0, f"fused_conv3x3 {short} has no HMMA in its SASS")
-        check(not any(spills), f"fused_conv3x3 {short} spills {spills} bytes")
+        what = {"f32": f"float32 3xTF32 wgmma tile {tile}", "bf16": f"bfloat16 mma.sync tile {tile}",
+                "prep_weights": "float32 weight prep", "stage_input": "float32 input staging"}[dname]
+        out["tensor_core"][f"{fused_conv.KERNEL.name}:{dname}:{tile}"] = {
+            **ops, **ptx, "vgg_path": vgg, "wgmma_serialized": serial}
+        print(f"  {fused_conv.KERNEL.name} {what}{' (VGG path)' if vgg else ''}: "
+              f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; {ptx.get('registers')} registers, "
+              f"spills {spills[0]} / {spills[1]} bytes"
+              + ("; ptxas serializes its wgmma" if serial else ""))
+        check(not any(spills), f"fused_conv3x3 {what} spills {spills} bytes")
+        if dname == "bf16":
+            check(ops["HMMA"] > 0, f"fused_conv3x3 {what} has no HMMA in its SASS")
+        if vgg:
+            check(ops["HGMMA"] > 0, f"fused_conv3x3 {what} has no HGMMA in its SASS")
+            check(not serial, f"ptxas serializes the wgmma of fused_conv3x3 {what}")
+    check(vgg_tiles <= {t for d, t in bodies.values() if d == "f32"},
+          f"the VGG path's tiles {sorted(vgg_tiles)} are not all built")
     print(f"phase build: wall {wall:.3f} s")
     return out
 
@@ -1937,8 +1971,10 @@ def phase_examples(card: str) -> dict:
 def phase_layers(torch, spec, seed: int) -> list:
     """fused_conv3x3 vs its plain version at each VGG-16 conv shape; the
     bound is the larger of the bytes over ``spec``'s memory rate and the
-    multiply-adds over its peak for the input type (float32: the CUDA-core
-    rate, since the kernel and its plain version run with TF32 off)."""
+    operations over a peak rate: bfloat16 FLOPs at the tensor cores'
+    bfloat16 rate; float32 the smaller of FLOPs at the CUDA cores' rate and
+    3 x FLOPs at the tensor cores' TF32 rate (3xTF32, the kernel's
+    float32-exact route), both printed."""
     import torch.nn.functional as F
 
     from repro_torch.core import roofline as RL
@@ -1998,7 +2034,7 @@ def phase_layers(torch, spec, seed: int) -> list:
             t_bytes = spec.memory_seconds(n_bytes) * 1e3
             t_cores, t_3x = conv_op_bounds(spec, flops, es)
             t_ops = t_cores if t_3x is None else min(t_cores, t_3x)
-            geo = fused_conv.launch_geometry(batch, hw, hw, cin, cout)
+            geo = fused_conv.launch_geometry(batch, hw, hw, cin, cout, dtype)
             row = {"layer": name, "batch": batch, "dtype": dname, "hw": hw,
                    "cin": cin, "cout": cout, "pool": pool, "tile": geo.tile,
                    "blocks": geo.grid[0] * geo.grid[1] * geo.grid[2],

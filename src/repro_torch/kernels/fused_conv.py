@@ -7,22 +7,40 @@ chip and only the pooled frame is written to device memory — the traffic
 the evaluator's Eq. (1) credits a fused group.
 
 The kernel is hand-written CUDA for Hopper, ``csrc/fused_conv3x3.cu`` (its
-head comment gives the design): an implicit GEMM on the tensor cores,
-``mma.sync`` in three TF32 products for float32 (3xTF32, float32-exact to
-about 2^-22 a product; single-pass TF32 would miss the float32 tolerance)
-and one bfloat16 product for bfloat16, the 2x2 pool in registers through a
-sub-pixel-major row order (:func:`gemm_row_pixel`).  It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface, at
-its first launch, into ``build/kernels/`` of the repository checkout, and
-loaded with ``ctypes`` (:mod:`repro_torch.kernels.builder`).  The tile constants
-below are the single source of truth: they are passed to ``nvcc`` as
-``-D`` flags, and the launch grid and shared memory size are computed here
+head comment gives the design): an implicit GEMM on the tensor cores.
+
+* float32 runs as 3xTF32 (three TF32 products of split operands,
+  float32-exact to about 2^-22 a product; single-pass TF32 would miss the
+  float32 tolerance) on Hopper's warpgroup instruction, ``wgmma`` m64n64k8,
+  with both operands in shared memory: one producer warp brings each
+  8-channel chunk's haloed input tile by TMA and its weights by a bulk copy
+  into a ring of stages; ``TILE / 8`` consumer warpgroups split the tile
+  into big and small TF32 planes once per chunk and run the products,
+  each chunk summed into a zeroed partial that a float32 add folds into the
+  sum (the tensor cores truncate their sums).  A small kernel of the same
+  call first writes the weights as K-major big and small planes
+  (:func:`prep_weights_ref` is its plain version).  The 2x2 pool runs in
+  registers on 8 x 8-pixel tiles in raster order (:func:`gemm_row_pixel`):
+  a vertical pair in a thread, the horizontal one a shuffle away.  What
+  bounds it is the tensor cores' TF32 rate, three products a multiply-add.
+* bfloat16 runs on ``mma.sync`` m16n8k16 with a ``cp.async`` ring, the pool
+  in registers through a sub-pixel-major row order.
+
+It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface, at its first launch, into ``build/kernels/`` of the
+repository checkout, and loaded with ``ctypes``
+(:mod:`repro_torch.kernels.builder`).  The tile constants below are the
+single source of truth: they are passed to ``nvcc`` as ``-D`` flags, and
+the launch grid and shared memory size are computed here
 (:func:`launch_geometry`).
 
 :func:`fused_conv3x3` is the wrapper: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.kernels.ref.fused_conv3x3_ref`), a CUDA
-tensor launches the kernel or raises.  ``fused_conv3x3.launches`` counts
-kernel launches.
+tensor launches the kernel or raises.  A float32 input the TMA map cannot
+take as it is (a channel count that is not a multiple of 8, as VGG's Cin =
+3, or a pointer off 16 bytes) is first copied by a staging kernel of the
+same call (:func:`staged_input` is its plain version).
+``fused_conv3x3.launches`` counts calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -39,62 +57,96 @@ from . import builder, ref
 
 # Tile constants of the kernel (see the head comment of the CUDA source).
 BLOCK_C = 64  # output channels a block: the planner's conv_block_c
+TILES = (16, 8)  # square pre-pool pixel tiles built, largest first (multiples of 8)
+SM_COUNT = H100.sm_count  # the grid a tile must fill
+# float32 body (wgmma)
+F32_CHUNK = 8  # input channels a chunk: one wgmma k8 step
+F32_STAGES = {16: 3, 8: 2}  # depth of the TMA ring at each tile
+F32_ROWS = 10  # halo rows a consumer warpgroup reads (its 8 tile rows + 2)
+# bfloat16 body (mma.sync)
 WARP_C = 32  # output channels a warp (a warp owns 64 pixels x WARP_C)
-TILES = (16, 8)  # square pre-pool pixel tiles built, largest first (even)
 CHUNK_BYTES = 32  # input channels staged a pixel a loop step: one mma k-step
 STAGES = 3  # depth of the cp.async ring
 PIX_BYTES = CHUNK_BYTES + 16  # a staged pixel's row, padded
-SM_COUNT = H100.sm_count  # the grid a tile must fill
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "fused_conv3x3.cu"
 BUILD_DIR = builder.BUILD_DIR
 NVCC_FLAGS = builder.BASE_FLAGS + (
     f"-DBLOCK_C={BLOCK_C}", f"-DCHUNK_BYTES={CHUNK_BYTES}", f"-DSTAGES={STAGES}",
+    f"-DF32_STAGES_BIG={F32_STAGES[TILES[0]]}", f"-DF32_STAGES_SMALL={F32_STAGES[TILES[1]]}",
     f"-DTILE_BIG={TILES[0]}", f"-DTILE_SMALL={TILES[1]}",
 )
 KERNEL = builder.KernelSource("fused_conv3x3", SOURCE, NVCC_FLAGS,
-                              (CSRC / "mma_bf16.cuh",))
+                              (CSRC / "mma_bf16.cuh", CSRC / "tma_wgmma.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def cin_chunk(dtype: torch.dtype) -> int:
-    """Input channels staged a loop step: one mma k-step, 8 float32 (tf32
-    m16n8k8) or 16 bfloat16 (m16n8k16)."""
-    return CHUNK_BYTES * 8 // torch.finfo(dtype).bits
+    """Input channels staged a loop step: 8 float32 (one wgmma tf32 k8
+    step) or 16 bfloat16 (one mma.sync m16n8k16 step)."""
+    return F32_CHUNK if dtype == torch.float32 else CHUNK_BYTES * 8 // torch.finfo(dtype).bits
 
 
-def threads(tile: int) -> int:
-    """Threads a block at ``tile``: a warp per 16 pool windows (64 pixels)
-    and per WARP_C output channels."""
+def threads(tile: int, dtype: torch.dtype = torch.float32) -> int:
+    """Threads a block at ``tile``.  float32: a consumer warpgroup per 8
+    tile rows and the producer warp; bfloat16: a warp per 16 pool windows
+    (64 pixels) and per WARP_C output channels."""
+    if dtype == torch.float32:
+        return tile // 8 * 128 + 32
     return (tile // 2) ** 2 // 16 * (BLOCK_C // WARP_C) * 32
 
 
-def smem_bytes(tile: int = TILES[0]) -> int:
-    """Shared memory one block stages (bytes): STAGES x (the haloed input
-    tile, a PIX_BYTES row a pixel, plus the 9 x chunk x BLOCK_C weight
-    slice, rows padded by 8 elements) -- the Hopper counterpart of the
-    reference kernel's ``vmem_bytes``.  A chunk is CHUNK_BYTES of channels
-    in either dtype, so the size does not depend on it."""
-    return STAGES * ((tile + 2) ** 2 * PIX_BYTES + 9 * CHUNK_BYTES * (BLOCK_C + 8))
+def smem_bytes(tile: int = TILES[0], dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory one block stages (bytes) -- the Hopper counterpart of
+    the reference kernel's ``vmem_bytes``.
+
+    float32: F32_STAGES[tile] stages of (the raw haloed tile, 8 channels a
+    pixel, and the chunk's weights as two tf32 planes of 9 x 8 x BLOCK_C),
+    then each consumer warpgroup's big and small planes of its 10 halo rows
+    for two chunks, the mbarriers (64) and 1024 to align the start.
+    bfloat16: STAGES x (the haloed tile, a PIX_BYTES row a pixel, plus the
+    9 x chunk x BLOCK_C weight slice, rows padded by 8 elements)."""
+    halo = tile + 2
+    if dtype == torch.float32:
+        x_raw = halo * halo * F32_CHUNK * 4
+        weights = 2 * 9 * F32_CHUNK * BLOCK_C * 4
+        planes = 2 * 2 * F32_ROWS * halo * F32_CHUNK * 4  # two chunks x big, small
+        return F32_STAGES[tile] * (x_raw + weights) + tile // 8 * planes + 64 + 1024
+    return STAGES * (halo ** 2 * PIX_BYTES + 9 * CHUNK_BYTES * (BLOCK_C + 8))
 
 
 def choose_tile(batch: int, H: int, W: int, Cout: int) -> int:
-    """The largest built tile whose grid has a block for every SM, else the
-    smallest."""
-    for tile in TILES:
-        if -(-H // tile) * -(-W // tile) * -(-Cout // BLOCK_C) * batch >= SM_COUNT:
-            return tile
-    return TILES[-1]
+    """Of the built tiles whose grid has a block for every SM, the one that
+    pads the frame least (the larger on a tie), else the smallest.  So a
+    56x56 frame takes tile 8 (tile 16 would compute 64x64), 224x224 and
+    112x112 tile 16; 28x28 pads to 32x32 either way and takes 16."""
+    def padded(tile: int) -> int:
+        return -(-H // tile) * -(-W // tile) * tile * tile
+
+    fill = [tile for tile in TILES
+            if -(-H // tile) * -(-W // tile) * -(-Cout // BLOCK_C) * batch >= SM_COUNT]
+    return min(fill, key=lambda tile: (padded(tile), -tile)) if fill else TILES[-1]
 
 
-def gemm_row_pixel(tile: int, m: int) -> tuple[int, int]:
-    """(h, w) in a ``tile`` x ``tile`` block of GEMM row ``m``, the kernel's
-    sub-pixel-major order: warp ``m // 64`` owns windows 16 (m // 64) ..
-    + 15 (row-major in the tile); in its rows, m16 tile ``mt = m % 64 //
+def gemm_row_pixel(tile: int, m: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(h, w) in a ``tile`` x ``tile`` block of GEMM row ``m``.
+
+    float32: warpgroup ``m // (8 tile)`` owns tile rows 8 wg .. 8 wg + 7, in
+    ``tile / 8`` m64 tiles of 8 x 8 pixels (tile ``m // 64 % (tile / 8)``
+    its columns 8 mt ..), each in raster order: row ``r = m % 64`` is pixel
+    (r // 8, r % 8).  The accumulator rows a lane holds (16 w + l/4 and 16 w
+    + l/4 + 8 of warp w) are a vertical pair, and lane l ^ 4 holds the
+    column beside them.
+    bfloat16 (sub-pixel-major): warp ``m // 64`` owns windows 16 (m // 64)
+    .. + 15 (row-major in the tile); in its rows, m16 tile ``mt = m % 64 //
     16`` is the window's sub-pixel (mt // 2, mt % 2) and the row in the
     tile, ``m % 16``, the window.  So the C fragment rows a lane holds (l/4
     and l/4 + 8 of every m16 tile) are the four pixels of two windows."""
+    if dtype == torch.float32:
+        mts = tile // 8
+        wg, mt, r = m // (64 * mts), m // 64 % mts, m % 64
+        return 8 * wg + r // 8, 8 * mt + r % 8
     warp, mt, r = m // 64, m % 64 // 16, m % 16
     wy, wx = divmod(warp * 16 + r, tile // 2)
     return 2 * wy + mt // 2, 2 * wx + mt % 2
@@ -111,7 +163,8 @@ class LaunchGeometry:
     tiles_w: int
 
 
-def launch_geometry(batch: int, H: int, W: int, Cin: int, Cout: int) -> LaunchGeometry:
+def launch_geometry(batch: int, H: int, W: int, Cin: int, Cout: int,
+                    dtype: torch.dtype = torch.float32) -> LaunchGeometry:
     """The launch for an NHWC ``(batch, H, W, Cin)`` input and ``Cout``
     output channels: one block per (spatial tile, BLOCK_C channels, image),
     at the tile :func:`choose_tile` picks."""
@@ -121,19 +174,86 @@ def launch_geometry(batch: int, H: int, W: int, Cin: int, Cout: int) -> LaunchGe
     return LaunchGeometry(
         tile=tile,
         grid=(-(-H // tile) * tiles_w, -(-Cout // BLOCK_C), batch),
-        threads=threads(tile),
-        smem_bytes=smem_bytes(tile),
+        threads=threads(tile, dtype),
+        smem_bytes=smem_bytes(tile, dtype),
         tiles_w=tiles_w,
     )
 
 
 def vectorised(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether the kernel may stage x and w in 16-byte cp.async pieces:
-    both 16-byte aligned and their Cin and Cout rows whole pieces (else it
-    stages element by element, as at Cin = 3)."""
+    """Whether the bfloat16 body may stage x and w in 16-byte cp.async
+    pieces: both 16-byte aligned and their Cin and Cout rows whole pieces
+    (else it stages element by element, as at Cin = 3)."""
     es = x.element_size()
     return (x.shape[-1] * es % 16 == 0 and w.shape[-1] * es % 16 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether the float32 body's TMA map takes ``x`` as it is: 16-byte
+    aligned, with whole 8-channel chunks (the map's box is 8 channels)."""
+    return x.shape[-1] % F32_CHUNK == 0 and x.data_ptr() % 16 == 0
+
+
+def staged_input(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the staging kernel: a float32 input the TMA map
+    cannot take as it is, copied into one it can, whose channels are Cin
+    rounded up to a multiple of 8, those past Cin zero (the weights past
+    Cin are zero in the prepared planes, so the sum is unchanged)."""
+    cin = x.shape[-1]
+    out = x.new_zeros((*x.shape[:-1], -(-cin // F32_CHUNK) * F32_CHUNK))
+    out[..., :cin] = x
+    return out
+
+
+def prep_floats(cin: int, cout: int) -> int:
+    """Floats of the prepared weights: a 2 x 9 x 8 x BLOCK_C piece per
+    (channel block, chunk)."""
+    return -(-cout // BLOCK_C) * -(-cin // F32_CHUNK) * 2 * 9 * F32_CHUNK * BLOCK_C
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 as ``cvt.rna.tf32.f32`` and the kernel's
+    ``mma::tf32_rna`` round: 10 stored mantissa bits, to nearest, ties away
+    from zero (half an ulp added to the magnitude bits, then cut)."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32).view(torch.float32)
+
+
+def prep_weights_ref(w: torch.Tensor) -> torch.Tensor:
+    """The plain version of the float32 body's weight preparation: HWIO
+    ``w`` (3, 3, Cin, Cout) float32 as a flat tensor of pieces [channel
+    block nb][chunk][plane: big, small][tap][k half kh][channel nn][4],
+    element (ci = 8 chunk + 4 kh + e, co = 64 nb + nn), zero past Cin and
+    Cout; big = tf32(v), small = tf32(v - big)."""
+    _, _, cin, cout = w.shape
+    nc, nbs = -(-cin // F32_CHUNK), -(-cout // BLOCK_C)
+    wpad = w.new_zeros((9, nc * F32_CHUNK, nbs * BLOCK_C))
+    wpad[:, :cin, :cout] = w.reshape(9, cin, cout)
+    v = wpad.reshape(9, nc, 2, 4, nbs, BLOCK_C).permute(4, 1, 0, 2, 5, 3)
+    big = tf32_round(v)
+    small = tf32_round(v - big)
+    return torch.stack((big, small), dim=2).reshape(-1)
+
+
+def prep_weights(w: torch.Tensor) -> torch.Tensor:
+    """The float32 body's prepared weights (see :func:`prep_weights_ref`):
+    on a CUDA tensor by the library's prep kernel alone (the step the conv
+    launch runs first), on a CPU tensor by the plain version."""
+    if w.device.type == "cpu":
+        return prep_weights_ref(w)
+    if w.dtype != torch.float32 or w.dim() != 4 or not w.is_contiguous():
+        raise ValueError("prep_weights takes contiguous float32 HWIO weights")
+    _, _, cin, cout = w.shape
+    wp = torch.empty(prep_floats(cin, cout), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _library().fused_conv3x3_prep_weights(
+            w.data_ptr(), wp.data_ptr(), cin, cout,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3_prep_weights failed with CUDA error {err}")
+    return wp
 
 
 def build() -> builder.BuildResult:
@@ -148,18 +268,22 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, loaded once, with its C signatures."""
     lib = builder.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_conv3x3_launch.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
+    lib.fused_conv3x3_launch.argtypes = [ptr] * 5 + [i32] * 14 + [ptr]
     lib.fused_conv3x3_launch.restype = i32
+    lib.fused_conv3x3_prep_weights.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.fused_conv3x3_prep_weights.restype = i32
     for name in ("fused_conv3x3_threads", "fused_conv3x3_smem_bytes"):
-        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).argtypes = [i32, i32]
         getattr(lib, name).restype = i32
-    for tile in TILES:
-        built = (lib.fused_conv3x3_threads(tile), lib.fused_conv3x3_smem_bytes(tile))
-        if built != (threads(tile), smem_bytes(tile)):
-            raise RuntimeError(
-                f"{SOURCE.name} was built for {built[0]} threads and {built[1]} "
-                f"bytes a block at tile {tile}; the wrapper expects "
-                f"{(threads(tile), smem_bytes(tile))}")
+    for dtype, code in _DTYPES.items():
+        for tile in TILES:
+            built = (lib.fused_conv3x3_threads(tile, code),
+                     lib.fused_conv3x3_smem_bytes(tile, code))
+            want = (threads(tile, dtype), smem_bytes(tile, dtype))
+            if built != want:
+                raise RuntimeError(
+                    f"{SOURCE.name} was built for {built[0]} threads and {built[1]} "
+                    f"bytes a block at tile {tile}, {dtype}; the wrapper expects {want}")
     return lib
 
 
@@ -208,13 +332,22 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     y = torch.empty((B, *out_hw, Cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    geo = launch_geometry(B, H, W, Cin, Cout)
+    geo = launch_geometry(B, H, W, Cin, Cout, x.dtype)
     lib = _library()
+    if x.dtype == torch.float32:
+        # scratch: the prepared weights, then the staged input if staged
+        stage = not tma_ready(x)
+        n = prep_floats(Cin, Cout) + (B * H * W * -(-Cin // F32_CHUNK) * F32_CHUNK
+                                      if stage else 0)
+        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
+        scratch_ptr, vec = scratch.data_ptr(), 0
+    else:
+        scratch_ptr, vec, stage = None, int(vectorised(x, w)), False
     with torch.cuda.device(x.device):
         err = lib.fused_conv3x3_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), scratch_ptr,
             H, W, Cin, Cout, int(pool), _DTYPES[x.dtype], geo.tile, *geo.grid,
-            geo.tiles_w, geo.smem_bytes, int(vectorised(x, w)),
+            geo.tiles_w, geo.smem_bytes, vec, int(stage),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

@@ -91,9 +91,12 @@ def test_launch_geometry_fits_hopper_at_every_vgg_layer(name, n_in, n_out,
     assert geo.smem_bytes == fused_conv.smem_bytes(geo.tile) <= SMEM_LIMIT
     assert geo.threads == fused_conv.threads(geo.tile)
     assert geo.threads <= 1024 and geo.threads % 32 == 0
-    # a block for every SM of the card at batch 8; 14x14 takes the small tile
+    # a block for every SM of the card at batch 8; 14x14 takes the small
+    # tile, and so does 56x56, which it covers without padding (tile 16
+    # would compute 64x64)
     assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= fused_conv.SM_COUNT == 132
-    assert geo.tile == (fused_conv.TILES[-1] if hw == 14 else fused_conv.TILES[0])
+    assert geo.tile == (fused_conv.TILES[-1] if hw in (14, 56) else fused_conv.TILES[0])
+    assert -(-hw // geo.tile) * geo.tile == (32 if hw == 28 else 16 if hw == 14 else hw)
     tiles_h = geo.grid[0] // geo.tiles_w
     # every output pixel and channel is covered, and tiles are even, so no
     # 2x2 pool window straddles two blocks
@@ -102,18 +105,33 @@ def test_launch_geometry_fits_hopper_at_every_vgg_layer(name, n_in, n_out,
 
 
 def test_smem_bytes_counts_the_staged_tiles():
-    # STAGES x (haloed input tile, a 32-byte chunk + 16 bytes of pad a pixel,
-    # + the weight slice: 9 taps x 32 bytes of channels x (64 + 8) outputs)
-    assert fused_conv.smem_bytes(16) == 3 * (18 * 18 * 48 + 9 * 32 * 72)
-    assert fused_conv.smem_bytes(8) == 3 * (10 * 10 * 48 + 9 * 32 * 72)
-    assert fused_conv.smem_bytes() == fused_conv.smem_bytes(fused_conv.TILES[0])
-    # a chunk is one mma k-step in either dtype: 8 float32 (tf32 m16n8k8)
-    # or 16 bfloat16 (m16n8k16) channels
-    assert fused_conv.cin_chunk(torch.float32) == 8
-    assert fused_conv.cin_chunk(torch.bfloat16) == 16
-    # above the 48 KB default: the kernel opts in, once per device
-    assert all(48 * 1024 < fused_conv.smem_bytes(t) <= SMEM_LIMIT
-               for t in fused_conv.TILES)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # float32 (wgmma): stages x (the raw haloed tile, 8 channels of 4 bytes a
+    # pixel, + the chunk's weights as two tf32 planes of 9 taps x 8 x 64),
+    # + each consumer warpgroup's big and small planes of its 10 halo rows
+    # for two chunks, + 64 for the mbarriers and 1024 to align the start
+    weights = 2 * 9 * 8 * 64 * 4
+    assert fused_conv.smem_bytes(16) == (3 * (18 * 18 * 32 + weights)
+                                         + 2 * (2 * 2 * 10 * 18 * 32) + 64 + 1024)
+    assert fused_conv.smem_bytes(8) == (2 * (10 * 10 * 32 + weights)
+                                        + 1 * (2 * 2 * 10 * 10 * 32) + 64 + 1024)
+    # bfloat16 (mma.sync): STAGES x (haloed input tile, a 32-byte chunk + 16
+    # bytes of pad a pixel, + the weight slice: 9 taps x 32 bytes of
+    # channels x (64 + 8) outputs)
+    assert fused_conv.smem_bytes(16, bf16) == 3 * (18 * 18 * 48 + 9 * 32 * 72)
+    assert fused_conv.smem_bytes(8, bf16) == 3 * (10 * 10 * 48 + 9 * 32 * 72)
+    assert fused_conv.smem_bytes() == fused_conv.smem_bytes(fused_conv.TILES[0], f32)
+    # a chunk is one k-step: 8 float32 (wgmma tf32 k8) or 16 bfloat16
+    # (mma.sync m16n8k16) channels
+    assert fused_conv.cin_chunk(f32) == 8
+    assert fused_conv.cin_chunk(bf16) == 16
+    # above the 48 KB default: the kernel opts in, once per device; two
+    # float32 blocks of the small tile share an SM's 228 KB (1 KB each kept)
+    assert all(48 * 1024 < fused_conv.smem_bytes(t, d) <= SMEM_LIMIT
+               for t in fused_conv.TILES for d in (f32, bf16))
+    assert 2 * (fused_conv.smem_bytes(fused_conv.TILES[1]) + 1024) <= 228 * 1024
+    # a consumer warpgroup per 8 tile rows and the producer warp
+    assert [fused_conv.threads(t) for t in fused_conv.TILES] == [2 * 128 + 32, 128 + 32]
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -162,14 +180,16 @@ def test_build_flags_carry_every_tile_constant():
     for name, value in (("BLOCK_C", fused_conv.BLOCK_C),
                         ("CHUNK_BYTES", fused_conv.CHUNK_BYTES),
                         ("STAGES", fused_conv.STAGES),
+                        ("F32_STAGES_BIG", fused_conv.F32_STAGES[fused_conv.TILES[0]]),
+                        ("F32_STAGES_SMALL", fused_conv.F32_STAGES[fused_conv.TILES[1]]),
                         ("TILE_BIG", fused_conv.TILES[0]),
                         ("TILE_SMALL", fused_conv.TILES[1])):
         assert f"-D{name}={value}" in flags
     src = fused_conv.SOURCE.read_text()
     assert "src/repro/kernels/fused_conv.py::fused_conv3x3" in src
-    # the tensor-core helpers are part of the build hash
-    assert [h.name for h in fused_conv.KERNEL.headers] == ["mma_bf16.cuh"]
-    assert '#include "mma_bf16.cuh"' in src
+    # the tensor-core and TMA helpers are part of the build hash
+    assert [h.name for h in fused_conv.KERNEL.headers] == ["mma_bf16.cuh", "tma_wgmma.cuh"]
+    assert '#include "mma_bf16.cuh"' in src and '#include "tma_wgmma.cuh"' in src
     assert fused_conv.BUILD_DIR.parts[-2:] == ("build", "kernels")
 
 
@@ -263,43 +283,69 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert np.all(np.abs(v - big - small) <= 2.0 ** -22 * np.abs(v))
 
 
+def _window_rows(tile: int, dtype) -> list:
+    """The GEMM rows of each 2x2 window as one store of the kernel's pooled
+    epilogue sees them, in the accumulator layout of its tensor-core
+    instruction (lane 4 g + t of warp w holds rows g and g + 8 of the
+    warp's 16).  bfloat16: one lane, rows g or g + 8 of the four m16 tiles
+    (sub-pixels).  float32: rows 16 w + g and + 8 of an m64 tile in lane g
+    (g even) and the same rows + 1 in lane g + 1, a shuffle away."""
+    groups = []
+    if dtype == torch.float32:
+        for m64 in range(tile * tile // 64):
+            for w in range(4):
+                for g in range(0, 8, 2):
+                    base = m64 * 64 + 16 * w
+                    groups.append([base + g, base + g + 1, base + g + 8, base + g + 9])
+    else:
+        for warp in range(tile * tile // 64):
+            for g in range(8):
+                for r in (g, g + 8):
+                    groups.append([warp * 64 + mt * 16 + r for mt in range(4)])
+    return groups
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("tile", fused_conv.TILES)
-def test_gemm_rows_map_one_to_one_and_lanes_hold_whole_windows(tile):
-    rows = [fused_conv.gemm_row_pixel(tile, m) for m in range(tile * tile)]
+def test_gemm_rows_map_one_to_one_and_lanes_hold_whole_windows(tile, dtype):
+    rows = [fused_conv.gemm_row_pixel(tile, m, dtype) for m in range(tile * tile)]
     assert sorted(rows) == [(h, w) for h in range(tile) for w in range(tile)]
-    assert tile * tile // 64 * 32 * 2 == fused_conv.threads(tile)  # 2 warps a 64 rows
-    for warp in range(tile * tile // 64):
-        for lane in range(32):
-            # the C fragment rows of lane l: l / 4 and l / 4 + 8 of each m16 tile
-            for r in (lane // 4, lane // 4 + 8):
-                px = [fused_conv.gemm_row_pixel(tile, warp * 64 + mt * 16 + r)
-                      for mt in range(4)]
-                h, w = px[0]
-                assert h % 2 == 0 and w % 2 == 0
-                assert px == [(h, w), (h, w + 1), (h + 1, w), (h + 1, w + 1)]
+    if dtype == torch.float32:  # a consumer warpgroup per 8 tile rows, + the producer warp
+        assert tile // 8 * 128 + 32 == fused_conv.threads(tile, dtype)
+        # an m64 tile is 8 x 8 pixels in raster order: its 8-row groups are
+        # eight pixels of one tile row, so a tap's shift is a start address
+        for m in range(0, tile * tile, 8):
+            h, w = rows[m]
+            assert rows[m:m + 8] == [(h, w + i) for i in range(8)] and w % 8 == 0
+    else:  # 2 warps a 64 rows
+        assert tile * tile // 64 * 32 * 2 == fused_conv.threads(tile, dtype)
+    for group in _window_rows(tile, dtype):
+        px = [rows[m] for m in group]
+        h, w = min(px)
+        assert h % 2 == 0 and w % 2 == 0
+        assert sorted(px) == [(h, w), (h, w + 1), (h + 1, w), (h + 1, w + 1)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 14, 14), (3, 30, 18)])
-def test_gemm_rows_cover_a_frame_once_and_every_pool_window_in_one_lane(B, H, W):
-    geo = fused_conv.launch_geometry(B, H, W, 3, 8)
+def test_gemm_rows_cover_a_frame_once_and_every_pool_window_in_one_lane(B, H, W, dtype):
+    # float32: "one lane" is the lane pair joined by one shuffle
+    geo = fused_conv.launch_geometry(B, H, W, 3, 8, dtype)
     tile = geo.tile
     stored, pooled = [], {}
     for n in range(geo.grid[2]):
         for t in range(geo.grid[0]):
             h0, w0 = t // geo.tiles_w * tile, t % geo.tiles_w * tile
             for m in range(tile * tile):
-                h, w = fused_conv.gemm_row_pixel(tile, m)
+                h, w = fused_conv.gemm_row_pixel(tile, m, dtype)
                 if h0 + h < H and w0 + w < W:  # the kernel's store mask
                     stored.append((n, h0 + h, w0 + w))
-            for warp in range(tile * tile // 64):
-                for g in range(8):  # lanes 4 g .. 4 g + 3 hold the same rows
-                    for r in (g, g + 8):
-                        px = [fused_conv.gemm_row_pixel(tile, warp * 64 + mt * 16 + r)
-                              for mt in range(4)]
-                        ph, pw = (h0 + px[0][0]) // 2, (w0 + px[0][1]) // 2
-                        if ph < H // 2 and pw < W // 2:  # the pooled store mask
-                            assert (n, ph, pw) not in pooled
-                            pooled[n, ph, pw] = {(h0 + h, w0 + w) for h, w in px}
+            for group in _window_rows(tile, dtype):
+                px = [fused_conv.gemm_row_pixel(tile, m, dtype) for m in group]
+                ph, pw = (h0 + min(px)[0]) // 2, (w0 + min(px)[1]) // 2
+                if ph < H // 2 and pw < W // 2:  # the pooled store mask
+                    assert (n, ph, pw) not in pooled
+                    pooled[n, ph, pw] = {(h0 + h, w0 + w) for h, w in px}
     assert sorted(stored) == [(n, h, w) for n in range(B) for h in range(H) for w in range(W)]
     assert sorted(pooled) == [(n, i, j) for n in range(B) for i in range(H // 2)
                               for j in range(W // 2)]
@@ -315,3 +361,140 @@ def test_unaligned_or_ragged_rows_are_staged_element_by_element():
     assert not fused_conv.vectorised(x[..., :4].bfloat16().contiguous(), w.bfloat16())
     flat = torch.empty(x.numel() + 1)
     assert not fused_conv.vectorised(flat[1:].view(x.shape), w)
+
+
+# ---------------------------------------------------------------------------
+# The float32 body on wgmma, on the CPU: the weight preparation, the input
+# staging and the summation of the products
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (5, 72), (64, 128), (16, 8)])
+def test_weight_prep_is_k_major_big_and_small_planes_bit_for_bit(cin, cout):
+    # the prep kernel's plain version against the tf32 split of the HWIO
+    # weights, element by element: piece (nb, chunk), plane, tap, k half,
+    # channel, k, zero past Cin and Cout
+    w = (np.random.default_rng(cin * 100 + cout).standard_normal((3, 3, cin, cout))
+         .astype(np.float32))
+    got = fused_conv.prep_weights(torch.from_numpy(w)).numpy()
+    assert torch.equal(fused_conv.prep_weights_ref(torch.from_numpy(w)), torch.from_numpy(got))
+    nc, nbs = -(-cin // 8), -(-cout // 64)
+    assert got.size == fused_conv.prep_floats(cin, cout) == nbs * nc * 2 * 9 * 2 * 64 * 4
+    big = _tf32(w)
+    planes = {0: big, 1: _tf32(w - big)}
+    nb, chunk, plane, tap, kh, nn, e = np.unravel_index(np.arange(got.size),
+                                                         (nbs, nc, 2, 9, 2, 64, 4))
+    ci, co = 8 * chunk + 4 * kh + e, 64 * nb + nn
+    inside = (ci < cin) & (co < cout)
+    want = np.zeros(got.size, np.float32)
+    for p, v in planes.items():
+        sel = inside & (plane == p)
+        want[sel] = v[tap[sel] // 3, tap[sel] % 3, ci[sel], co[sel]]
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    # the torch rounding is the numpy one
+    v = np.concatenate([w.ravel(), np.float32([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 0.0])])
+    assert np.array_equal(fused_conv.tf32_round(torch.from_numpy(v)).numpy().view(np.uint32),
+                          _tf32(v).view(np.uint32))
+
+
+def test_float32_inputs_the_tma_map_cannot_take_go_through_the_staged_copy():
+    x, w, b = (torch.from_numpy(a) for a in _inputs(1, 6, 6, 16, 8))
+    assert fused_conv.tma_ready(x)
+    flat = torch.empty(x.numel() + 1)
+    assert not fused_conv.tma_ready(flat[1:].view(x.shape))  # 4 bytes off
+    x3 = x[..., :3].contiguous()
+    assert not fused_conv.tma_ready(x3)  # VGG's Cin = 3: rows of 12 bytes
+    staged = fused_conv.staged_input(x3)
+    assert staged.shape == (1, 6, 6, 8) and fused_conv.tma_ready(staged)
+    assert torch.equal(staged[..., :3], x3) and not staged[..., 3:].any()
+    # channels past Cin meet zero weights: the same conv
+    w3 = w[:, :, :3].contiguous()
+    w8 = torch.zeros(3, 3, 8, 8)
+    w8[:, :, :3] = w3
+    torch.testing.assert_close(ref.fused_conv3x3_ref(staged, w8, b, pool=True),
+                               ref.fused_conv3x3_ref(x3, w3, b, pool=True))
+
+
+def _truncate32(d: np.ndarray) -> np.ndarray:
+    """float64 to float32 rounded toward zero, as the tensor cores round
+    the sums they accumulate."""
+    r = d.astype(np.float32)
+    return np.where(np.abs(r.astype(np.float64)) > np.abs(d),
+                    np.nextafter(r, np.float32(0)), r)
+
+
+def _wgmma_sums(x, w, *, chunk: int, partials: bool):
+    """The float32 body's sums (before bias, ReLU and pool) emulated: the
+    operands split into tf32 big + small; per chunk of ``chunk`` input
+    channels and per tap three k-steps (small*big, big*small, big*big), each
+    an exact sum of its products added to the accumulator and truncated to
+    float32, as one wgmma does.  With ``partials`` each chunk sums into a
+    zeroed partial that a float32 add (to nearest) folds into the sum, as
+    the kernel does; without, every step truncates into one accumulator over
+    all of K.  Returns (the float32 sums, the same products summed exactly
+    in float64)."""
+    B, H, W, Cin = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    xb = _tf32(xp)
+    xs = _tf32(xp - xb)
+    wb = _tf32(w)
+    ws = _tf32(w - wb)
+    acc = np.zeros((B * H * W, w.shape[-1]), np.float32)
+    exact = np.zeros(acc.shape)
+    for c0 in range(0, Cin, chunk):
+        part = np.zeros_like(acc) if partials else acc
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            win = (slice(None), slice(dy, dy + H), slice(dx, dx + W), slice(c0, c0 + chunk))
+            a_big = xb[win].reshape(-1, chunk).astype(np.float64)
+            a_small = xs[win].reshape(-1, chunk).astype(np.float64)
+            b_big = wb[dy, dx, c0:c0 + chunk].astype(np.float64)
+            b_small = ws[dy, dx, c0:c0 + chunk].astype(np.float64)
+            for a, bm in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+                step = a @ bm
+                exact += step
+                part[:] = _truncate32(part + step)
+        if partials:
+            acc += part
+    return acc.reshape(B, H, W, -1), exact.reshape(B, H, W, -1)
+
+
+def _bias_relu_pool(s, b):
+    y = torch.relu(torch.from_numpy(s) + torch.from_numpy(b))
+    return torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).numpy()
+
+
+@pytest.fixture(scope="module")
+def vgg_depth_sums():
+    # conv5_3 of VGG-16 at batch 1: K = 9 x 512 = 4,608, 64 chunks of 8
+    x, w, b = _inputs(*VGG_LIKE[:5])
+    chunked = _wgmma_sums(x, w, chunk=fused_conv.cin_chunk(torch.float32), partials=True)
+    straight = _wgmma_sums(x, w, chunk=fused_conv.cin_chunk(torch.float32), partials=False)
+    return x, w, b, chunked, straight, _pallas(x, w, b, True)
+
+
+def test_chunked_partials_keep_the_truncation_inside_the_float32_tolerance(vgg_depth_sums):
+    # the kernel's summation, held to the Pallas kernel at conv5_3 depth
+    _x, _w, b, (sums, exact), _straight, want = vgg_depth_sums
+    tol = TOL["float32"]
+    got = _bias_relu_pool(sums, b)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    # truncation leans toward zero, but a chunk's partial is small: the
+    # error stays a few hundred times below the tolerance's scale
+    err = sums - exact
+    assert np.abs(err).max() < tol / 2
+    assert (err * np.sign(exact)).mean() < 0
+
+
+def test_one_truncating_accumulator_over_all_of_k_misses_the_tolerance(vgg_depth_sums):
+    # why the kernel folds a partial a chunk: the same products truncated
+    # straight into one accumulator carry an error that grows with the
+    # running sum, leans toward zero and leaves the float32 tolerance
+    _x, _w, b, (sums, exact), (straight, _), want = vgg_depth_sums
+    tol = TOL["float32"]
+    err_c, err_s = sums - exact, straight - exact
+    assert np.abs(err_s).mean() > 20 * np.abs(err_c).mean()
+    assert (err_s * np.sign(exact)).mean() < -0.75 * np.abs(err_s).mean()  # toward zero
+    assert (np.abs(err_s) > tol + tol * np.abs(exact)).any()
+    got = _bias_relu_pool(straight, b)
+    assert (np.abs(got - want) > tol + tol * np.abs(want)).any()

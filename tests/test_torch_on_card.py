@@ -41,6 +41,10 @@ SHAPES = [  # (B, H, W, Cin, Cout, pool)
     (1, 7, 9, 3, 8, True),  # odd frame: the last row/column is dropped
     (2, 20, 36, 5, 72, True),  # ragged tiles, chunks and channel blocks
     (1, 14, 14, 512, 512, True),  # conv5_3 of VGG-16
+    (2, 28, 28, 64, 128, True),  # 28x28: the last tile row and column ragged
+    (1, 5, 6, 16, 64, False),  # a frame smaller than a tile
+    (3, 3, 3, 8, 8, True),  # a frame smaller than a pool window pair
+    (1, 13, 15, 12, 40, True),  # odd frame, a half chunk, a part channel block
 ]
 
 
@@ -107,16 +111,136 @@ def test_float32_sums_keep_their_error_small_at_vgg_depth(cuda, hw):
 
 def test_kernel_stages_unaligned_inputs_element_by_element(cuda):
     # a view one element into its storage is not 16-byte aligned: the
-    # wrapper stages it element by element, with the same result
+    # bfloat16 body stages it element by element, the float32 body's TMA
+    # map takes a staged copy; either way with the same result
     shape = (2, 12, 12, 16, 32, True)
-    x, w, b = _inputs(shape, torch.float32, seed=10)
-    flat = torch.empty(x.numel() + 1, device="cuda")
-    xu = flat[1:].view(x.shape)
-    xu.copy_(x)
-    assert not fused_conv.vectorised(xu, w) and fused_conv.vectorised(x, w)
-    got = fused_conv.fused_conv3x3(xu, w, b, pool=True)
-    torch.testing.assert_close(got, fused_conv.fused_conv3x3(x, w, b, pool=True),
-                               atol=0, rtol=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b = _inputs(shape, dtype, seed=10)
+        flat = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)
+        xu = flat[1:].view(x.shape)
+        xu.copy_(x)
+        assert not fused_conv.vectorised(xu, w) and fused_conv.vectorised(x, w)
+        assert not fused_conv.tma_ready(xu) and fused_conv.tma_ready(x)
+        got = fused_conv.fused_conv3x3(xu, w, b, pool=True)
+        torch.testing.assert_close(got, fused_conv.fused_conv3x3(x, w, b, pool=True),
+                                   atol=0, rtol=0)
+
+
+def test_float32_inputs_the_tma_map_cannot_take_go_to_the_staged_copy(cuda, monkeypatch):
+    # Cin not a multiple of 8 (VGG's Cin = 3) or a pointer off 16 bytes:
+    # the call stages the input into its scratch (fused_conv.tma_ready says
+    # so) and launches the kernel on the copy -- never the plain version
+    cases = [((2, 20, 20, 3, 64, True), 0), ((1, 9, 11, 5, 72, False), 0),
+             ((2, 12, 12, 16, 32, True), 1), ((2, 12, 12, 16, 32, True), 0)]
+    wants = []
+    for shape, off in cases:
+        x, w, b = _inputs(shape, torch.float32, seed=12)
+        if off:
+            flat = torch.empty(x.numel() + off, device="cuda")
+            flat[off:].copy_(x.reshape(-1))
+            x = flat[off:].view(x.shape)
+        wants.append((x, w, b, shape[-1], ref.fused_conv3x3_ref(x, w, b, pool=shape[-1])))
+
+    def no_call(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    ready = []
+    original = fused_conv.tma_ready
+
+    def recording(x):
+        ready.append(original(x))
+        return ready[-1]
+
+    monkeypatch.setattr(ref, "fused_conv3x3_ref", no_call)
+    monkeypatch.setattr(fused_conv, "tma_ready", recording)
+    for (shape, off), (x, w, b, pool, want) in zip(cases, wants):
+        before = fused_conv.fused_conv3x3.launches
+        got = fused_conv.fused_conv3x3(x, w, b, pool=pool)
+        assert ready[-1] == (shape[3] % 8 == 0 and not off), (shape, off)
+        assert fused_conv.fused_conv3x3.launches == before + 1
+        tol = TOL[torch.float32]
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert ready == [False, False, False, True]
+
+
+def test_weight_prep_kernel_equals_its_plain_version_bit_for_bit(cuda):
+    for cin, cout in ((3, 64), (5, 72), (64, 128), (512, 512)):
+        w = torch.randn(3, 3, cin, cout, device="cuda")
+        got = fused_conv.prep_weights(w)
+        assert torch.equal(got.cpu(), fused_conv.prep_weights_ref(w.cpu())), (cin, cout)
+
+
+# Run in a fresh interpreter: profiled in the test process, it left the
+# later flash-attention body test's profiler runs without kernel records
+# (that test then skipped).
+_PROFILE_VGG_LAYERS = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core.ir import VGG16_CONV_PLAN
+from repro_torch.kernels import fused_conv, ref
+
+def no_call(*args, **kwargs):
+    raise AssertionError("the plain version ran on a CUDA tensor")
+
+ref.fused_conv3x3_ref = no_call
+out = {}
+for name, cin, cout, hw, pool in VGG16_CONV_PLAN:
+    if name not in sys.argv[1:]:
+        continue
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(8, hw, hw, cin, device="cuda", generator=gen)
+    w = torch.randn(3, 3, cin, cout, device="cuda", generator=gen) * (2 / (9 * cin)) ** 0.5
+    b = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    fused_conv.fused_conv3x3(x, w, b, pool=pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_conv.fused_conv3x3(x, w, b, pool=pool)
+        torch.cuda.synchronize()
+    out[name] = {"tile": fused_conv.launch_geometry(8, hw, hw, cin, cout).tile,
+                 "kernels": [e.key for e in prof.key_averages() if "fused_conv3x3" in e.key]}
+print(json.dumps(out))
+"""
+
+
+def test_float32_vgg_layers_run_the_wgmma_body(cuda):
+    # no fallback: the plain version raises if called; the profiler (in a
+    # fresh interpreter) sees the float32 wgmma kernel at the tile each
+    # layer takes (16 at 28x28, 8 at 14x14) after the weight prep, never the
+    # bfloat16 body; and that instantiation's SASS holds HGMMA, no HMMA, no
+    # spill, and ptxas keeps its wgmma asynchronous
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if builder.cuobjdump() is None:
+        pytest.skip("cuobjdump not found beside nvcc or on PATH")
+    built = fused_conv.build()
+    sass = builder.sass_counts(built.path)
+    report = builder.ptxas_report(built.log)
+    serial = [line for line in built.log.splitlines() if "are serialized" in line]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(fused_conv.__file__))))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
+    run = subprocess.run([sys.executable, "-c", _PROFILE_VGG_LAYERS, "conv4_2", "conv5_3"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    layers = json.loads(run.stdout.strip().splitlines()[-1])
+    assert sorted(layers) == ["conv4_2", "conv5_3"]
+    if not any(layer["kernels"] for layer in layers.values()):
+        pytest.skip("the profiler records no CUDA kernel on this machine")
+    assert {layer["tile"] for layer in layers.values()} == {16, 8}
+    for name, layer in layers.items():
+        tile, names = layer["tile"], layer["kernels"]
+        assert any(f"fused_conv3x3_f32_kernel<{tile}>" in n.replace(" ", "") for n in names), \
+            (name, names)
+        assert any("prep_weights" in n for n in names), (name, names)
+        assert not any("bf16" in n for n in names), (name, names)
+        (mangled,) = [n for n in sass if f"fused_conv3x3_f32_kernelILi{tile}E" in n]
+        assert sass[mangled]["HGMMA"] > 0 and sass[mangled]["HMMA"] == 0, (name, sass[mangled])
+        assert not report[mangled].get("spill_stores") and not report[mangled].get("spill_loads")
+        assert not any(mangled in line for line in serial), name
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -494,17 +618,22 @@ def test_bf16_bodies_run_on_the_tensor_cores(cuda):
     # or HGMMA for K2's and K3's wgmma bodies), the float32 ones none; K3's
     # bf16 kernels come gated and not.  K2: the wgmma body (HGMMA, no HMMA,
     # no spill) at head dims 64 and 128, the mma.sync body (HMMA) at 32 and
-    # 96, one body per (head dim, tile).  K1's float32 (3xTF32) and bf16
-    # instantiations, both tiles, hold HMMA and spill nothing
+    # 96, one body per (head dim, tile).  K1: its bf16 instantiations (both
+    # tiles, mma.sync) hold HMMA, its float32 ones (3xTF32 on wgmma) HGMMA
+    # and no HMMA, its weight prep and input staging neither; none spills
     if builder.cuobjdump() is None:
         pytest.skip("cuobjdump not found beside nvcc or on PATH")
     built = fused_conv.build()
     conv = {n: c for n, c in builder.sass_counts(built.path).items()
-            if "fused_conv3x3_kernel" in n}
-    assert len(conv) == 2 * len(fused_conv.TILES)
-    assert all(c["HMMA"] > 0 for c in conv.values())
+            if "fused_conv3x3_" in n and "_kernel" in n}
+    assert len(conv) == 2 * len(fused_conv.TILES) + 2
+    bf16 = [c for n, c in conv.items() if "fused_conv3x3_bf16_kernel" in n]
+    f32 = [c for n, c in conv.items() if "fused_conv3x3_f32_kernel" in n]
+    assert len(bf16) == len(f32) == len(fused_conv.TILES)
+    assert all(c["HMMA"] > 0 for c in bf16)
+    assert all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in f32)
     report = builder.ptxas_report(built.log)
-    assert {n for n in report if "fused_conv3x3_kernel" in n} == set(conv)
+    assert set(report) == set(conv)
     assert not any(r.get("spill_stores") or r.get("spill_loads") for r in report.values())
     for mod, n_bf16, n_f32 in ((fused_attention, 16, 16), (fused_mlp, 8, 4)):
         counts = builder.sass_counts(mod.build().path)
