@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's fourteen main paths through the entry points a user calls,
+Drives the port's fifteen main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -122,8 +122,7 @@ PyTorch version.  Phases, one line each:
                cut depth, printed);
 16. serve_moe  mixtral-8x7b at full width, 16 of its 32 layers (the 32-layer
                model's 93.1 GB of bfloat16 weights do not fit the card),
-               through ``serve.run`` (runtime.steps' prefill and decode
-               steps, as ``serve.main`` calls them), 8 requests, prompt 512,
+               through ``serve.main --layers 16``, 8 requests, prompt 512,
                32 generated tokens -- the eighth main path, counts zeroed
                just before and read just after: flash_attention once per
                layer in the prefill (the sliding window of 4096), no
@@ -151,24 +150,44 @@ PyTorch version.  Phases, one line each:
                once per layer per forward; then the same tokens through the
                full cache: the logits within the bfloat16 tolerance,
                each cache's bytes;
-21. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
+21. serve_zoo  the registry's six other families at full width (SERVE_ZOO:
+               granite-34b at 44 of 88 layers, phi3-mini-3.8b, internvl2-1b
+               with its 256 vision frames, llama4-maverick at 2 of 48,
+               arctic-480b at 2 of 35, jamba-1.5-large at 4 of 72; the
+               cuts by the card's 80 GB), each through the serve entry point
+               (8 requests, prompt 512, 32 generated tokens, bfloat16) -- the
+               fifteenth main path, each run's counts zeroed just before and
+               read just after its serve, equal to ``zoo_launches``:
+               flash_attention once per attention sublayer in the prefill,
+               fused_mlp once per dense MLP (arctic's dense residual
+               included) per forward, selective_scan once per Mamba
+               sublayer per forward; then its bfloat16 prefill logits
+               through the kernels against the plain path (within
+               PREFILL_TOL or CONTROL_FACTOR x a kernel-free reordering;
+               the MoE runs' flipped routes), the hybrid cache's layout,
+               the median of 3 prefills and a 31-step decode through each,
+               its float32 logits at a cut depth (none for arctic), the
+               peak device memory and the run's seconds;
+22. layers     fused_conv3x3 vs its plain version at each of the 13 VGG-16
                conv shapes, with its time, the plain version's, a cuDNN
                yardstick's and the bound (float32: the smaller of the
                CUDA-core and the 3xTF32 bounds, both printed);
-22. attention, mlp   flash_attention and fused_mlp vs their plain versions at
-               the serving shapes of the five serving paths and at the
+23. attention, mlp   flash_attention and fused_mlp vs their plain versions at
+               the serving shapes of the six serving paths (llama4's chunk
+               of 8192 also across a chunk boundary) and at the
                shapes of tests/test_kernels.py (masks, the planner's tiles,
                float32 and bfloat16), with the same four times, and every
                built tile at qwen3's serving shapes and (flash_attention
                with its logsumexp) its training shape; kernel phases time a
-               launch over runs of CALLS launches and also one call alone;
-23. scan       selective_scan vs its plain version at falcon-mamba's prefill
-               and decode shapes, the shapes of tests/test_kernels.py and
+               launch over runs of CALLS launches and also one call alone
+               (a call of SLOW_MS or more: both from single calls);
+24. scan       selective_scan vs its plain version at falcon-mamba's and
+               jamba's prefill and decode shapes, the shapes of tests/test_kernels.py and
                ragged ones, with its time, the plain version's and the bound
                (no single PyTorch call computes a selective scan); the
-               decode row also replays its CALLS launches from a CUDA graph
+               decode rows also replay their CALLS launches from a CUDA graph
                (``device_ms``: the kernel without the host's launch path);
-24. train      ``repro_torch.launch.train.run`` on qwen3-0.6b at full width
+25. train      ``repro_torch.launch.train.run`` on qwen3-0.6b at full width
                and depth (28 layers, bfloat16), train_4k's 4096 tokens, 16
                sequences a step in 4 microbatches, "full" remat and the
                custom-VJP flash attention, 8 steps through ResilientTrainer
@@ -180,10 +199,10 @@ PyTorch version.  Phases, one line each:
                the losses finite and falling, one failure and one restore,
                the replayed steps' losses against the first pass's, peak
                device memory;
-25. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
+26. train_time ms per step, tokens/s and model TFLOP/s (6 N D + attention)
                over three more steps, and a profiled step's device idle
                share;
-26. roofline   the cost tools (no kernel launches): ``launch.dryrun`` of
+27. roofline   the cost tools (no kernel launches): ``launch.dryrun`` of
                qwen3-0.6b's train_4k and decode_32k cells on the 16x16 and
                2x16x16 meshes, traced on the host (resident GiB/device,
                bound, step >= ms, mfu <=); the roofline of phase train's
@@ -192,16 +211,16 @@ PyTorch version.  Phases, one line each:
                reference-definition MFU of the measured step beside
                train_time's, and bound / measured, which fails the run
                above 1.0;
-27. train_parity   one microbatch's loss and every gradient leaf through the
+28. train_parity   one microbatch's loss and every gradient leaf through the
                kernels against the plain attention, bfloat16 at full depth
                (also against a kernel-free reordering) and float32 at 2
                layers;
-28. train_kernel   flash_attention_bwd vs its plain version at qwen3's
+29. train_kernel   flash_attention_bwd vs its plain version at qwen3's
                training shape, windowed, chunked, hd 64 non-causal GQA,
                ragged and float32 shapes, two runs bit for bit, with its
                time, the plain version's, SDPA's backward and the bound;
                flash_attention with its logsumexp at the training shape;
-29. train_sharded   the sharded training path -- the twelfth main path:
+30. train_sharded   the sharded training path -- the twelfth main path:
                qwen3-0.6b as in phase train, TRAIN_SHARDED's steps through
                ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
                "model") NCCL mesh of this process (counts zeroed just before
@@ -219,7 +238,7 @@ PyTorch version.  Phases, one line each:
                ``resume_on_mesh`` of phase train's checkpoint, exactly the
                saved tensors; ``pipeline_apply`` at one stage, 6
                microbatches, bit-equal to the sequential result;
-30. train_tp    the partitioned training path -- the thirteenth main path:
+31. train_tp    the partitioned training path -- the thirteenth main path:
                qwen3-0.6b at full width and depth on a (1, 2) ("data",
                "model") mesh of two processes on the one card, joined by
                gloo (NCCL refuses two ranks on one GPU); each rank computes
@@ -241,15 +260,17 @@ PyTorch version.  Phases, one line each:
                memory, one profiled step's device busy time and the host
                time spent in the collectives, the prefills' ms (cold, then
                warm);
-31. examples   the five twins ``examples/*_torch.py`` (quickstart,
+32. examples   the five twins ``examples/*_torch.py`` (quickstart,
                evaluate_design, serve_lm, train_lm at 100 of its 200
                steps, vgg_pipeline), each in a fresh interpreter on the card (its
                default device): exit 0, its output, its wall time; the VGG
                twin's fused forward launched fused_conv3x3 13 times;
-32. the kernels line, then the result line.  Every kernel row's bytes and
+33. the kernels line, then the result line.  Every kernel row's bytes and
     FLOPs (its bound) come from ``repro_torch.core.roofline.kernel_cost``.
     The kernels launched at the partitioned path's local shapes have their
-    own entries (``"path": "train_tp"``).
+    own entries (``"path": "train_tp"``), as have those of phase serve_zoo
+    (``"path": "serve_zoo"``).  Every phase prints its seconds
+    (``phase seconds: ...``).
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -282,6 +303,8 @@ LOGIT_TOL = 2e-4
 BATCH = 8  # images per forward on the main path
 REPS = 10  # timed runs per measurement
 CALLS = 10  # launches in a row per timed run of a kernel phase
+SLOW_MS = 5.0  # a kernel-phase call this slow is timed over single calls
+SLOW_REPS = 3  # single calls timed of such a function
 SAMPLE_CELLS = 4096  # raw-plane cells held to the scalar oracles
 # The TPU kernels replaced (the functions that reach pl.pallas_call).
 REPLACES = {"fused_conv3x3": "src/repro/kernels/fused_conv.py:46",
@@ -371,19 +394,32 @@ SERVE_RING = {"arch": "gemma3", "requests": 8, "prompt_len": 1280, "gen": 32,
 # which then propagates through the later layers: PREFILL_TOL's bfloat16
 # 5e-2, argued the same way over 6 layers rather than 28.
 RING_TOL = PREFILL_TOL["bfloat16"]
-# flash_attention's bfloat16 shapes on the eighth to tenth main paths: (label,
-# (B, Sq, Skv, H, KV, hd), causal, window), with the launches a serve makes.
+# flash_attention's bfloat16 shapes on the eighth to tenth and the
+# fifteenth main paths: (label, (B, Sq, Skv, H, KV, hd), causal, window,
+# chunk), with the launches a serve makes.  A serve_zoo run's rows are
+# labelled "<arch>_prefill" (the kernels line sums them by that label).
 SERVE_ATTENTION = [
-    ("mixtral_prefill", (8, 512, 512, 32, 8, 128), True, 4096),      # 16
-    ("seamless_encoder", (8, 1024, 1024, 16, 16, 64), False, 0),     # 24
-    ("seamless_decoder", (8, 512, 512, 16, 16, 64), True, 0),        # 24
-    ("seamless_cross", (8, 512, 1024, 16, 16, 64), False, 0),        # 24
-    ("gemma3_local", (8, 1280, 1280, 32, 16, 128), True, 1024),      # 5
-    ("gemma3_global", (8, 1280, 1280, 32, 16, 128), True, 0),        # 1
-    ("tp_prefill", (8, 512, 512, 8, 4, 128), True, 0),               # 28, 8 of 16 heads
-    ("tp_train", (2, 2048, 2048, 8, 4, 128), True, 0),               # 56 a train_tp step
+    ("mixtral_prefill", (8, 512, 512, 32, 8, 128), True, 4096, 0),    # 16
+    ("seamless_encoder", (8, 1024, 1024, 16, 16, 64), False, 0, 0),   # 24
+    ("seamless_decoder", (8, 512, 512, 16, 16, 64), True, 0, 0),      # 24
+    ("seamless_cross", (8, 512, 1024, 16, 16, 64), False, 0, 0),      # 24
+    ("gemma3_local", (8, 1280, 1280, 32, 16, 128), True, 1024, 0),    # 5
+    ("gemma3_global", (8, 1280, 1280, 32, 16, 128), True, 0, 0),      # 1
+    ("tp_prefill", (8, 512, 512, 8, 4, 128), True, 0, 0),             # 28, 8 of 16 heads
+    ("tp_train", (2, 2048, 2048, 8, 4, 128), True, 0, 0),             # 56 a train_tp step
+    ("granite_prefill", (8, 512, 512, 48, 1, 128), True, 0, 0),       # 44: MQA, G 48
+    ("phi3_prefill", (8, 512, 512, 32, 32, 96), True, 0, 0),          # 32: hd 96, mma.sync
+    ("internvl2_prefill", (8, 768, 768, 14, 2, 64), True, 0, 0),      # 24: G 7, 256 frames
+    ("llama4_prefill", (8, 512, 512, 40, 8, 128), True, 0, 8192),     # 2: one chunk
+    ("arctic_prefill", (8, 512, 512, 56, 8, 128), True, 0, 0),        # 2
+    ("jamba_prefill", (8, 512, 512, 64, 8, 128), True, 0, 0),         # 1
+    # llama4's chunk of 8192 across a chunk boundary: no serve launches it
+    # (a 512-token prompt never crosses one); the only launch of the real
+    # chunk size.  The plain version's float32 scores take 24 GB.
+    ("llama4_chunk", (1, 12288, 12288, 40, 8, 128), True, 0, 8192),   # 0
 ]
-# fused_mlp's bfloat16 shapes there: (label, (T, d, ff, act)).
+# fused_mlp's bfloat16 shapes there: (label, (T, d, ff, act)); a serve_zoo
+# run's rows are "<arch>_prefill" and "<arch>_decode".
 SERVE_MLP = [
     ("seamless_encoder", (8192, 1024, 8192, "relu")),   # 24 a serve
     ("seamless_prefill", (4096, 1024, 8192, "relu")),   # 24
@@ -391,7 +427,47 @@ SERVE_MLP = [
     ("gemma3_prefill", (10240, 5376, 21504, "geglu")),  # 6
     ("gemma3_decode", (8, 5376, 21504, "geglu")),       # 6 a step: 186
     ("tp_prefill", (4096, 1024, 1536, "swiglu")),       # 28, 1,536 of 3,072 columns
+    ("granite_prefill", (4096, 6144, 24576, "gelu")),   # 44: no w3
+    ("granite_decode", (8, 6144, 24576, "gelu")),       # 44 a step: 1,364
+    ("phi3_prefill", (4096, 3072, 8192, "swiglu")),     # 32
+    ("phi3_decode", (8, 3072, 8192, "swiglu")),         # 32 a step: 992
+    ("internvl2_prefill", (6144, 896, 4864, "swiglu")),  # 24: 256 frames + 512 tokens
+    ("internvl2_decode", (8, 896, 4864, "swiglu")),     # 24 a step: 744
+    ("llama4_prefill", (4096, 5120, 8192, "swiglu")),   # 1: layer 0's dense MLP
+    ("llama4_decode", (8, 5120, 8192, "swiglu")),       # 1 a step: 31
+    ("arctic_prefill", (4096, 7168, 4864, "swiglu")),   # 2: the dense residual
+    ("arctic_decode", (8, 7168, 4864, "swiglu")),       # 2 a step: 62
+    ("jamba_prefill", (4096, 8192, 24576, "swiglu")),   # 2
+    ("jamba_decode", (8, 8192, 24576, "swiglu")),       # 2 a step: 62
 ]
+# The fifteenth main path, phase serve_zoo: the registry's six other
+# families at full width through the serve entry point, 8 requests, prompt
+# 512 (internvl2's 256 vision frames before it), 32 generated tokens,
+# bfloat16.  "n_layers": the depth where the card's 80 GB cut it (the
+# layers kept cover every sublayer kind of the model), bfloat16 weights by
+# ``cfg.param_counts()``: granite-34b 44 of 88 (33.96 GB; all 88 hold
+# 67.32, too tight beside the plain path's float32 copies and the
+# script's time), llama4-maverick 2 of 48 (layer 0 chunked attention +
+# dense MLP, layer 1 chunked + the 128-expert MoE; 34.79 GB, 4 layers 67.5),
+# arctic 2 of 35 (54.9 GB), jamba 4 of 72 (mamba + dense, mamba + MoE,
+# mamba + dense, attention + MoE: K2, K3 and K4 in one trunk; 44.97 GB).
+# "f32_layers": the float32 comparison's depth (None: arctic, whose one
+# float32 layer holds 55 GB; its kernels are held alone in phases
+# attention and mlp).
+SERVE_ZOO = [
+    {"arch": "granite", "requests": 8, "prompt_len": 512, "gen": 32, "n_layers": 44,
+     "f32_layers": 4},
+    {"arch": "phi3", "requests": 8, "prompt_len": 512, "gen": 32, "f32_layers": 8},
+    {"arch": "internvl2", "requests": 8, "prompt_len": 512, "gen": 32, "f32_layers": 24},
+    {"arch": "llama4", "requests": 8, "prompt_len": 512, "gen": 32, "n_layers": 2,
+     "f32_layers": 1},
+    {"arch": "arctic", "requests": 8, "prompt_len": 512, "gen": 32, "n_layers": 2,
+     "f32_layers": None},
+    {"arch": "jamba", "requests": 8, "prompt_len": 512, "gen": 32, "n_layers": 4,
+     "f32_layers": 1},
+]
+# The timed prefills of a serve_zoo run, in turns: 3 a path (the median).
+ZOO_ORDER = ("kernels", "plain", "plain", "kernels", "kernels", "plain")
 
 # The training run of the eleventh main path: qwen3-0.6b at full width and
 # depth, train_4k's sequence length, a global batch of 16 sequences in 4
@@ -559,6 +635,21 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+class PhaseClock:
+    """The seconds of each phase, printed as it ends: the time since the
+    previous phase ended (or the run began)."""
+
+    def __init__(self):
+        self.mark = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.mark
+        self.mark = now
+        print(f"phase seconds: {phase} {self.seconds[phase]:.1f} s")
+
+
 def time_ms(torch, fns: dict, reps: int, calls: int = 1) -> dict:
     """Median time (ms) of one call of each zero-argument callable in
     ``fns``, taken in turns (one sample of each per round) after two warm-up
@@ -612,8 +703,23 @@ def graph_ms(torch, fn) -> float:
 def time_kernel(torch, fns: dict) -> tuple[dict, dict]:
     """A kernel phase's times: per launch over runs of CALLS launches (the
     device time, the rows' ``ms``) and one call between two events (the
-    call's host cost included, the rows' ``call_ms``)."""
-    return time_ms(torch, fns, REPS, CALLS), time_ms(torch, fns, REPS)
+    call's host cost included, the rows' ``call_ms``).  A function whose
+    one call takes SLOW_MS or more (the plain versions at the largest
+    shapes, the largest MLP launches) has both from the median of SLOW_REPS
+    single calls: a launch's host cost is noise beside it, and REPS x
+    (CALLS + 1) calls of a plain version at 50-150 ms would take minutes."""
+    probe = {k: event_ms(torch, fn)[0] for k, fn in fns.items()}
+    fast = {k: fn for k, fn in fns.items() if probe[k] < SLOW_MS}
+    slow = {k: fn for k, fn in fns.items() if probe[k] >= SLOW_MS}
+    ms, one = {}, {}
+    if fast:
+        ms.update(time_ms(torch, fast, REPS, CALLS))
+        one.update(time_ms(torch, fast, REPS))
+    if slow:
+        single = time_ms(torch, slow, SLOW_REPS)
+        ms.update(single)
+        one.update(single)
+    return ms, one
 
 
 def phase_device(torch) -> str:
@@ -1727,7 +1833,7 @@ VGG_GRAD_TOL = 1e-4
 # The five example twins run on the card by phase examples, with the
 # arguments each is given there: train_lm at 100 of its 200 steps (its
 # failure at step 50, after the step-49 checkpoint), since at 200 (37.5 s)
-# the phase took 98.7 s, past its 90 s.
+# the phase, then one twin after the other, took 98.7 s, past its 90 s.
 EXAMPLES = {"quickstart": [], "evaluate_design": [], "serve_lm": [],
             "train_lm": ["--steps", "100"], "vgg_pipeline": []}
 EXAMPLE_TIMEOUT_S = 300
@@ -1942,26 +2048,52 @@ def phase_vgg_train(torch, spec, card: str, seed: int) -> dict:
 
 def phase_examples(card: str) -> dict:
     """Each twin in ``examples/*_torch.py`` in a fresh interpreter with its
-    default device (the card): exit 0, its output, its wall time."""
+    default device (the card), the five at once: exit 0, its output, its
+    wall time from the common start (one after the other they took ~96 s,
+    PERF.md).  A twin still running after EXAMPLE_TIMEOUT_S fails the run;
+    every twin still running then is stopped."""
     import re
 
-    rows = {}
-    for name, args in EXAMPLES.items():
-        path = ROOT / "examples" / f"{name}_torch.py"
+    rows, runs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(path), *args], cwd=ROOT,
-                              capture_output=True, text=True, check=False,
-                              timeout=EXAMPLE_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            print(f"  {name}_torch | {line}")
-        check(proc.returncode == 0,
-              f"examples/{name}_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
-        given = (f" {' '.join(args)} (cut from its default to keep the phase near 90 s)"
-                 if args else "")
-        print(f"phase examples: examples/{name}_torch.py{given} exit 0 in "
-              f"{wall:.3f} s (wall, interpreter start included); {card}")
-        rows[name] = {"args": args, "seconds": wall, "stdout": proc.stdout}
+        try:
+            for name, args in EXAMPLES.items():
+                out = open(Path(tmp) / f"{name}.out", "w+")
+                err = open(Path(tmp) / f"{name}.err", "w+")
+                proc = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / f"{name}_torch.py"), *args],
+                    cwd=ROOT, stdout=out, stderr=err, text=True)
+                runs[name] = {"proc": proc, "out": out, "err": err, "wall": None}
+            while any(r["wall"] is None for r in runs.values()):
+                for r in runs.values():
+                    if r["wall"] is None and r["proc"].poll() is not None:
+                        r["wall"] = time.perf_counter() - t0
+                check(time.perf_counter() - t0 < EXAMPLE_TIMEOUT_S,
+                      f"examples still running after {EXAMPLE_TIMEOUT_S} s: "
+                      f"{[n for n, r in runs.items() if r['wall'] is None]}")
+                time.sleep(0.05)
+        finally:
+            for r in runs.values():
+                if r["proc"].poll() is None:
+                    r["proc"].kill()
+                    r["proc"].wait()
+        for name, r in runs.items():
+            r["out"].seek(0)
+            r["err"].seek(0)
+            stdout, stderr = r["out"].read(), r["err"].read()
+            r["out"].close()
+            r["err"].close()
+            for line in stdout.splitlines():
+                print(f"  {name}_torch | {line}")
+            check(r["proc"].returncode == 0,
+                  f"examples/{name}_torch.py exited {r['proc'].returncode}: {stderr[-3000:]}")
+            args = EXAMPLES[name]
+            given = f" {' '.join(args)} (cut from its default)" if args else ""
+            print(f"phase examples: examples/{name}_torch.py{given} exit 0 in "
+                  f"{r['wall']:.3f} s (wall from the five's common start, interpreter "
+                  f"start included); {card}")
+            rows[name] = {"args": args, "seconds": r["wall"], "stdout": stdout}
     found = re.search(r"\((\d+) fused_conv3x3 launches\)", rows["vgg_pipeline"]["stdout"])
     check(found is not None and int(found.group(1)) == 13,
           "vgg_pipeline_torch.py's fused forward did not launch fused_conv3x3 13 times")
@@ -2140,8 +2272,10 @@ def phase_plan(spec) -> list:
 
 
 def serve_argv(run: dict, seed: int) -> list:
-    """A serving run's command line."""
-    return ["--arch", run["arch"], "--full", "--requests", str(run["requests"]),
+    """A serving run's command line (``--layers`` where the run cuts the
+    depth)."""
+    cut = ["--layers", str(run["n_layers"])] if "n_layers" in run else []
+    return ["--arch", run["arch"], "--full", *cut, "--requests", str(run["requests"]),
             "--prompt-len", str(run["prompt_len"]), "--gen", str(run["gen"]),
             "--seed", str(seed)]
 
@@ -2181,19 +2315,14 @@ def depth_of(cfg, of_layers: int | None = None) -> str:
 
 def phase_serve(np, run: dict, seed: int, phase: str = "serve") -> dict:
     """The port's serve entry point at full width: ``serve.main`` at full
-    depth, or ``serve.run`` (the same prefill and decode steps) on the
-    config cut to ``run["n_layers"]``."""
+    depth, or at ``run["n_layers"]`` (``--layers``)."""
     from repro_torch.configs import resolve
     from repro_torch.launch import serve
 
     full = resolve(run["arch"])
     cfg = serve_config(run)
     t0 = time.perf_counter()
-    if cfg.n_layers == full.n_layers:
-        ids = serve.main(serve_argv(run, seed))
-    else:
-        ids = serve.run(cfg, serve_rc(cfg, run), requests=run["requests"],
-                        prompt_len=run["prompt_len"], gen=run["gen"], seed=seed)["ids"]
+    ids = serve.main(serve_argv(run, seed))
     wall = time.perf_counter() - t0
     check(ids.shape == (run["requests"], run["gen"]),
           f"serve returned ids of shape {ids.shape}")
@@ -2273,32 +2402,63 @@ def attention_control(rc):
     return dataclasses.replace(ops.PLAIN, attention=blocked_attention)
 
 
-def route_flips(run_a, run_b) -> tuple:
-    """([token routes whose top-k expert set differs between ``run_a()``
-    and ``run_b()``, one count per MoE layer], routes in all): each run's
-    routing is recorded from ``moe.route_topk``."""
+def _routed(run, route):
+    """``run()`` with ``moe.route_topk`` replaced by ``route(real, logits,
+    top_k)``, restored after."""
     from repro_torch.models import moe as MOE
 
     real = MOE.route_topk
+    MOE.route_topk = lambda logits, top_k: route(real, logits, top_k)
+    try:
+        return run()
+    finally:
+        MOE.route_topk = real
 
-    def recorded(run):
-        seen = []
 
-        def route(logits, top_k):
-            gates, idx, probs = real(logits, top_k)
-            seen.append(idx.sort(dim=-1).values)
-            return gates, idx, probs
+def recorded_routes(run) -> tuple:
+    """(``run()``, the top-k expert indices of each of its MoE routings, in
+    call order)."""
+    seen = []
 
-        MOE.route_topk = route
-        try:
-            run()
-        finally:
-            MOE.route_topk = real
-        return seen
+    def route(real, logits, top_k):
+        gates, idx, probs = real(logits, top_k)
+        seen.append(idx)
+        return gates, idx, probs
 
-    a, b = recorded(run_a), recorded(run_b)
-    per_layer = [int((x != y).any(dim=-1).sum()) for x, y in zip(a, b)]
+    return _routed(run, route), seen
+
+
+def replayed_routes(routes: list, run):
+    """``run()`` with its MoE routings taking the expert indices of
+    ``routes`` (as :func:`recorded_routes` gives them, in call order), each
+    token's gates from this run's own router probabilities at them: a run
+    that differs from the recorded one by rounding alone then differs by a
+    continuous function of it, not by whole experts where a top-k choice
+    between two near-tied experts flips."""
+    import torch
+
+    todo = iter(routes)
+
+    def route(real, logits, top_k):
+        _, _, probs = real(logits, top_k)
+        idx = next(todo)
+        gates = probs.gather(-1, idx)
+        return gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx, probs
+
+    return _routed(run, route)
+
+
+def count_flips(a: list, b: list) -> tuple:
+    """([token routes whose top-k expert set differs between the routings
+    ``a`` and ``b``, one count per MoE layer], routes in all)."""
+    per_layer = [int((x.sort(dim=-1).values != y.sort(dim=-1).values).any(dim=-1).sum())
+                 for x, y in zip(a, b)]
     return per_layer, sum(x[..., 0].numel() for x in a)
+
+
+def route_flips(run_a, run_b) -> tuple:
+    """:func:`count_flips` of ``run_a()``'s and ``run_b()``'s routings."""
+    return count_flips(recorded_routes(run_a)[1], recorded_routes(run_b)[1])
 
 
 def serve_batch(torch, cfg, B: int, S: int, gen):
@@ -2315,7 +2475,10 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
                      f32_layers: int | None = None, phase: str = "serve_time",
                      control=None) -> dict:
     """Prefill and decode through the kernels and through their plain
-    versions (in turns), a profiled prefill and four decode steps, and the
+    versions (3 rounds of kernels, plain, plain, kernels prefills; a decode
+    of ``gen - 1`` steps after each prefill of the first round only: the
+    other rounds' 8 decodes took about a minute over the four serve_*_time
+    phases, PERF.md), a profiled prefill and four decode steps, and the
     prefill logits of the two held together in bfloat16 (the run's depth)
     and float32 (``f32_layers`` layers at full width; ``None``: the run's
     depth) within ``tols``.  ``control(rc)``: a kernel-free reordering of
@@ -2353,10 +2516,13 @@ def phase_serve_time(torch, run: dict, seed: int, tols: dict,
         first = {name: prefill(params, cfg, name) for name in paths}
         samples = {f"{name}_{what}": [] for name in paths
                    for what in ("prefill", "decode")}
-        for _ in range(3):
+        for rnd in range(3):
             for name in ("kernels", "plain", "plain", "kernels"):
                 ms, (logits, cache) = event_ms(torch, lambda: prefill(params, cfg, name))
                 samples[f"{name}_prefill"].append(ms)
+                if rnd:  # a path's decode ms: the median of the first round's 2
+                    del logits, cache
+                    continue
                 tok = logits[:, -1].argmax(-1)[:, None]
 
                 def decode_all(tok=tok, cache=cache, name=name):
@@ -2489,6 +2655,198 @@ def phase_serve_ring(torch, run: dict, seed: int) -> dict:
                          "max_abs_logit": scale, "allowed": RING_TOL * scale,
                          "argmax_agree": same}
         del params, logits, ring_l, full_l
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_launches(cfg, gen: int) -> dict:
+    """The launches one serve of ``cfg`` (a prefill and ``gen - 1`` decode
+    steps) makes: flash_attention once per attention sublayer in the
+    prefill (a decode step's one query attends in torch ops), fused_mlp
+    once per dense MLP per forward (arctic's dense residual beside its
+    experts is one; the experts are batched products), selective_scan once
+    per Mamba sublayer per forward."""
+    kinds = cfg.sublayer_kinds(0, cfg.n_layers)
+    attn = sum(mixer != "mamba" for mixer, _ in kinds)
+    mlp = sum(cfg.dense_residual_ff > 0 if moe else cfg.d_ff > 0 for _, moe in kinds)
+    return {"fused_conv3x3": 0, "flash_attention": attn, "fused_mlp": mlp * gen,
+            "selective_scan": (len(kinds) - attn) * gen, "flash_attention_bwd": 0}
+
+
+def zoo_control(rc):
+    """A serve_zoo run's kernel-free reordering: the plain path with
+    :func:`blocked_attention` for the attention and, for jamba's Mamba
+    layers, the reference's chunk-recurrent scan (:func:`scan_control`)."""
+    import dataclasses
+
+    return dataclasses.replace(scan_control(rc), attention=blocked_attention)
+
+
+def check_cache(cfg, cache: dict, length: int, what: str) -> None:
+    """A decoder-only cache after ``what``: one entry per sublayer of the
+    config's segments in their order, KV buffers for an attention sublayer
+    and the conv inputs and state for a Mamba one, ``length`` positions."""
+    from repro_torch.models import transformer as T
+
+    kinds = [kind for spec in T.segments_of(cfg) for _ in range(spec.repeats)
+             for kind in spec.kinds]
+    held = [set(sub) for seg in cache["segments"] for layer in seg
+            for sub in layer.values()]
+    want = [{"conv", "h"} if mixer == "mamba" else {"k", "v"} for mixer, _ in kinds]
+    check(held == want, f"{cfg.name}'s cache after {what} holds {held}, not {want} "
+          "(the order of the config's sublayers)")
+    check(cache["len"] == length,
+          f"{cfg.name}'s cache after {what} holds {cache['len']} positions, not {length}")
+
+
+def zoo_time(torch, run: dict, seed: int) -> dict:
+    """One serve_zoo run's comparison with the plain path, its own weights
+    (seeded ``seed + 8``) and prompts: the bfloat16 prefill logits through
+    ``ops.KERNELS`` against ``ops.PLAIN`` within PREFILL_TOL, or
+    CONTROL_FACTOR x what :func:`zoo_control` moves them by; an MoE run
+    counts the routes the two paths choose apart, then runs the plain path
+    and its reordering on the kernel path's routes
+    (:func:`replayed_routes`); the hybrid cache's layout; the prefills of
+    ZOO_ORDER (CUDA events, the median) and one decode of ``gen - 1``
+    steps a path; then the float32 logits at ``run["f32_layers"]`` layers
+    within PREFILL_TOL's float32 1e-3 x the largest."""
+    import dataclasses
+
+    from repro_torch.configs import resolve
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    full_depth = resolve(run["arch"]).n_layers
+    cfg = serve_config(run)
+    rc = serve_rc(cfg, run)
+    B, S, n_gen = run["requests"], run["prompt_len"], run["gen"]
+    max_seq = serve.cache_entries(cfg, S, n_gen)
+    prompt = S + (cfg.frontend_len if cfg.frontend else 0)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    params = M.init_params(cfg, generator=gen)
+    batch = serve_batch(torch, cfg, B, S, gen)
+    paths = {"kernels": ops.KERNELS, "plain": ops.PLAIN, "control": zoo_control(rc)}
+    phase = f"serve_zoo {cfg.name}"
+    out = {"logits": {}}
+
+    def prefill(p, c, name):
+        cache = M.init_cache(c, B, max_seq)
+        return M.prefill(p, c, rc, batch, cache, kernels=paths[name])
+
+    def logits_of(name):
+        return prefill(params, cfg, name)[0]
+
+    with torch.inference_mode():
+        depth = depth_of(cfg, full_depth)
+        if cfg.n_experts:  # the plain runs take the kernel run's expert choices
+            kernels, routes = recorded_routes(lambda: logits_of("kernels"))
+            free, free_routes = recorded_routes(lambda: logits_of("plain"))
+            flips, n_routes = count_flips(routes, free_routes)
+            free_err = float((kernels - free).abs().max())
+            plain = replayed_routes(routes, lambda: logits_of("plain"))
+            control = replayed_routes(routes, lambda: logits_of("control"))
+            print(f"phase {phase}: bfloat16 prefill, kernels vs plain: {sum(flips)} of "
+                  f"{n_routes} token routes ({len(flips)} MoE layers) chose another "
+                  f"top-{cfg.top_k} expert set (by layer {flips}); the logits with "
+                  f"each path's own routes differ by up to {free_err:.6g} (a flipped "
+                  "route moves a token by whole experts), the plain path and its "
+                  "reordering below take the kernel path's routes")
+            del free
+            depth += ", the kernel path's expert choices replayed"
+        else:
+            kernels, plain = logits_of("kernels"), logits_of("plain")
+            control = logits_of("control")
+        out["logits"]["bfloat16"] = _logits_agree(
+            torch, "bfloat16", kernels, plain, PREFILL_TOL, phase, depth,
+            control=float((control - plain).abs().max()))
+        if cfg.n_experts:
+            out["logits"]["bfloat16"]["routes_flipped"] = {
+                "per_layer": flips, "routes": n_routes, "own_routes_max_abs_err": free_err}
+        del kernels, plain, control
+        samples = {f"{name}_{what}": [] for name in ("kernels", "plain")
+                   for what in ("prefill", "decode")}
+        for name in ZOO_ORDER:
+            ms, (logits, cache) = event_ms(torch, lambda: prefill(params, cfg, name))
+            samples[f"{name}_prefill"].append(ms)
+            if not samples[f"{name}_decode"]:  # each path's first prefill decodes
+                check_cache(cfg, cache, prompt, f"the prefill through the {name}")
+                tok = logits[:, -1].argmax(-1)[:, None]
+
+                def decode_all(tok=tok, cache=cache, name=name):
+                    for _ in range(n_gen - 1):
+                        lg, cache = M.decode(params, cfg, rc, tok, cache,
+                                             kernels=paths[name])
+                        tok = lg[:, -1].argmax(-1)[:, None]
+                    return cache
+
+                ms, cache = event_ms(torch, decode_all)
+                samples[f"{name}_decode"].append(ms / (n_gen - 1))
+                check_cache(cfg, cache, prompt + n_gen - 1,
+                            f"{n_gen - 1} decode steps through the {name}")
+            del logits, cache
+        for name in ("kernels", "plain"):
+            pre = statistics.median(samples[f"{name}_prefill"])
+            dec = samples[f"{name}_decode"][0]
+            out[name] = {"prefill_ms": pre, "prefill_samples": samples[f"{name}_prefill"],
+                         "decode_ms_per_token": dec, "decode_tokens_per_s": B / dec * 1e3,
+                         "tokens_per_s": B * n_gen / (pre + (n_gen - 1) * dec) * 1e3}
+            print(f"phase {phase}: through the {name:7s}: prefill {pre:.3f} ms (median "
+                  f"of {len(samples[f'{name}_prefill'])}), decode {dec:.3f} ms/token over "
+                  f"{n_gen - 1} steps ({out[name]['decode_tokens_per_s']:.6g} tokens/s), "
+                  f"{out[name]['tokens_per_s']:.6g} tokens/s end to end ({B} requests x "
+                  f"prompt {prompt} + {n_gen} tokens)")
+        del params
+        torch.cuda.empty_cache()
+        if run["f32_layers"] is not None:
+            cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=run["f32_layers"])
+            gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+            params32 = M.init_params(cfg32, generator=gen)
+            batch = serve_batch(torch, cfg32, B, S, gen)
+            lk = prefill(params32, cfg32, "kernels")[0]
+            lp = prefill(params32, cfg32, "plain")[0]
+            out["logits"]["float32"] = _logits_agree(
+                torch, "float32", lk, lp, PREFILL_TOL, phase, depth_of(cfg32, full_depth))
+            del params32, lk, lp
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_zoo(torch, np, seed: int) -> list:
+    """The fifteenth main path: each SERVE_ZOO run through the serve entry
+    point (``serve.main``, with ``--layers`` where the run cuts the depth),
+    its launch counts zeroed just before and read just after, each equal to
+    :func:`zoo_launches`; then :func:`zoo_time`; the peak device memory of
+    the serve and of the whole run, and the run's seconds.  Every run's
+    weights are freed before the next run's are made."""
+    out = []
+    for run in SERVE_ZOO:
+        t0 = time.perf_counter()
+        cfg = serve_config(run)
+        want = zoo_launches(cfg, run["gen"])
+        kinds = cfg.sublayer_kinds(0, cfg.n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        served = phase_serve(np, run, seed, "serve_zoo")
+        counts = read_counts()
+        serve_peak = torch.cuda.max_memory_allocated()
+        check(counts == want,
+              f"serving {cfg.name} ({depth_of(cfg)}: {kinds}) launched {counts}, not "
+              f"{want}: flash_attention once per attention sublayer of the prefill, "
+              f"fused_mlp once per dense MLP per forward, selective_scan once per "
+              f"Mamba sublayer per forward, {run['gen']} forwards")
+        print(f"phase main_path serve_zoo {cfg.name}: launches {counts}")
+        torch.cuda.empty_cache()
+        timed = zoo_time(torch, run, seed)
+        peak = torch.cuda.max_memory_allocated()
+        seconds = time.perf_counter() - t0
+        print(f"phase serve_zoo {cfg.name}: peak device memory {serve_peak / 2**30:.3f} "
+              f"GiB in the serve, {peak / 2**30:.3f} GiB in the run; {seconds:.1f} s")
+        out.append({"arch": run["arch"], "name": cfg.name, "n_layers": cfg.n_layers,
+                    "gen": run["gen"], "counts": counts, "serve": served,
+                    "peak_serve_bytes": serve_peak, "peak_bytes": peak,
+                    "seconds": seconds, **timed})
         torch.cuda.empty_cache()
     return out
 
@@ -2630,8 +2988,8 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
         ("serve", serve_shape, "float32", True, 0, 0, None),
         ("serve_plan_tile", serve_shape, "bfloat16", True, 0, 0, plan_tile),
     ]
-    cases += [(label, shape, "bfloat16", causal, window, 0, None)
-              for label, shape, causal, window in SERVE_ATTENTION]
+    cases += [(label, shape, "bfloat16", causal, window, chunk, None)
+              for label, shape, causal, window, chunk in SERVE_ATTENTION]
     for shape in ((1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
                   (1, 128, 256, 4, 1, 128), (2, 384, 384, 6, 2, 32)):
         for dname in ("float32", "bfloat16"):
@@ -2834,9 +3192,14 @@ def phase_scan(torch, spec, seed: int) -> list:
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
     cfg = resolve(SERVE_SSM["arch"])
     B, S, di, ds = SERVE_SSM["requests"], SERVE_SSM["prompt_len"], cfg.d_inner, cfg.ssm_state
+    zoo = serve_config(next(r for r in SERVE_ZOO if r["arch"] == "jamba"))
     cases = [  # (label, (B, S, di, ds), (chunk, block_d) or None, with state)
         ("serve_prefill", (B, S, di, ds), None, True),
         ("serve_decode", (B, 1, di, ds), None, True),
+        # jamba's Mamba layers (phase serve_zoo): d_inner 16,384, twice
+        # falcon-mamba's, so twice the channel blocks
+        ("jamba_prefill", (B, S, zoo.d_inner, zoo.ssm_state), None, True),
+        ("jamba_decode", (B, 1, zoo.d_inner, zoo.ssm_state), None, True),
         ("test_kernels", (1, 64, 16, 4), (16, 16), False),
         ("test_kernels", (2, 128, 32, 8), (32, 16), False),
         ("test_kernels", (1, 64, 64, 16), (64, 32), False),
@@ -2869,7 +3232,7 @@ def phase_scan(torch, spec, seed: int) -> list:
               f"differs from plain by up to {err} (tolerance {SCAN_TOL})")
         del want_y, want_h, got_y, got_h
         ms, one = time_kernel(torch, {"plain": plain, "kernel": kernel})
-        device_ms = graph_ms(torch, kernel) if label == "serve_decode" else None
+        device_ms = graph_ms(torch, kernel) if label.endswith("_decode") else None
         kc = RL.kernel_cost("selective_scan", x=(b, s, di, ds), h0=state, final_state=state)
         n_bytes, flops = kc.bytes, kc.flops
         t_bytes = spec.memory_seconds(n_bytes) * 1e3
@@ -3220,7 +3583,9 @@ def phase_train_parity(torch, seed: int) -> dict:
 # bits; a parameter or moment that differs is held to
 # TRAIN_PARITY_TOL["bfloat16"] (largest relative difference per leaf) with
 # the differing leaves printed.
-TRAIN_SHARDED = {"steps": 5, "compressed_steps": 8, "compressed_batch": 4,
+# 3 steps of each (the median of the 2 after the first; 5 until PR 28, cut
+# to keep the script within its time with phase serve_zoo, ~12 s).
+TRAIN_SHARDED = {"steps": 3, "compressed_steps": 8, "compressed_batch": 4,
                  "pp_micro": 6, "pp_rows": 4096}
 
 
@@ -3977,6 +4342,31 @@ def serve_entry(name: str, source: str, parts: list, launches: int) -> dict:
     }
 
 
+def zoo_entries(zoo: list, att_rows: list, mlp_rows: list, scan_rows: list) -> list:
+    """The kernels-line entries of phase serve_zoo (``"path": "serve_zoo"``):
+    each kernel's launches over the six runs, its times summed over them at
+    each run's rows ("<arch>_prefill", "<arch>_decode")."""
+    def row(rows, case):
+        return next(r for r in rows if r["case"] == case)
+
+    parts = {"flash_attention": [], "fused_mlp": [], "selective_scan": []}
+    for run in zoo:
+        arch, counts, steps = run["arch"], run["counts"], run["gen"] - 1
+        if counts["flash_attention"]:
+            parts["flash_attention"].append((row(att_rows, f"{arch}_prefill"),
+                                             counts["flash_attention"]))
+        for name, rows in (("fused_mlp", mlp_rows), ("selective_scan", scan_rows)):
+            per_forward = counts[name] // run["gen"]
+            if per_forward:
+                parts[name] += [(row(rows, f"{arch}_prefill"), per_forward),
+                                (row(rows, f"{arch}_decode"), per_forward * steps)]
+    sources = {"flash_attention": "flash_attention.cu", "fused_mlp": "fused_mlp.cu",
+               "selective_scan": "mamba_scan.cu"}
+    return [dict(serve_entry(name, f"src/repro_torch/kernels/csrc/{sources[name]}",
+                             parts[name], sum(run["counts"][name] for run in zoo)),
+                 path="serve_zoo") for name in parts]
+
+
 def kernels_entry(rows: list, launches: int, spec) -> dict:
     """The fused_conv3x3 entry of the kernels line: times summed over the
     13 layers at the main paths' shapes (batch 8, float32: the forward of
@@ -4036,8 +4426,11 @@ def main(argv=None) -> int:
           "float32 matmuls must run in full float32 (TF32 is on)")
 
     t_start = time.perf_counter()
+    clock = PhaseClock()
     card = phase_device(torch)
+    clock.lap("device")
     build = phase_build()
+    clock.lap("build")
     spec = gpu_spec()
     vgg = vgg16_ir(pool_mode="separate")
 
@@ -4045,7 +4438,9 @@ def main(argv=None) -> int:
     # read just after ----
     zero_counts()
     paper = phase_paper_flow(vgg)
+    clock.lap("paper_flow")
     exhaustive, vgg_flow = phase_exhaustive(torch, np, vgg, args.seed)
+    clock.lap("exhaustive")
     model, x, forward = phase_forward(torch, args.seed)
     vgg_counts = read_counts()
     check(vgg_counts["fused_conv3x3"] > 0, "the VGG-16 path never launched fused_conv3x3")
@@ -4053,6 +4448,7 @@ def main(argv=None) -> int:
     forward["ms"] = time_forward(torch, model, x)
     del model, x
     torch.cuda.empty_cache()
+    clock.lap("forward")
 
     # ---- main path 14, training VGG-16: counts zeroed just before, read just
     # after (its steps run the torch ops; the trained forward runs K1) ----
@@ -4065,6 +4461,7 @@ def main(argv=None) -> int:
           "(the trained forward) and nothing else")
     print(f"phase main_path vgg_train: launches {vgg_train_counts}")
     torch.cuda.empty_cache()
+    clock.lap("vgg_train")
 
     # ---- main path 4, the grouping search on DAGs: counts zeroed just
     # before, read just after (it runs no kernel of K1-K4) ----
@@ -4074,6 +4471,7 @@ def main(argv=None) -> int:
     check(not any(dag_counts.values()),
           f"the DAG search path launched kernels: {dag_counts}")
     print(f"phase main_path dag_search: launches {dag_counts}")
+    clock.lap("dag_search")
 
     # ---- main path 5, the tracing frontend: counts zeroed just before, read
     # just after (its traces, sweeps and forwards run no kernel of K1-K4) ----
@@ -4087,6 +4485,7 @@ def main(argv=None) -> int:
     check(not any(frontend_counts.values()),
           f"the frontend path launched kernels: {frontend_counts}")
     print(f"phase main_path frontend: launches {frontend_counts}")
+    clock.lap("frontend")
 
     # ---- main path 6, the fleet sweep: counts zeroed just before, read just
     # after (float64 torch code and host numpy; no kernel of K1-K4) ----
@@ -4101,6 +4500,7 @@ def main(argv=None) -> int:
     check(not any(fleet_counts.values()),
           f"the fleet path launched kernels: {fleet_counts}")
     print(f"phase main_path fleet: launches {fleet_counts}")
+    clock.lap("fleet")
 
     # ---- main path 7, the planning service: counts zeroed just before, read
     # just after (it sweeps through run_fleet; no kernel of K1-K4) ----
@@ -4111,10 +4511,12 @@ def main(argv=None) -> int:
     check(not any(service_counts.values()),
           f"the service path launched kernels: {service_counts}")
     print(f"phase main_path service: launches {service_counts}")
+    clock.lap("service")
 
     # ---- main path 2, serving qwen3-0.6b: counts zeroed just before, read
     # just after ----
     plans = phase_plan(spec)
+    clock.lap("plan")
     qwen = resolve(SERVE["arch"])
     zero_counts()
     serve_run = phase_serve(np, SERVE, args.seed)
@@ -4130,9 +4532,11 @@ def main(argv=None) -> int:
           f"serving launched the attention backward: {serve_counts}")
     print(f"phase main_path serve: launches {serve_counts}")
     torch.cuda.empty_cache()
+    clock.lap("serve")
 
     serve_time = phase_serve_time(torch, SERVE, args.seed, PREFILL_TOL)
     torch.cuda.empty_cache()
+    clock.lap("serve_time")
 
     # ---- main path 3, serving falcon-mamba-7b: counts zeroed just before,
     # read just after ----
@@ -4150,9 +4554,11 @@ def main(argv=None) -> int:
           f"serving {mamba.name} (no attention, no MLP) launched {ssm_counts}")
     print(f"phase main_path serve_ssm: launches {ssm_counts}")
     torch.cuda.empty_cache()
+    clock.lap("serve_ssm")
     ssm_time = phase_serve_time(torch, SERVE_SSM, args.seed, SSM_PREFILL_TOL,
                                 SSM_F32_LAYERS, "serve_ssm_time", control=scan_control)
     torch.cuda.empty_cache()
+    clock.lap("serve_ssm_time")
 
     # ---- main path 8, serving mixtral-8x7b (16 of 32 layers): counts
     # zeroed just before, read just after ----
@@ -4166,10 +4572,12 @@ def main(argv=None) -> int:
           f"once per layer of the prefill ({moe_cfg.n_layers}) and nothing else")
     print(f"phase main_path serve_moe: launches {moe_counts}")
     torch.cuda.empty_cache()
+    clock.lap("serve_moe")
     moe_time = phase_serve_time(torch, SERVE_MOE, args.seed, PREFILL_TOL,
                                 MOE_F32_LAYERS, "serve_moe_time",
                                 control=attention_control)
     torch.cuda.empty_cache()
+    clock.lap("serve_moe_time")
 
     # ---- main path 9, serving seamless-m4t-large-v2: counts zeroed just
     # before, read just after ----
@@ -4189,9 +4597,11 @@ def main(argv=None) -> int:
           f"layers x {SERVE_ENCDEC['gen']} forwards)")
     print(f"phase main_path serve_encdec: launches {encdec_counts}")
     torch.cuda.empty_cache()
+    clock.lap("serve_encdec")
     encdec_time = phase_serve_time(torch, SERVE_ENCDEC, args.seed, PREFILL_TOL,
                                    phase="serve_encdec_time", control=attention_control)
     torch.cuda.empty_cache()
+    clock.lap("serve_encdec_time")
 
     # ---- main path 10, serving gemma3-27b's superblock through the ring
     # cache: counts zeroed just before, read just after its run ----
@@ -4208,6 +4618,13 @@ def main(argv=None) -> int:
           f"{n_ring} layers x {SERVE_RING['gen']} forwards")
     print(f"phase main_path serve_ring: launches {ring_counts}")
     torch.cuda.empty_cache()
+    clock.lap("serve_ring")
+
+    # ---- main path 15, serving the registry's six other families at full
+    # width (phase serve_zoo): each run's counts zeroed just before and read
+    # just after its serve (checked in the phase) ----
+    zoo = phase_serve_zoo(torch, np, args.seed)
+    clock.lap("serve_zoo")
 
     # ---- main path 11, training qwen3-0.6b through launch.train: counts
     # zeroed just before, read just after ----
@@ -4216,6 +4633,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_run = phase_train(torch, args.seed, Path(tmp))
         train_counts = read_counts()
+        clock.lap("train")
         n_steps = train_run["steps_run"] + train_run["redispatches"]
         per_step = train_cfg.n_layers * TRAIN_RUN["microbatches"]
         check(train_counts == {"fused_conv3x3": 0,
@@ -4230,9 +4648,12 @@ def main(argv=None) -> int:
               "flash_attention twice each, the forward and its recompute under full "
               "remat, flash_attention_bwd once)")
         train_time = phase_train_time(torch, train_run, args.seed)
+        clock.lap("train_time")
         roofline = phase_roofline(torch, card, train_time, serve_time)
+        clock.lap("roofline")
         train_parity = phase_train_parity(torch, args.seed)
         torch.cuda.empty_cache()
+        clock.lap("train_parity")
 
         # ---- main path 12, the sharded training path: the counts of its
         # sharded and its compressed steps, each zeroed just before and read
@@ -4240,21 +4661,29 @@ def main(argv=None) -> int:
         # checkpoint ----
         train_sharded = phase_train_sharded(torch, args.seed, Path(tmp))
         torch.cuda.empty_cache()
+        clock.lap("train_sharded")
 
     # ---- main path 13, the partitioned training path on two ranks: each
     # rank zeroes the counts just before its steps and its prefill and reads
     # them just after (checked in the phase) ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         train_tp = phase_train_tp(torch, card, args.seed, Path(tmp))
+    clock.lap("train_tp")
     examples = phase_examples(card)
+    clock.lap("examples")
 
     layer_rows = phase_layers(torch, spec, args.seed)
+    clock.lap("layers")
     plan = plan_model(qwen, 4096, spec)
     att_rows = phase_attention(torch, spec, args.seed,
                                (plan.attn_block_q, plan.attn_block_k))
+    clock.lap("attention")
     mlp_rows = phase_mlp(torch, spec, args.seed, (plan.mlp_block_m, plan.mlp_block_f))
+    clock.lap("mlp")
     scan_rows = phase_scan(torch, spec, args.seed)
+    clock.lap("scan")
     bwd_rows = phase_train_kernel(torch, spec, args.seed)
+    clock.lap("train_kernel")
 
     def row(rows, case, dtype):
         return next(r for r in rows if r["case"] == case and r.get("dtype") == dtype)
@@ -4296,6 +4725,8 @@ def main(argv=None) -> int:
                     tpc["flash_attention_bwd"]),
     )]
 
+    entries += zoo_entries(zoo, att_rows, mlp_rows, scan_rows)
+
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
         "card": card, "build": build, "paper_flow": paper,
@@ -4314,8 +4745,8 @@ def main(argv=None) -> int:
         "train_time": train_time, "roofline": roofline, "train_parity": train_parity,
         "train_sharded": train_sharded, "train_tp": train_tp,
         "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
-        "train_kernel": bwd_rows, "kernels": entries,
-        "seconds": time.perf_counter() - t_start,
+        "train_kernel": bwd_rows, "serve_zoo": zoo, "kernels": entries,
+        "phase_seconds": clock.seconds, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     print(f"phase done: {time.perf_counter() - t_start:.1f} s, "
           f"report {REPORT}")

@@ -2,6 +2,7 @@
 
 ``python -m repro_torch.launch.serve --arch qwen3 --full --requests 8 --prompt-len 512 --gen 32``
 ``python -m repro_torch.launch.serve --arch seamless --full --requests 8 --prompt-len 512 --gen 32``
+``python -m repro_torch.launch.serve --arch arctic --full --layers 2 --requests 8 --prompt-len 512 --gen 32``
 
 The port of the JAX package's ``launch/serve.py``, for every registry
 config: builds a cache (KV buffers for attention layers, the conv inputs
@@ -9,12 +10,13 @@ and the SSM state for Mamba layers; for the encoder-decoder, the decoder's
 KV buffers and the cross-attention buffers for the encoder's
 ``frontend_len`` frames), prefills a batch of synthetic prompts, then
 decodes tokens greedily.  It takes the reference's flags plus ``--device``
-(default ``cuda``; without CUDA it raises unless given ``--device cpu``).
-``--reduced`` (the default) runs ``scaled_down(cfg)``; ``--full`` the
-config at full width and depth (``--full`` mixtral holds 92.9 GB of
-bfloat16 weights, more than one 80 GB card; :func:`run` serves a
-depth-cut config).  Weights come from a ``torch.Generator`` seeded with
-``--seed``, at the reference's initialisation scales.  On the card every
+(default ``cuda``; without CUDA it raises unless given ``--device cpu``)
+and ``--layers``.  ``--reduced`` (the default) runs ``scaled_down(cfg)``;
+``--full`` the config at full width and depth, or its first ``--layers N``
+layers (``--full`` mixtral holds 92.9 GB of bfloat16 weights, more than
+one 80 GB card; :func:`run` serves any config object).  Weights come from
+a ``torch.Generator`` seeded with ``--seed``, at the reference's
+initialisation scales.  On the card every
 attention over more than one query runs through the flash-attention
 kernel, every dense MLP through the fused-MLP kernel and every selective
 scan (the prompt's, and each decode step's) through the selective-scan
@@ -50,7 +52,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first N layers (default: all); "
+                         "the depth cut that fits a model's weights on one card")
     return ap.parse_args(argv)
+
+
+def cache_entries(cfg, prompt_len: int, gen: int) -> int:
+    """The positions a serve's cache holds: the prompt, the generated
+    tokens and 8 spare, after the ``cfg.frontend_len`` frontend frames that
+    a decoder-only model with a frontend (internvl2's vision prefix) puts
+    before the prompt.  The encoder-decoder's frames go to its encoder,
+    whose cross-attention buffers :func:`repro_torch.models.model.init_cache`
+    sizes itself."""
+    prefix = cfg.frontend_len if cfg.frontend and not cfg.is_encoder_decoder else 0
+    return prefix + prompt_len + gen + 8
 
 
 def run(cfg, rc, *, requests: int, prompt_len: int, gen: int, seed: int = 0,
@@ -66,7 +82,7 @@ def run(cfg, rc, *, requests: int, prompt_len: int, gen: int, seed: int = 0,
     generator = torch.Generator(device=dev).manual_seed(seed)
     params = M.init_params(cfg, generator=generator, device=dev)
     B = requests
-    max_seq = prompt_len + gen + 8
+    max_seq = cache_entries(cfg, prompt_len, gen)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, prompt_len),
                                      generator=generator, device=dev)}
     if cfg.frontend:
@@ -104,6 +120,10 @@ def main(argv=None, *, kernels: ops.FusedKernels = ops.KERNELS) -> np.ndarray:
     lines and return the generated ids (requests, gen)."""
     args = parse_args(argv)
     cfg = resolve(args.arch)
+    if args.layers is not None:  # the registry's depth, cut before any reduction
+        if not 0 < args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.reduced:
         cfg = scaled_down(cfg, max_seq_len=args.prompt_len + args.gen + 8)
     rc = run_config(cfg.name, "decode_32k")

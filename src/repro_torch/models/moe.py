@@ -44,13 +44,15 @@ def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
+    # scaled in place: an expert stack's float32 draw (17.8 GB for one of
+    # arctic's) is then the only temporary beside the weights made so far
     p = {
-        "router": normal(d, E) * scale,  # fp32: routing is precision-sensitive
-        "w1": (normal(E, d, ff) * scale).to(dtype),
-        "w2": (normal(E, ff, d) / math.sqrt(ff)).to(dtype),
+        "router": normal(d, E).mul_(scale),  # fp32: routing is precision-sensitive
+        "w1": normal(E, d, ff).mul_(scale).to(dtype),
+        "w2": normal(E, ff, d).div_(math.sqrt(ff)).to(dtype),
     }
     if cfg.ffn_act in L.GATED_ACTS:
-        p["w3"] = (normal(E, d, ff) * scale).to(dtype)
+        p["w3"] = normal(E, d, ff).mul_(scale).to(dtype)
     if cfg.dense_residual_ff:
         p["dense_residual"] = L.init_mlp(gen, d, cfg.dense_residual_ff,
                                          cfg.ffn_act, dtype)

@@ -527,6 +527,72 @@ def test_flash_attention_shared_memory_is_the_wrappers(cuda):
     assert lib.flash_attention_smem_bytes(48, 64, 64, 1) == -1
 
 
+# The served registry families' attention cases that no earlier model
+# reached (chip_smoke.py's serve_zoo): granite's multi-query attention (48
+# query heads on one KV head) and internvl2's 7 query heads a KV head, both
+# on the wgmma body; phi3's head dim 96 with one query head a KV head, on
+# the mma.sync body.  Small batches, the models' heads and head dims.
+ZOO_ATT_SHAPES = [  # (B, Sq, Skv, H, KV, hd)
+    (2, 300, 300, 48, 1, 128),  # granite: G 48, ragged tiles
+    (2, 200, 200, 14, 2, 64),   # internvl2: G 7
+    (2, 777, 777, 14, 2, 64),   # G 7 past 512 keys
+]
+
+
+@pytest.mark.parametrize("tile", fused_attention.TILES, ids=str)
+@pytest.mark.parametrize("shape", ZOO_ATT_SHAPES, ids=[str(s) for s in ZOO_ATT_SHAPES])
+def test_flash_attention_wgmma_body_at_48_and_7_query_heads_a_kv_head(cuda, shape, tile):
+    assert shape[5] in fused_attention.WGMMA_HEAD_DIMS
+    q, k, v = _att_inputs(shape, torch.bfloat16, seed=31)
+    before = fused_attention.flash_attention.launches
+    got = fused_attention.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    torch.cuda.synchronize()
+    assert fused_attention.flash_attention.launches == before + 1
+    _assert_att(got, ref.flash_attention_ref(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_head_dim_96_with_one_query_head_a_kv_head(cuda, dtype):
+    # phi3's 32 / 32 heads of 96 (the mma.sync body in bfloat16), ragged
+    q, k, v = _att_inputs((2, 333, 333, 32, 32, 96), dtype, seed=32)
+    _assert_att(ops.attention(q, k, v), ref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("hd", [128, 64])
+def test_flash_attention_chunk_mask_across_the_8192_boundary(cuda, hd):
+    # llama4's chunked attention at its real chunk (8192): one head, queries
+    # past the boundary see only the keys of their own chunk
+    S, chunk = 8192 + 300, 8192
+    q, k, v = _att_inputs((1, S, S, 1, 1, hd), torch.bfloat16, seed=33)
+    got = fused_attention.flash_attention(q, k, v, chunk=chunk)
+    want = ref.flash_attention_ref(q, k, v, chunk=chunk)
+    _assert_att(got, want, torch.bfloat16)
+    # past the boundary the result is the attention over that chunk alone
+    tail = ref.flash_attention_ref(q[:, chunk:].contiguous(), k[:, chunk:].contiguous(),
+                                   v[:, chunk:].contiguous())
+    _assert_att(got[:, chunk:], tail, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [8, 256], ids=["decode_tile", "prefill_tile"])
+def test_fused_mlp_gelu_without_w3_at_granite_width(cuda, T):
+    # granite's plain GELU MLP (d 6144, d_ff 24,576): no gate, so no w3 is
+    # passed; the kernel must not read one
+    cfg = resolve("granite")
+    d, ff = cfg.d_model, cfg.d_ff
+    assert cfg.ffn_act == "gelu" and fused_mlp.default_tile(T)[0] == (16 if T <= 16 else 128)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x = _randn(gen, T, d, dtype=torch.bfloat16)
+    w1 = _randn(gen, d, ff, dtype=torch.bfloat16, std=d ** -0.5)
+    w2 = _randn(gen, ff, d, dtype=torch.bfloat16, std=ff ** -0.5)
+    before = fused_mlp.fused_mlp.launches
+    got = ops.mlp(x, w1, w2, None, act="gelu")
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp.launches == before + 1
+    want = ref.fused_mlp_ref(x, w1, w2, None, act="gelu")
+    tol = MLP_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("shape", MLP_SHAPES, ids=[str(s) for s in MLP_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_mlp_matches_plain_version(cuda, shape, dtype):
@@ -813,6 +879,22 @@ def test_selective_scan_matches_plain_version(cuda, case):
     h0 = h0 if state else None
     before = mamba_scan.selective_scan.launches
     y, h = ops.ssm_scan(dA, dBx, C, h0=h0, chunk=chunk, block_d=block_d)
+    torch.cuda.synchronize()
+    assert mamba_scan.selective_scan.launches == before + 1
+    want_y, want_h = ref.selective_scan_ref(dA, dBx, C, h0)
+    torch.testing.assert_close(y, want_y, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(h, want_h, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("S", [33, 1], ids=["prefill_body", "decode_body"])
+def test_selective_scan_at_jambas_d_inner(cuda, S):
+    # jamba's Mamba layers: d_inner 16,384 (twice falcon-mamba's), the
+    # default tile's 32 channel blocks, the state carried in and out
+    di, ds = resolve("jamba").d_inner, resolve("jamba").ssm_state
+    assert (di, ds) == (16384, 16) and mamba_scan.default_tile(di) == (64, 512)
+    dA, dBx, C, h0 = _scan_inputs(8 if S == 1 else 2, S, di, ds, seed=5)
+    before = mamba_scan.selective_scan.launches
+    y, h = ops.ssm_scan(dA, dBx, C, h0=h0)
     torch.cuda.synchronize()
     assert mamba_scan.selective_scan.launches == before + 1
     want_y, want_h = ref.selective_scan_ref(dA, dBx, C, h0)

@@ -186,20 +186,32 @@ def test_uncached_forward_matches_the_jax_model(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
 
-def test_prefill_and_greedy_decode_match_the_jax_model():
-    cfg = configs.scaled_down(configs.resolve("qwen3"))
+@pytest.mark.parametrize("arch", ["qwen3", "granite", "phi3", "internvl2"])
+def test_prefill_and_greedy_decode_match_the_jax_model(arch):
+    # the dense families' cached path: granite's multi-query attention and
+    # GELU MLP, phi3's MHA, internvl2's vision prefix, which the prefill
+    # writes into the cache before the prompt
+    cfg = configs.scaled_down(configs.resolve(arch))
     rcfg = _ref_cfg(cfg)
     r_rc, rc = _rc(cfg.name)
     r_params, params = _pair(cfg, 2)
     B, S, steps, max_seq = 2, 16, 4, 32
-    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S))
-    r_logits, r_cache = r_model.prefill(r_params, rcfg, r_rc, {"tokens": jnp.asarray(tokens)},
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    r_batch, batch = {"tokens": jnp.asarray(tokens)}, {"tokens": torch.from_numpy(tokens)}
+    prefix = 0
+    if cfg.frontend:
+        prefix = cfg.frontend_len
+        fe = rng.standard_normal((B, prefix, cfg.d_model), dtype=np.float32)
+        r_batch["frontend"], batch["frontend"] = jnp.asarray(fe), torch.from_numpy(fe)
+    r_logits, r_cache = r_model.prefill(r_params, rcfg, r_rc, r_batch,
                                         r_model.init_cache(rcfg, B, max_seq))
-    logits, cache = M.prefill(params, cfg, rc, {"tokens": torch.from_numpy(tokens)},
+    logits, cache = M.prefill(params, cfg, rc, batch,
                               M.init_cache(cfg, B, max_seq, device="cpu"))
     np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits), atol=TOL, rtol=TOL)
+    assert cache["len"] == int(r_cache["len"]) == prefix + S
     # the uncached forward's last position gives the same logits
-    h, _, _ = M.forward(params, cfg, rc, {"tokens": torch.from_numpy(tokens)})
+    h, _, _ = M.forward(params, cfg, rc, batch)
     torch.testing.assert_close(T.logits_last(params, cfg, rc, h), logits,
                                atol=TOL, rtol=TOL)
     r_tok = jnp.argmax(r_logits[:, -1], -1)[:, None]
@@ -212,7 +224,7 @@ def test_prefill_and_greedy_decode_match_the_jax_model():
         r_tok = jnp.argmax(r_logits[:, -1], -1)[:, None]
         tok = logits[:, -1].argmax(-1)[:, None]
     assert np.array_equal(tok.numpy(), np.asarray(r_tok))
-    assert cache["len"] == int(r_cache["len"]) == S + steps
+    assert cache["len"] == int(r_cache["len"]) == prefix + S + steps
 
 
 def test_full_width_one_layer_qwen3_matches_the_jax_model():
