@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's fifteen main paths through the entry points a user calls,
+Drives the port's sixteen main paths through the entry points a user calls,
 at full width, and holds every kernel of those paths against its plain
 PyTorch version.  Phases, one line each:
 
@@ -217,9 +217,12 @@ PyTorch version.  Phases, one line each:
                layers;
 29. train_kernel   flash_attention_bwd vs its plain version at qwen3's
                training shape, windowed, chunked, hd 64 non-causal GQA,
-               ragged and float32 shapes, two runs bit for bit, with its
-               time, the plain version's, SDPA's backward and the bound;
-               flash_attention with its logsumexp at the training shape;
+               ragged and float32 shapes, and at each microbatch shape of
+               phase train_zoo (MQA 48/1, hd 96, window 1024 at 4096,
+               cross attention 4096 x 1024, G 7 at 4352), two runs bit for
+               bit at qwen3's, with its time, the plain version's, SDPA's
+               backward and the bound; flash_attention with its logsumexp at
+               each training shape;
 30. train_sharded   the sharded training path -- the twelfth main path:
                qwen3-0.6b as in phase train, TRAIN_SHARDED's steps through
                ``make_train_step(grad_shardings=...)`` on a (1, 1) ("data",
@@ -260,17 +263,37 @@ PyTorch version.  Phases, one line each:
                memory, one profiled step's device busy time and the host
                time spent in the collectives, the prefills' ms (cold, then
                warm);
-32. examples   the five twins ``examples/*_torch.py`` (quickstart,
+32. train_zoo  seven more registry families trained at full width (TRAIN_ZOO:
+               internvl2-1b with its 256 vision frames, seamless-m4t-large-v2
+               24 + 24 layers, phi3-mini-3.8b, gemma3-27b's superblock of 6
+               of 62 layers, granite-34b at 8 of 88, mixtral-8x7b at 2 of 32,
+               falcon-mamba-7b at 24 of 64; the cuts by the card's 80 GB),
+               each through ``launch.train.run`` (train_4k's run config and
+               microbatches, "full" remat, the custom-VJP flash attention,
+               TRAIN_ZOO_STEPS steps of two or four sequences of 4096 tokens)
+               -- the sixteenth main path, each run's counts zeroed just
+               before and read just after its training, equal to
+               ``train_launches``: flash_attention twice and
+               flash_attention_bwd once per attention sublayer per
+               microbatch (none for falcon-mamba); the losses finite, ms a
+               step over the warm steps, tokens/s, peak device memory; one
+               microbatch's loss and gradients through the kernels against
+               the plain attention (``grad_parity``) in bfloat16 at the
+               run's depth and in float32 at a depth holding every sublayer
+               kind (mixtral's plain path on the kernel path's expert
+               choices, the flipped routes counted); every run's state freed
+               before the next;
+33. examples   the five twins ``examples/*_torch.py`` (quickstart,
                evaluate_design, serve_lm, train_lm at 100 of its 200
                steps, vgg_pipeline), each in a fresh interpreter on the card (its
                default device): exit 0, its output, its wall time; the VGG
                twin's fused forward launched fused_conv3x3 13 times;
-33. the kernels line, then the result line.  Every kernel row's bytes and
+34. the kernels line, then the result line.  Every kernel row's bytes and
     FLOPs (its bound) come from ``repro_torch.core.roofline.kernel_cost``.
     The kernels launched at the partitioned path's local shapes have their
-    own entries (``"path": "train_tp"``), as have those of phase serve_zoo
-    (``"path": "serve_zoo"``).  Every phase prints its seconds
-    (``phase seconds: ...``).
+    own entries (``"path": "train_tp"``), as have those of phases serve_zoo
+    (``"path": "serve_zoo"``) and train_zoo (``"path": "train_zoo"``).
+    Every phase prints its seconds (``phase seconds: ...``).
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the root of a
 checkout.  Exits non-zero, printing no result, without CUDA or outside a
@@ -489,7 +512,7 @@ TRAIN_TIMED_STEPS = 3  # steps timed after the run (phase train_time)
 # bit-equal, with the cause printed.
 REPLAY_TOL = 1e-3
 # One-step parity, the loss and every gradient leaf through the kernels
-# against the plain attention (relative L2 per leaf).  bfloat16 at full
+# against the plain attention and scan (relative L2 per leaf).  bfloat16 at full
 # depth: the backward kernel rounds P and dS to bfloat16 for its products
 # (2^-9 relative) where the plain version keeps float32, and every
 # bfloat16 layer rounds again: 2e-2, or CONTROL_FACTOR x what a kernel-free
@@ -504,7 +527,9 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # path differentiates through the custom VJP's backward in jnp.
 REPLACES["flash_attention_bwd"] = "src/repro/models/flash.py:107"
 # flash_attention_bwd's shapes: (label, (B, Sq, Skv, H, KV, hd), dtype,
-# causal, window, chunk); "train" is qwen3's training microbatch.
+# causal, window, chunk); "train" is qwen3's training microbatch, the
+# "<arch>..._train" rows phase train_zoo's microbatches (train_zoo_shapes),
+# each with a row of K2's forward with its logsumexp at the same shape.
 TRAIN_KERNEL_CASES = [
     ("train", (4, 4096, 4096, 16, 8, 128), "bfloat16", True, 0, 0),
     ("train_tp", (2, 2048, 2048, 8, 4, 128), "bfloat16", True, 0, 0),
@@ -514,6 +539,15 @@ TRAIN_KERNEL_CASES = [
     ("ragged", (2, 1000, 1000, 8, 4, 96), "bfloat16", True, 0, 0),
     ("float32", (2, 512, 512, 16, 8, 128), "float32", True, 0, 0),
     ("float32_ragged", (1, 333, 333, 4, 2, 64), "float32", True, 0, 0),
+    ("internvl2_train", (2, 4352, 4352, 14, 2, 64), "bfloat16", True, 0, 0),  # G 7
+    ("seamless_encoder_train", (2, 1024, 1024, 16, 16, 64), "bfloat16", False, 0, 0),
+    ("seamless_decoder_train", (2, 4096, 4096, 16, 16, 64), "bfloat16", True, 0, 0),
+    ("seamless_cross_train", (2, 4096, 1024, 16, 16, 64), "bfloat16", False, 0, 0),
+    ("phi3_train", (1, 4096, 4096, 32, 32, 96), "bfloat16", True, 0, 0),  # mma.sync
+    ("gemma3_local_train", (1, 4096, 4096, 32, 16, 128), "bfloat16", True, 1024, 0),
+    ("gemma3_global_train", (1, 4096, 4096, 32, 16, 128), "bfloat16", True, 0, 0),
+    ("granite_train", (1, 4096, 4096, 48, 1, 128), "bfloat16", True, 0, 0),  # MQA
+    ("mixtral_train", (2, 4096, 4096, 32, 8, 128), "bfloat16", True, 4096, 0),
 ]
 
 # The DAG search's locks (the reference's optima, tests/test_frontier_dp.py
@@ -2281,8 +2315,8 @@ def serve_argv(run: dict, seed: int) -> list:
 
 
 def serve_config(run: dict):
-    """A serving run's config at full width: the registry's, its depth cut
-    to ``run["n_layers"]`` where the run says so."""
+    """A serving or training run's config at full width: the registry's,
+    its depth cut to ``run["n_layers"]`` where the run says so."""
     import dataclasses
 
     from repro_torch.configs import resolve
@@ -2851,35 +2885,52 @@ def phase_serve_zoo(torch, np, seed: int) -> list:
     return out
 
 
+def device_intervals(torch, prof) -> list:
+    """[(start us, end us, name), ...] of every device activity a profile
+    recorded, read from the profiler's raw events
+    (``prof.profiler.kineto_results``, not a public interface: the public
+    ``prof.events()`` builds a per-op event list, which took 8-15 s of the
+    host's time for one training step).  tests/test_torch_on_card.py holds
+    it to ``prof.events()``'s device events on a small step."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
+def busy_us(intervals: list) -> float:
+    """Microseconds covered by the union of ``intervals`` ((start, end,
+    ...) in microseconds)."""
+    busy, end = 0.0, float("-inf")
+    for a, b, *_ in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def _device_busy(torch, fn, watch: tuple = ()) -> dict:
     """Host wall ms of ``fn()`` (synchronised), the ms the device was busy
     in it (the union of its kernel, copy and set intervals, from the
-    profiler), the largest device times by name and the device times of the
-    names that contain one of ``watch``."""
+    profiler, which records the device's activity only:
+    :func:`device_intervals`), the largest device times by name and the
+    device times of the names that contain one of ``watch``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of intervals, in microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    device = device_intervals(torch, prof)
+    busy = busy_us(device)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+    for a, b, name in device:
+        by_name[name[:50]] = by_name.get(name[:50], 0.0) + (b - a) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / 1e3 / wall if spans else None,
-            "kernels_launched": len(spans), "top_device_ms": top,
+            "device_idle_share": 1.0 - busy / 1e3 / wall if device else None,
+            "kernels_launched": len(device), "top_device_ms": top,
             "watched_device_ms": {n: t for n, t in by_name.items()
                                   if any(w in n for w in watch)}}
 
@@ -3354,15 +3405,17 @@ def phase_train(torch, seed: int, tmp: Path) -> dict:
 
 
 def phase_train_time(torch, run: dict, seed: int) -> dict:
-    """TRAIN_TIMED_STEPS more steps from the trained state, each timed on
-    the host's clock up to a synchronise: ms per step, tokens/s, model
-    TFLOP/s; then one profiled step's device idle share."""
+    """TRAIN_TIMED_STEPS more steps from the trained state through the
+    donated step ``launch.train.run`` takes (``make_train_step(...,
+    donate=True)``), each timed on the host's clock up to a synchronise: ms
+    per step, tokens/s, model TFLOP/s; then one profiled step's device idle
+    share."""
     from repro_torch.configs import resolve
     from repro_torch.data import make_batch
     from repro_torch.runtime.steps import make_train_step
 
     cfg = resolve(TRAIN_RUN["arch"])
-    step = make_train_step(cfg, train_rc(cfg))
+    step = make_train_step(cfg, train_rc(cfg), donate=True)
     params, opt = run.pop("params"), run.pop("opt_state")
     times = []
     for i in range(TRAIN_TIMED_STEPS):
@@ -3494,6 +3547,7 @@ def phase_roofline(torch, card: str, train_time: dict, serve_time: dict) -> dict
 
 
 def _loss_and_grads(torch, cfg, rc, params, batch, kernels):
+    """(loss, the gradient of every parameter leaf in its own dtype)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.models import model as M
@@ -3502,25 +3556,117 @@ def _loss_and_grads(torch, cfg, rc, params, batch, kernels):
     leaves = [p.detach().requires_grad_(True) for p in flat]
     loss, _ = M.loss_fn(pytree.tree_unflatten(leaves, spec), cfg, rc, batch, kernels=kernels)
     grads = torch.autograd.grad(loss, leaves)
-    return float(loss.detach()), [g.float() for g in grads]
+    return float(loss.detach()), list(grads)
 
 
 def _rel_l2(torch, got: list, want: list) -> list:
-    return [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-            for a, b in zip(got, want)]
+    """Relative L2 of each leaf, in float32 at least (a leaf at a time)."""
+    out = []
+    for a, b in zip(got, want):
+        dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+        a, b = a.to(dt), b.to(dt)
+        out.append(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)))
+    return out
+
+
+def grad_parity(torch, cfg, rc, dname: str, params, batch, phase: str, what: str) -> dict:
+    """One microbatch's loss and gradients through the training path (K2
+    and its backward, the main path's flash_vjp route, and the chunked,
+    checkpointed scan) against the plain path (``ref.flash_attention_ref``
+    and the sequential ``ref.selective_scan_ref`` under autograd), and in
+    bfloat16 also a kernel-free reordering against the plain path
+    (:func:`blocked_attention`, and the chunked scan at half the run's
+    chunk): every leaf's relative L2 within TRAIN_PARITY_TOL[dname], or in
+    bfloat16 CONTROL_FACTOR x the reordering's if larger; the losses within
+    TRAIN_PARITY_TOL[dname] relative.  An MoE model's plain path and
+    control take the kernel path's expert choices (:func:`replayed_routes`,
+    the backward's recompute included), and the routes the plain path's own
+    forward chooses apart are counted."""
+    import dataclasses
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
+
+    train = ops.train_kernels(rc.mamba_chunk)
+    plain_rc = dataclasses.replace(rc, flash_vjp=False)
+    plain = dataclasses.replace(train, attention=ref.flash_attention_ref,
+                                ssm_scan=ref.selective_scan_ref)
+    control = dataclasses.replace(
+        plain, attention=blocked_attention,
+        ssm_scan=functools.partial(SSM.selective_scan_chunked, chunk=max(rc.mamba_chunk // 2, 1)))
+    paths = {"kernels": (rc, train), "plain": (plain_rc, plain),
+             "control": (plain_rc, control)}
+
+    def grads_of(name, routes=None):
+        c, k = paths[name]
+        if routes is None:
+            return _loss_and_grads(torch, cfg, c, params, batch, k)
+        return replayed_routes(routes, lambda: _loss_and_grads(torch, cfg, c, params, batch, k))
+
+    out = {"flips": None}
+    routes = None
+    if cfg.n_experts:
+        (lk, gk), routes = recorded_routes(lambda: grads_of("kernels"))
+        c, k = paths["plain"]
+        with torch.no_grad():  # the plain path's own routes: its forward
+            _, own = recorded_routes(lambda: M.loss_fn(params, cfg, c, batch, kernels=k))
+        flips, n_routes = count_flips(routes[:len(own)], own)
+        out["flips"] = {"per_layer": flips, "routes": n_routes}
+    else:
+        lk, gk = grads_of("kernels")
+    lp, gp = grads_of("plain", routes)
+    rel = _rel_l2(torch, gk, gp)
+    del gk
+    tol = TRAIN_PARITY_TOL[dname]
+    control = None
+    allowed = [tol] * len(rel)
+    if dname == "bfloat16":
+        _, gc = grads_of("control", routes)
+        control = _rel_l2(torch, gc, gp)
+        del gc
+        allowed = [max(tol, CONTROL_FACTOR * c) for c in control]
+    del gp
+    names = [pytree.keystr(path) for path, _ in pytree.tree_flatten_with_path(params)[0]]
+    order = sorted(range(len(rel)), key=lambda i: rel[i] / allowed[i], reverse=True)
+    worst = order[0]
+    nearest = "; ".join(
+        f"{names[i]} {rel[i]:.4g}" + ("" if control is None else f" (reordering {control[i]:.4g})")
+        for i in order[:3])
+    check(all(r <= a for r, a in zip(rel, allowed)),
+          f"{phase} {dname}: gradient leaf {worst} {names[worst]} differs from plain by "
+          f"relative L2 {rel[worst]:.4g} > {allowed[worst]:.4g}; nearest their limits: "
+          f"{nearest}")
+    check(abs(lk - lp) <= tol * abs(lp),
+          f"{phase} {dname}: loss {lk!r} through the kernels, {lp!r} plain")
+    rule = f"{tol}" if control is None else (
+        f"{tol} or {CONTROL_FACTOR} x the reordering's; the reordering vs plain: "
+        f"median {statistics.median(control):.4g}, max {max(control):.4g}")
+    flipped = "" if routes is None else (
+        f"; {sum(out['flips']['per_layer'])} of {out['flips']['routes']} token routes of "
+        f"the forward chose another top-{cfg.top_k} expert set in the plain path (by "
+        f"layer {out['flips']['per_layer']}), its gradients above with the kernel "
+        "path's routes replayed")
+    print(f"phase {phase}: {dname} at {what}: loss {lk!r} through the kernels, {lp!r} "
+          f"plain; gradients' relative L2 per leaf over {len(rel)} leaves, kernels vs "
+          f"plain: median {statistics.median(rel):.4g}, max {max(rel):.4g} (leaf {worst}, "
+          f"allowed {allowed[worst]:.4g}: {rule}); nearest their limits: {nearest}{flipped}")
+    out.update({"loss_kernels": lk, "loss_plain": lp, "rel_l2": rel,
+                "control_rel_l2": control, "allowed": allowed,
+                "leaves": names, "depth": what})
+    return out
 
 
 def phase_train_parity(torch, seed: int) -> dict:
-    """One microbatch's loss and gradients through the kernels (K2 and its
-    backward, the main path's flash_vjp route) against the plain attention
-    (``ref.flash_attention_ref`` under autograd): bfloat16 at full depth,
-    also against a kernel-free reordering (:func:`blocked_attention`), and
-    float32 at TRAIN_F32_LAYERS layers."""
+    """:func:`grad_parity` of qwen3-0.6b's training microbatch: bfloat16 at
+    full depth and float32 at TRAIN_F32_LAYERS layers."""
     import dataclasses
 
     from repro_torch.configs import resolve
     from repro_torch.data import make_batch
-    from repro_torch.kernels import ops, ref
     from repro_torch.models import model as M
     from repro_torch.runtime.steps import batch_to_device
 
@@ -3530,45 +3676,237 @@ def phase_train_parity(torch, seed: int) -> dict:
     for dname, cfg in (("bfloat16", full),
                        ("float32", dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS,
                                                        dtype="float32"))):
-        rc = train_rc(cfg)
-        plain_rc = dataclasses.replace(rc, flash_vjp=False)
-        train = ops.train_kernels(rc.mamba_chunk)
         params = M.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(
             seed + 12), device="cuda")
         batch = batch_to_device(make_batch(cfg, B, TRAIN_RUN["seq"], seed=seed, step=300),
                                 "cuda")
-        lk, gk = _loss_and_grads(torch, cfg, rc, params, batch, train)
-        lp, gp = _loss_and_grads(torch, cfg, plain_rc, params, batch,
-                                 dataclasses.replace(train, attention=ref.flash_attention_ref))
-        rel = _rel_l2(torch, gk, gp)
-        del gk
-        tol = TRAIN_PARITY_TOL[dname]
-        control = None
-        allowed = [tol] * len(rel)
-        if dname == "bfloat16":
-            _, gc = _loss_and_grads(torch, cfg, plain_rc, params, batch,
-                                    dataclasses.replace(train, attention=blocked_attention))
-            control = _rel_l2(torch, gc, gp)
-            del gc
-            allowed = [max(tol, CONTROL_FACTOR * c) for c in control]
-        del gp, params
+        out[dname] = grad_parity(
+            torch, cfg, train_rc(cfg), dname, params, batch, "train_parity",
+            f"{depth_of(cfg, full.n_layers)}, one microbatch of {B} x {TRAIN_RUN['seq']}")
+        del params, batch
         torch.cuda.empty_cache()
-        worst = max(range(len(rel)), key=lambda i: rel[i] / allowed[i])
-        check(all(r <= a for r, a in zip(rel, allowed)),
-              f"train_parity {dname}: gradient leaf {worst} differs from plain by "
-              f"relative L2 {rel[worst]:.4g} > {allowed[worst]:.4g}")
-        check(abs(lk - lp) <= tol * abs(lp),
-              f"train_parity {dname}: loss {lk!r} through the kernels, {lp!r} plain")
-        rule = f"{tol}" if control is None else (
-            f"{tol} or {CONTROL_FACTOR} x the reordering's; the reordering vs plain: "
-            f"median {statistics.median(control):.4g}, max {max(control):.4g}")
-        print(f"phase train_parity: {dname} at {depth_of(cfg, full.n_layers)}, one "
-              f"microbatch of {B} x {TRAIN_RUN['seq']}: loss {lk!r} through the kernels, "
-              f"{lp!r} plain; gradients' relative L2 per leaf over {len(rel)} leaves, "
-              f"kernels vs plain: median {statistics.median(rel):.4g}, max {max(rel):.4g} "
-              f"(leaf {worst}, allowed {allowed[worst]:.4g}: {rule})")
-        out[dname] = {"loss_kernels": lk, "loss_plain": lp, "rel_l2": rel,
-                      "control_rel_l2": control, "depth": depth_of(cfg, full.n_layers)}
+    return out
+
+
+# The sixteenth main path, phase train_zoo: seven more registry families
+# trained at full width through launch.train.run on one card, train_4k's
+# run config (its microbatches; "full" remat and the custom-VJP flash
+# attention, as phase train) and 4096 tokens a sequence: "batch" sequences
+# a step (two, four where train_4k takes four microbatches), TRAIN_ZOO_STEPS
+# steps.  "n_layers": the depth where the card's 80 GB cut it (the layers
+# kept hold every sublayer kind of the model).  The training state is 16
+# bytes a parameter (bfloat16 parameter, float32 m and v, float32 gradient
+# sums and a microbatch's bfloat16 gradient; 12 with one microbatch, no
+# sums) by ``cfg.param_counts()``: internvl2-1b 0.494 B (4096 tokens after
+# its 256 vision frames, labels -1 over the frames), seamless 1.370 B (24 +
+# 24 layers, 1024 encoder frames: cross attention 4096 x 1024), phi3-mini
+# 3.723 B (hd 96), gemma3-27b's superblock 3.887 B (5 sliding-window layers
+# of 1024 and the global one; 62.2 GB), granite-34b 8 of 88 layers 3.335 B
+# (MQA 48/1), mixtral 2 of 32 layers 3.034 B (8 experts, top-2), falcon-mamba
+# 24 of 64 layers 2.794 B (no attention: the chunked scan's backward).
+# "f32": the float32 parity's depth (default TRAIN_F32_LAYERS layers): a
+# depth holding every sublayer kind, gemma3's global layer and seamless's
+# cross attention included.  "bf16": the bfloat16 parity's depth where it
+# is not the run's.  falcon-mamba's plain path runs the sequential scan
+# (ref.selective_scan_ref: 4096 steps of a few small ops a layer, forward,
+# recompute and backward under autograd, ~25 s a layer on an H100), so both
+# its parities take 1 of its 24 layers (its one sublayer kind), to keep the
+# phase in its time.  llama4, arctic and jamba are not trained: one
+# MoE layer's experts (16.1, 13.4, 9.7 B parameters) take 97-161 GB of
+# training state.
+TRAIN_ZOO = [
+    {"arch": "internvl2", "batch": 2},
+    {"arch": "seamless", "batch": 2, "f32": {"n_layers": 2, "n_enc_layers": 2}},
+    {"arch": "phi3", "batch": 2},
+    {"arch": "gemma3", "batch": 4, "n_layers": 6, "f32": {"n_layers": 6}},
+    {"arch": "granite", "batch": 4, "n_layers": 8},
+    {"arch": "mixtral", "batch": 2, "n_layers": 2},
+    {"arch": "falcon-mamba", "batch": 2, "n_layers": 24, "bf16": {"n_layers": 1},
+     "f32": {"n_layers": 1}},
+]
+TRAIN_ZOO_STEPS = 3
+TRAIN_ZOO_SEQ = 4096
+
+
+def train_zoo_rc(cfg):
+    """A train_zoo run's configuration: train_4k's run config with its own
+    microbatches, "full" remat, the custom-VJP flash attention and
+    launch.train's warmup."""
+    from repro_torch.configs import run_config
+
+    return run_config(cfg.name, "train_4k", remat="full", flash_vjp=True,
+                      warmup_steps=max(TRAIN_ZOO_STEPS // 10, 1))
+
+
+def train_state_bytes(cfg, microbatches: int) -> float:
+    """The training state a donated step holds, by ``cfg.param_counts()``:
+    a bfloat16 parameter (2 bytes), float32 m and v (8), a microbatch's
+    bfloat16 gradient (2) and, with several microbatches, the float32
+    gradient sums (4)."""
+    return cfg.param_counts()["total"] * (2 + 8 + 2 + (4 if microbatches > 1 else 0))
+
+
+def train_launches(cfg, steps: int, microbatches: int) -> dict:
+    """The launches ``steps`` training steps of ``cfg`` in ``microbatches``
+    microbatches make under "full" remat: flash_attention twice per
+    attention sublayer per microbatch (the forward and the backward's
+    recompute; seamless's encoder, decoder and cross attention each count)
+    and flash_attention_bwd once; no other kernel (the MLP and the scan
+    train through torch ops)."""
+    if cfg.is_encoder_decoder:
+        attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    else:
+        attn = sum(mixer != "mamba" for mixer, _ in cfg.sublayer_kinds(0, cfg.n_layers))
+    n = attn * microbatches * steps
+    return {"fused_conv3x3": 0, "flash_attention": 2 * n, "fused_mlp": 0,
+            "selective_scan": 0, "flash_attention_bwd": n}
+
+
+def train_zoo_shapes(run: dict) -> list:
+    """The attention launches of one microbatch of a train_zoo run, by
+    shape: [(label, (B, Sq, Skv, H, KV, hd), causal, window, chunk,
+    sublayers), ...], the labels of its TRAIN_KERNEL_CASES rows (a model
+    with sliding-window and global layers has a row of each)."""
+    cfg = serve_config(run)
+    B, S = run["batch"] // train_zoo_rc(cfg).microbatches, TRAIN_ZOO_SEQ
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    arch = run["arch"]
+    if cfg.is_encoder_decoder:
+        F = cfg.frontend_len
+        return [(f"{arch}_encoder_train", (B, F, F, *heads), False, 0, 0, cfg.n_enc_layers),
+                (f"{arch}_decoder_train", (B, S, S, *heads), True, 0, 0, cfg.n_layers),
+                (f"{arch}_cross_train", (B, S, F, *heads), False, 0, 0, cfg.n_layers)]
+    S += cfg.frontend_len if cfg.frontend else 0
+    mixed = len(set(cfg.layer_pattern) - {"mamba"}) > 1
+    rows = {}
+    for mixer, _ in cfg.sublayer_kinds(0, cfg.n_layers):
+        if mixer == "mamba":
+            continue
+        window = cfg.window_size if mixer == "attn_local" else 0
+        chunk = cfg.chunk_size if mixer == "attn_chunked" else 0
+        label = f"{arch}_{'local' if window else 'global'}_train" if mixed else f"{arch}_train"
+        rows.setdefault(label, [label, (B, S, S, *heads), True, window, chunk, 0])[5] += 1
+    return [tuple(r) for r in rows.values()]
+
+
+def _timed_train_steps(times: list):
+    """A stand-in for ``launch.train.make_train_step`` whose steps append
+    their host ms (synchronised before and after) to ``times``."""
+    import torch
+
+    from repro_torch.launch import train
+
+    real = train.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    return make
+
+
+def phase_train_zoo(torch, seed: int, tmp: Path) -> list:
+    """The sixteenth main path: each TRAIN_ZOO run through
+    ``launch.train.run`` on the card (TRAIN_ZOO_STEPS steps, seeded
+    weights, the trainer's data), its launch counts zeroed just before and
+    read just after, each equal to :func:`train_launches`; every loss
+    finite; ms a step (the mean of the warm steps, host clock up to a
+    synchronise), tokens/s, the peak device memory; then
+    :func:`grad_parity` of one microbatch in bfloat16 at the run's depth
+    (or its "bf16" one) and in float32 at its "f32" depth.  Every run's state is freed before
+    the next run's is made."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import resolve
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import batch_to_device
+
+    out = []
+    for run in TRAIN_ZOO:
+        t0 = time.perf_counter()
+        cfg = serve_config(run)
+        rc = train_zoo_rc(cfg)
+        full_depth = resolve(run["arch"]).n_layers
+        want = train_launches(cfg, TRAIN_ZOO_STEPS, rc.microbatches)
+        times = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        real = train.make_train_step
+        train.make_train_step = _timed_train_steps(times)
+        try:
+            zero_counts()
+            trained = train.run(cfg, rc, steps=TRAIN_ZOO_STEPS, batch=run["batch"],
+                                seq=TRAIN_ZOO_SEQ, ckpt_dir=tmp / run["arch"],
+                                ckpt_every=TRAIN_ZOO_STEPS + 1, seed=seed, device="cuda")
+            counts = read_counts()
+        finally:
+            train.make_train_step = real
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        losses = trained["report"].losses
+        n_params = trained["n_params"]
+        del trained
+        torch.cuda.empty_cache()
+        check(counts == want,
+              f"training {cfg.name} ({depth_of(cfg)}) launched {counts}, not {want}: "
+              f"flash_attention twice (the forward and its recompute) and "
+              f"flash_attention_bwd once per attention sublayer per microbatch, "
+              f"{rc.microbatches} microbatches x {TRAIN_ZOO_STEPS} steps")
+        print(f"phase main_path train_zoo {cfg.name}: launches {counts}")
+        check(len(losses) == TRAIN_ZOO_STEPS and all(math.isfinite(x) for x in losses),
+              f"training {cfg.name}: losses {losses}")
+        tokens = run["batch"] * TRAIN_ZOO_SEQ
+        state = train_state_bytes(cfg, rc.microbatches)
+        warm = times[1:]
+        ms = statistics.mean(warm)
+        frames = (f" after {cfg.frontend_len} {cfg.frontend} frames" if cfg.frontend
+                  else "")
+        print(f"phase train_zoo {cfg.name}: {depth_of(cfg, full_depth)}, bfloat16, "
+              f"{n_params:,} parameters; {TRAIN_ZOO_STEPS} steps of {run['batch']} x "
+              f"{TRAIN_ZOO_SEQ} tokens{frames} ({rc.microbatches} microbatches, remat "
+              f"{rc.remat}, flash_vjp): losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; {', '.join(f'{t:.3f}' for t in times)} ms a step, {ms:.3f} over the "
+              f"{len(warm)} warm ones, {tokens / ms * 1e3:.6g} tokens/s; peak device "
+              f"memory {peak / 2**30:.3f} GiB (the state reckoned {state / 2**30:.3f})")
+        row = {"arch": run["arch"], "name": cfg.name, "n_layers": cfg.n_layers,
+               "n_enc_layers": cfg.n_enc_layers, "batch": run["batch"],
+               "microbatches": rc.microbatches, "n_params": n_params, "counts": counts,
+               "losses": losses, "step_ms": times, "warm_step_ms": ms,
+               "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
+               "reckoned_state_bytes": state,
+               "shapes": train_zoo_shapes(run)}
+        f32 = run.get("f32", {"n_layers": TRAIN_F32_LAYERS})
+        for dname, c in (("bfloat16", dataclasses.replace(cfg, **run.get("bf16", {}))),
+                         ("float32", dataclasses.replace(cfg, dtype="float32", **f32))):
+            B = run["batch"] // rc.microbatches
+            seq = TRAIN_ZOO_SEQ + (c.frontend_len if c.frontend and not
+                                   c.is_encoder_decoder else 0)
+            gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+            params = M.init_params(c, generator=gen, device="cuda")
+            batch = batch_to_device(make_batch(c, B, seq, seed=seed, step=300), "cuda")
+            row[dname] = grad_parity(
+                torch, c, train_zoo_rc(c), dname, params, batch, f"train_zoo {cfg.name}",
+                f"{depth_of(c, full_depth)}, one microbatch of {B} x {seq}")
+            del params, batch
+            torch.cuda.empty_cache()
+        row["peak_run_bytes"] = torch.cuda.max_memory_allocated()
+        row["seconds"] = time.perf_counter() - t0
+        print(f"phase train_zoo {cfg.name}: peak device memory {peak / 2**30:.3f} GiB in "
+              f"the training, {row['peak_run_bytes'] / 2**30:.3f} GiB in the run; "
+              f"{row['seconds']:.1f} s")
+        out.append(row)
     return out
 
 
@@ -4251,7 +4589,8 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
         del got
         library = _sdpa_backward(torch, q, k, v, dout, causal, window, chunk)
         ms, one = time_kernel(torch, {"kernel": kernel, "library": library})
-        plain_ms = time_ms(torch, {"plain": plain}, 3 if label == "train" else REPS)["plain"]
+        training = label == "train" or label.endswith("_train")
+        plain_ms = time_ms(torch, {"plain": plain}, 3 if training else REPS)["plain"]
         es = q.element_size()
         shapes = dict(q=tuple(q.shape), kv=tuple(k.shape), itemsize=es, **mask)
         kc = RL.kernel_cost("flash_attention_bwd", **shapes)
@@ -4275,8 +4614,13 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / row['ms'] / 1e9:.4g} "
               f"TFLOP/s), max_abs_err {max(errs):.3g} (of the largest: {max(rels):.3g})"
               + ("" if deterministic is None else ", two runs bit-equal"))
-        if label == "train":  # K2's forward with its logsumexp at the training shape
+        if training:  # K2's forward with its logsumexp at the training shape
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if window or chunk:
+                sdpa_mask = dict(attn_mask=ref._visible(Sq, Skv, causal, window, chunk,
+                                                        q.device))
+            else:
+                sdpa_mask = dict(is_causal=causal)
 
             def fwd_kernel():
                 return fused_attention.flash_attention_lse(q, k, v, **mask)
@@ -4285,8 +4629,8 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
                 return ref.flash_attention_ref(q, k, v, **mask), ref.attention_lse_ref(q, k, **mask)
 
             def fwd_library():
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                      enable_gqa=True)
+                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                      **sdpa_mask)
 
             want_o, want_lse = fwd_plain()
             got_o, got_lse = fwd_kernel()
@@ -4294,7 +4638,8 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
             lse_err = float((got_lse - want_lse).abs().max())
             check(err <= ATT_TOL[dname] * (1 + float(want_o.float().abs().max()))
                   and lse_err <= 1e-4 * (1 + float(want_lse.abs().max())),
-                  f"flash_attention with lse at the training shape: out {err}, lse {lse_err}")
+                  f"flash_attention with lse at the training shape {label} {shape}: out "
+                  f"{err}, lse {lse_err}")
             del want_o, want_lse, got_o, got_lse
             fms, fone = time_kernel(torch, {"kernel": fwd_kernel, "library": fwd_library})
             fplain = time_ms(torch, {"plain": fwd_plain}, 3)["plain"]
@@ -4302,14 +4647,15 @@ def phase_train_kernel(torch, spec, seed: int) -> list:
             fflops, fbytes = fkc.flops, fkc.bytes
             ft_b = spec.memory_seconds(fbytes) * 1e3
             ft_o = spec.compute_seconds(fflops, es) * 1e3
-            frow = {"case": "train_forward_lse", "shape": list(shape), "dtype": dname,
+            frow = {"case": f"{label}_forward_lse", "shape": list(shape), "dtype": dname,
                     **mask, "max_abs_err": err, "lse_max_abs_err": lse_err,
                     "ms": fms["kernel"], "call_ms": fone["kernel"], "plain_ms": fplain,
                     "library_ms": fms["library"], "bytes": fbytes, "flops": fflops,
                     "bound_ms": max(ft_b, ft_o),
                     "bound_by": "operations" if ft_o >= ft_b else "bytes"}
             rows.append(frow)
-            print(f"train_kernel flash_attention with lse {shape} {dname} causal: kernel "
+            print(f"train_kernel flash_attention with lse {label} {shape} {dname} causal="
+                  f"{int(causal)} w={window} c={chunk}: kernel "
                   f"{frow['ms']:.4f} ms (one call {frow['call_ms']:.4f}), plain "
                   f"{fplain:.4f} ms, SDPA {frow['library_ms']:.4f} ms, bound "
                   f"{frow['bound_ms']:.4f} ms ({frow['bound_by']}, "
@@ -4365,6 +4711,29 @@ def zoo_entries(zoo: list, att_rows: list, mlp_rows: list, scan_rows: list) -> l
     return [dict(serve_entry(name, f"src/repro_torch/kernels/csrc/{sources[name]}",
                              parts[name], sum(run["counts"][name] for run in zoo)),
                  path="serve_zoo") for name in parts]
+
+
+def train_zoo_entries(zoo: list, bwd_rows: list) -> list:
+    """The kernels-line entries of phase train_zoo (``"path":
+    "train_zoo"``): flash_attention (its forward with the logsumexp) and
+    flash_attention_bwd, each one's launches over the seven runs, its times
+    summed over them at each run's rows (:func:`train_zoo_shapes`)."""
+    def row(case):
+        return next(r for r in bwd_rows if r["case"] == case)
+
+    parts = {"flash_attention": [], "flash_attention_bwd": []}
+    for run in zoo:
+        per_sublayer = run["counts"]["flash_attention_bwd"]
+        n_sub = sum(shape[5] for shape in run["shapes"])
+        for label, *_, sublayers in run["shapes"]:
+            n = per_sublayer // n_sub * sublayers
+            parts["flash_attention"].append((row(f"{label}_forward_lse"), 2 * n))
+            parts["flash_attention_bwd"].append((row(label), n))
+    sources = {"flash_attention": "flash_attention.cu",
+               "flash_attention_bwd": "flash_attention_bwd.cu"}
+    return [dict(serve_entry(name, f"src/repro_torch/kernels/csrc/{sources[name]}",
+                             parts[name], sum(run["counts"][name] for run in zoo)),
+                 path="train_zoo") for name in parts]
 
 
 def kernels_entry(rows: list, launches: int, spec) -> dict:
@@ -4635,11 +5004,7 @@ def main(argv=None) -> int:
         train_counts = read_counts()
         clock.lap("train")
         n_steps = train_run["steps_run"] + train_run["redispatches"]
-        per_step = train_cfg.n_layers * TRAIN_RUN["microbatches"]
-        check(train_counts == {"fused_conv3x3": 0,
-                               "flash_attention": 2 * per_step * n_steps,
-                               "fused_mlp": 0, "selective_scan": 0,
-                               "flash_attention_bwd": per_step * n_steps},
+        check(train_counts == train_launches(train_cfg, n_steps, TRAIN_RUN["microbatches"]),
               f"training launched {train_counts}, not flash_attention twice (the forward "
               f"and its recompute) and flash_attention_bwd once per layer per microbatch: "
               f"{n_steps} steps x {train_cfg.n_layers} layers x {TRAIN_RUN['microbatches']}")
@@ -4669,6 +5034,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         train_tp = phase_train_tp(torch, card, args.seed, Path(tmp))
     clock.lap("train_tp")
+
+    # ---- main path 16, training seven more families at full width (phase
+    # train_zoo): each run's counts zeroed just before and read just after
+    # its training (checked in the phase) ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_zoo_") as tmp:
+        train_zoo = phase_train_zoo(torch, args.seed, Path(tmp))
+    clock.lap("train_zoo")
     examples = phase_examples(card)
     clock.lap("examples")
 
@@ -4726,6 +5098,7 @@ def main(argv=None) -> int:
     )]
 
     entries += zoo_entries(zoo, att_rows, mlp_rows, scan_rows)
+    entries += train_zoo_entries(train_zoo, bwd_rows)
 
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps({
@@ -4745,7 +5118,8 @@ def main(argv=None) -> int:
         "train_time": train_time, "roofline": roofline, "train_parity": train_parity,
         "train_sharded": train_sharded, "train_tp": train_tp,
         "attention": att_rows, "mlp": mlp_rows, "scan": scan_rows,
-        "train_kernel": bwd_rows, "serve_zoo": zoo, "kernels": entries,
+        "train_kernel": bwd_rows, "serve_zoo": zoo, "train_zoo": train_zoo,
+        "kernels": entries,
         "phase_seconds": clock.seconds, "seconds": time.perf_counter() - t_start,
     }, indent=1))
     print(f"phase done: {time.perf_counter() - t_start:.1f} s, "

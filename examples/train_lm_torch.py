@@ -72,7 +72,8 @@ def main(argv=None):
           f"{args.steps} steps, batch {batch} x seq {seq}")
 
     stream = TokenStream(cfg, batch, seq, seed=0)
-    step = make_train_step(cfg, rc)
+    # donated, as train_lm.py jits its step with donate_argnums=(0, 1)
+    step = make_train_step(cfg, rc, donate=True)
     with tempfile.TemporaryDirectory(prefix="train_lm_torch_") as tmp:
         trainer = ResilientTrainer(
             train_step=step, stream=stream, ckpt_dir=args.ckpt_dir or tmp,

@@ -8,8 +8,9 @@
 // attention; the TPU kernel src/repro/kernels/fused_attention.py::
 // flash_attention has no backward).  What it keeps from there is the
 // arithmetic: the probabilities are recomputed from the forward's saved
-// logsumexp, P = exp(S / sqrt(hd) - lse), never stored; D = rowsum(dO * O);
-// dV = P^T dO, dP = dO V^T, dS = P (dP - D) / sqrt(hd), dQ = dS K,
+// logsumexp, P = exp(S / sqrt(hd) - lse), never stored; D = rowsum(dO * O),
+// which is rowsum(P * dP); dV = P^T dO, dP = dO V^T, dS = P (dP - D) /
+// sqrt(hd), dQ = dS K,
 // dK = dS^T Q; the H / KV query heads of each KV head are summed into its
 // dK and dV.  The masks are the forward's (flash_common.cuh): a masked or
 // ragged pair has P = 0, so a query that sees no key (non-causal masks with
@@ -17,7 +18,17 @@
 //
 // Three launches, deterministic (no atomics, every sum in a fixed order, so
 // two runs on the same inputs are bit-equal):
-//  1. flash_bwd_delta_kernel: D (B, H, Sq) float32, one warp a row;
+//  1. D (B, H, Sq) float32.  bfloat16: the dQ kernel's D pass (its DELTA
+//     instantiation), D = rowsum(P * dP) from the P and dP that the dS
+//     products then use, so that every row of dS adds to 0 up to float32
+//     sums.  rowsum(dO * O) of the stored bfloat16 output is off by about
+//     2^-9 |D|, a row of dS then adds to that instead of 0, and dQ = dS K
+//     and dK = dS^T Q pass it on times whatever the keys (queries) have in
+//     common: with 1024 nearly equal encoder frames (seamless's cross
+//     attention at random initialisation) that moved the wq and wk
+//     gradients by 0.14 relative L2 on an H100.  float32:
+//     flash_bwd_delta_kernel,
+//     rowsum(dO * O) of the float32 output, one warp a row;
 //  2. the dK/dV kernel: one block per (batch, KV head, key tile); it walks
 //     the G query heads of its KV head and every query tile that the masks
 //     leave any pair of (a tile masked for the whole block is skipped),
@@ -27,14 +38,15 @@
 //     tiles, heaviest query tile first (the causal mask's last tiles see
 //     the most keys).
 // Each output element is written by one thread, once.  The price is that
-// the dQ kernel recomputes S and dP: seven products of 2 * hd flops per
-// visible (query, key) pair and head instead of the five the arithmetic
-// needs (dQ summed across key tiles by atomics would need five, but float
-// atomics add in whatever order the blocks finish).
+// the dQ kernel recomputes S and dP, and in bfloat16 the D pass once more:
+// nine products of 2 * hd flops per visible (query, key) pair and head
+// (seven in float32) instead of the five the arithmetic needs (dQ summed
+// across key tiles by atomics would need five, but float atomics add in
+// whatever order the blocks finish).
 //
 // What bounds it: those products against reading q, k, v, dO and writing
 // dq, dk, dv once; at training shapes (S = 4096, hd 128) hundreds of flops
-// a byte, so the tensor cores (989 TFLOP/s bf16: 0.97 ms for the seven
+// a byte, so the tensor cores (989 TFLOP/s bf16: 1.25 ms for the nine
 // products at qwen3's (4, 4096, 16/8, 128) causal, 0.70 ms for five), and
 // next to them the shared memory's bandwidth, which feeds the tensor cores
 // their operands.
@@ -90,7 +102,8 @@
 // and is then added in float32.  The other side's tiles arrive by 16-byte
 // cp.async in a two-stage ring.
 // Numerics of both: P and dS are rounded to bf16 (relative 2^-9) before
-// their products, as the reference's bf16_tiles option rounds them.
+// their products, as the reference's bf16_tiles option rounds them; D is
+// summed from the unrounded float32 P and dP (step 1).
 //
 // float32 bodies: CUDA-core FMAs, 16 x 16 score tiles, one score a thread,
 // then each thread accumulates 16 of its key's (or query's) head dims:
@@ -133,27 +146,23 @@ using hopper::tma_tile;
 using hopper::wgmma_rs;
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
 // ---------------------------------------------------------------------------
-// D = rowsum(dO * O), float32 (B, H, Sq): one warp per (b, q, h) row, the
+// float32: D = rowsum(dO * O), (B, H, Sq): one warp per (b, q, h) row, the
 // rows taken in memory order.
 // ---------------------------------------------------------------------------
 
 constexpr int DELTA_ROWS = 8;  // rows (warps) a block
 
-template <typename T>
 __global__ void __launch_bounds__(DELTA_ROWS * 32)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                        float* __restrict__ delta, int B, int Sq, int H, int hd) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * DELTA_ROWS + (threadIdx.x >> 5);
   if (row >= (long long)B * Sq * H) return;  // the whole warp
-  const T* orow = o + row * hd;
-  const T* drow = dout + row * hd;
+  const float* orow = o + row * hd;
+  const float* drow = dout + row * hd;
   float s = 0.f;
-  for (int d = lane; d < hd; d += 32) s += to_f(orow[d]) * to_f(drow[d]);
+  for (int d = lane; d < hd; d += 32) s += orow[d] * drow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) {
@@ -162,6 +171,22 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const int q = (int)(bq % Sq);
     const int b = (int)(bq / Sq);
     delta[((size_t)b * H + h) * Sq + q] = s;
+  }
+}
+
+// bfloat16: the end of the dQ kernels' D pass.  The four threads of a quad
+// (t = 0..3) hold partial sums of the same two query rows qr0 and qr1 over
+// different keys; they are added in a fixed order and thread t = 0 writes
+// them into the row's D (drow = delta at the head's row 0).
+__device__ __forceinline__ void write_delta(float* drow, int qr0, int qr1, int Sq,
+                                            float d0, float d1, int t) {
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  if (t == 0) {
+    if (qr0 < Sq) drow[qr0] = d0;
+    if (qr1 < Sq) drow[qr1] = d1;
   }
 }
 
@@ -377,11 +402,13 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-template <int HD>
+// With DELTA, the D pass: the same walk over the key tiles computes S and
+// dP, and writes each query row's D = rowsum(P * dP) instead of dQ.
+template <int HD, bool DELTA>
 __global__ void __launch_bounds__(BwdTiles<HD>::NTHREADS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ lse, float* __restrict__ delta,
                         bf16* __restrict__ dq, int Sq, int Skv, int H, int KV,
                         int causal, int window, int chunk, float scale) {
   using TL = BwdTiles<HD>;
@@ -440,8 +467,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t srow = ((size_t)b * H + h) * Sq;
   const float lse0 = qr0 < Sq ? lse[srow + qr0] * LOG2E : 0.f;
   const float lse1 = qr1 < Sq ? lse[srow + qr1] * LOG2E : 0.f;
-  const float D0 = qr0 < Sq ? delta[srow + qr0] : 0.f;
-  const float D1 = qr1 < Sq ? delta[srow + qr1] : 0.f;
+  const float D0 = !DELTA && qr0 < Sq ? delta[srow + qr0] : 0.f;
+  const float D1 = !DELTA && qr1 < Sq ? delta[srow + qr1] : 0.f;
+  float dsum0 = 0.f, dsum1 = 0.f;  // the D pass's rows qr0 and qr1, this thread's keys
   uint32_t qf[KC][4], of[KC][4];
   float dqa[NT_O][4];
 #pragma unroll
@@ -505,8 +533,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool ok =
               all || (kj < Skv && qi < Sq && visible(qi, kj, causal, window, chunk));
           const float p = ok ? exp2f(s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
-          dp[j][e] = p * (dp[j][e] - (e < 2 ? D0 : D1)) * scale;
+          if constexpr (DELTA)
+            (e < 2 ? dsum0 : dsum1) += p * dp[j][e];
+          else
+            dp[j][e] = p * (dp[j][e] - (e < 2 ? D0 : D1)) * scale;
         }
+      if constexpr (DELTA) continue;
       uint32_t da[4];
       mma::pack_a(da, dp[0], dp[1]);
       // dQ += dS K, each 16-key product into a zeroed partial first.
@@ -530,6 +562,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     kt = nk;
   }
   mma::cp_async_wait<0>();
+  if constexpr (DELTA) {
+    write_delta(delta + srow, qr0, qr1, Sq, dsum0, dsum1, t);
+    return;
+  }
 
   bf16* dqb = dq + q_off;
 #pragma unroll
@@ -795,13 +831,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int HD>
+// With DELTA, the D pass: the same walk computes S and dP and writes each
+// query row's D = rowsum(P * dP) instead of dQ.
+template <int HD, bool DELTA>
 __global__ void __launch_bounds__(WgTiles<HD>::NTHREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ lse, float* __restrict__ delta,
                           bf16* __restrict__ dq, int Sq, int Skv, int H, int KV,
                           int causal, int window, int chunk, float scale) {
   using TL = WgTiles<HD>;
@@ -867,8 +905,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const size_t srow = ((size_t)b * H + h) * Sq;
   const float lse0 = qr0 < Sq ? lse[srow + qr0] * LOG2E : 0.f;
   const float lse1 = qr1 < Sq ? lse[srow + qr1] * LOG2E : 0.f;
-  const float D0 = qr0 < Sq ? delta[srow + qr0] : 0.f;
-  const float D1 = qr1 < Sq ? delta[srow + qr1] : 0.f;
+  const float D0 = !DELTA && qr0 < Sq ? delta[srow + qr0] : 0.f;
+  const float D1 = !DELTA && qr1 < Sq ? delta[srow + qr1] : 0.f;
+  float dsum0 = 0.f, dsum1 = 0.f;  // the D pass's rows qr0 and qr1, this thread's keys
   const uint64_t dsq = desc_kmajor(sq + wg * 64 * 128);  // this warpgroup's Q and dO rows
   const uint64_t dsdo = desc_kmajor(sdo + wg * 64 * 128);
   float dqa[NT_O][4];
@@ -930,23 +969,36 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         : 0.f;
       mma::wgmma_wait<0>();  // dP is done
       fence_regs(dp);
+      if constexpr (DELTA) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? D0 : D1)) * scale;
-      uint32_t da[4][4];  // A fragments over 16 keys each
+          for (int e = 0; e < 4; ++e) (e < 2 ? dsum0 : dsum1) += s[j][e] * dp[j][e];
+      } else {
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) mma::pack_a(da[kc], dp[2 * kc], dp[2 * kc + 1]);
-      // dQ += dS K: k over the 64 keys, K read MN-major.
-      mma::wgmma_fence();
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<HD>(dqa, da[kc], mnmajor(desc_mnmajor<BK>(sk), kc));
-      mma::wgmma_commit();
-      mma::wgmma_wait<0>();
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? D0 : D1)) * scale;
+        uint32_t da[4][4];  // A fragments over 16 keys each
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) mma::pack_a(da[kc], dp[2 * kc], dp[2 * kc + 1]);
+        // dQ += dS K: k over the 64 keys, K read MN-major.
+        mma::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_rs<HD>(dqa, da[kc], mnmajor(desc_mnmajor<BK>(sk), kc));
+        mma::wgmma_commit();
+        mma::wgmma_wait<0>();
+      }
     }
     slot = (slot + 1) % TL::STAGES;
     kt = nk;
     nk = after;
+  }
+  if constexpr (DELTA) {
+    write_delta(delta + srow, qr0, qr1, Sq, dsum0, dsum1, t);
+    return;
   }
   bf16* dqb = dq + q_off;
 #pragma unroll
@@ -1149,53 +1201,64 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T>
-int launch_delta(const BwdArgs& a) {
+int launch_delta_f32(const BwdArgs& a) {
   const long long rows = (long long)a.B * a.Sq * a.H;
   const unsigned blocks = (unsigned)((rows + DELTA_ROWS - 1) / DELTA_ROWS);
-  flash_bwd_delta_kernel<T><<<blocks, DELTA_ROWS * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.B, a.Sq,
-      a.H, a.hd);
+  flash_bwd_delta_kernel<<<blocks, DELTA_ROWS * 32, 0, a.stream>>>(
+      static_cast<const float*>(a.o), static_cast<const float*>(a.dout), a.delta, a.B,
+      a.Sq, a.H, a.hd);
   return (int)cudaGetLastError();
 }
 
-// The mma.sync bodies (head dims 32 and 96).
+// The mma.sync bodies (head dims 32 and 96): the D pass, dK/dV, dQ.
 template <int HD>
 int launch_bf16_mma(const BwdArgs& a) {
   using TL = BwdTiles<HD>;
-  static bool dkv_set[64], dq_set[64];
+  static bool dkv_set[64], dq_set[64], dd_set[64];
   auto dkv = flash_bwd_dkdv_mma_kernel<HD>;
-  auto dqk = flash_bwd_dq_mma_kernel<HD>;
+  auto dqk = flash_bwd_dq_mma_kernel<HD, false>;
+  auto ddk = flash_bwd_dq_mma_kernel<HD, true>;
   cudaError_t e = mma::set_smem_once(dkv, TL::DKV_SMEM, dkv_set);
   if (e != cudaSuccess) return (int)e;
   e = mma::set_smem_once(dqk, TL::DQ_SMEM, dq_set);
+  if (e != cudaSuccess) return (int)e;
+  e = mma::set_smem_once(ddk, TL::DQ_SMEM, dd_set);
   if (e != cudaSuccess) return (int)e;
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* dout = static_cast<const bf16*>(a.dout);
+  const dim3 dq_grid(a.B * a.H, (a.Sq + BWD_BQ - 1) / BWD_BQ);
+  ddk<<<dq_grid, TL::NTHREADS, TL::DQ_SMEM, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, nullptr, a.Sq, a.Skv, a.H, a.KV, a.causal, a.window,
+      a.chunk, a.scale);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
   dkv<<<dim3(a.B * a.KV, (a.Skv + BWD_BK - 1) / BWD_BK), TL::NTHREADS, TL::DKV_SMEM,
         a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
                     static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.KV, a.causal,
                     a.window, a.chunk, a.scale);
-  const int err = (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dqk<<<dim3(a.B * a.H, (a.Sq + BWD_BQ - 1) / BWD_BQ), TL::NTHREADS, TL::DQ_SMEM,
-        a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq,
-                    a.Skv, a.H, a.KV, a.causal, a.window, a.chunk, a.scale);
+  dqk<<<dq_grid, TL::NTHREADS, TL::DQ_SMEM, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H, a.KV,
+      a.causal, a.window, a.chunk, a.scale);
   return (int)cudaGetLastError();
 }
 
-// The wgmma bodies (head dims 64 and 128).
+// The wgmma bodies (head dims 64 and 128): the D pass, dK/dV, dQ.
 template <int HD>
 int launch_bf16_wgmma(const BwdArgs& a) {
   using TL = WgTiles<HD>;
-  static bool dkv_set[64], dq_set[64];
+  static bool dkv_set[64], dq_set[64], dd_set[64];
   auto dkv = flash_bwd_dkdv_wgmma_kernel<HD>;
-  auto dqk = flash_bwd_dq_wgmma_kernel<HD>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD, false>;
+  auto ddk = flash_bwd_dq_wgmma_kernel<HD, true>;
   cudaError_t e = mma::set_smem_once(dkv, TL::DKV_SMEM, dkv_set);
   if (e != cudaSuccess) return (int)e;
   e = mma::set_smem_once(dqk, TL::DQ_SMEM, dq_set);
+  if (e != cudaSuccess) return (int)e;
+  e = mma::set_smem_once(ddk, TL::DQ_SMEM, dd_set);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tq, tk, tv, tdo;
   int err = tensor_map(&tq, a.q, a.B, a.Sq, a.H, HD);
@@ -1203,16 +1266,21 @@ int launch_bf16_wgmma(const BwdArgs& a) {
   if (err == 0) err = tensor_map(&tk, a.k, a.B, a.Skv, a.KV, HD);
   if (err == 0) err = tensor_map(&tv, a.v, a.B, a.Skv, a.KV, HD);
   if (err != 0) return err;
+  const dim3 dq_grid(a.B * a.H, (a.Sq + TL::DQ_QUERIES - 1) / TL::DQ_QUERIES);
+  ddk<<<dq_grid, TL::NTHREADS, TL::DQ_SMEM, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, nullptr, a.Sq, a.Skv, a.H, a.KV, a.causal, a.window,
+      a.chunk, a.scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
   dkv<<<dim3(a.B * a.KV, (a.Skv + TL::DKV_KEYS - 1) / TL::DKV_KEYS), TL::NTHREADS,
         TL::DKV_SMEM, a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
                                   static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.KV,
                                   a.causal, a.window, a.chunk, a.scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dqk<<<dim3(a.B * a.H, (a.Sq + TL::DQ_QUERIES - 1) / TL::DQ_QUERIES), TL::NTHREADS,
-        TL::DQ_SMEM, a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq),
-                                 a.Sq, a.Skv, a.H, a.KV, a.causal, a.window, a.chunk,
-                                 a.scale);
+  dqk<<<dq_grid, TL::NTHREADS, TL::DQ_SMEM, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H, a.KV,
+      a.causal, a.window, a.chunk, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1223,8 +1291,6 @@ constexpr bool on_wgmma() {
 
 template <int HD>
 int launch_bf16(const BwdArgs& a) {
-  const int err = launch_delta<bf16>(a);
-  if (err != 0) return err;
   if constexpr (on_wgmma<HD>())
     return launch_bf16_wgmma<HD>(a);
   else
@@ -1247,7 +1313,7 @@ constexpr int smem_bytes(int dtype) {
 
 template <int HD>
 int launch_f32(const BwdArgs& a) {
-  int err = launch_delta<float>(a);
+  int err = launch_delta_f32(a);
   if (err != 0) return err;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);

@@ -6,8 +6,9 @@ backward of the JAX package's ``models/flash.py`` (the TPU kernel it
 trains with has none).  The kernel is hand-written CUDA for Hopper,
 ``csrc/flash_attention_bwd.cu`` (its head comment gives the design), built
 by :mod:`repro_torch.kernels.builder` at its first launch and loaded with
-``ctypes``: a pre-pass for ``D = rowsum(dO * O)``, a dK/dV kernel and a dQ
-kernel.  It masks the pairs K2 masks (the predicates are shared,
+``ctypes``: a pass for ``D = rowsum(dO * O)`` (in bfloat16 summed as
+``rowsum(P * dP)``, which does not see the stored output's rounding), a
+dK/dV kernel and a dQ kernel.  It masks the pairs K2 masks (the predicates are shared,
 ``csrc/flash_common.cuh``); a masked pair has probability 0, so a query
 that sees no key gets dq = 0.
 
@@ -19,9 +20,10 @@ warpgroups of 64 keys (dK/dV) or 64 queries (dQ) a block, the tiles
 brought by TMA; head dims 32 and 96 on warp-level ``mma.sync``; float32 on
 the CUDA cores.  It is deterministic, two runs bit-equal: no atomics, each
 output written once by one thread, every sum in a fixed order.  That costs
-seven products a visible (query, key) pair and head where the arithmetic
-needs five, since the dQ kernel recomputes S and dP rather than have the
-dK/dV blocks add into dq in whatever order they finish.
+seven products a visible (query, key) pair and head (nine in bfloat16,
+whose D pass computes S and dP once more) where the arithmetic needs five,
+since the dQ kernel recomputes S and dP rather than have the dK/dV blocks
+add into dq in whatever order they finish.
 
 :func:`flash_attention_bwd` is the wrapper: a CPU tensor goes to the plain
 version (:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`), a CUDA

@@ -123,20 +123,26 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of the attention :func:`flash_attention_ref` computes, given its output
     ``out`` (B, Sq, H, hd), the output's gradient ``dout`` and the rows'
     logsumexp ``lse`` (B, H, Sq).  The probabilities are recomputed as
-    ``exp(s - lse)`` on the visible pairs and 0 elsewhere, ``D =
-    rowsum(dout * out)``, ``dS = P (dP - D) / sqrt(hd)``; dk and dv sum the
-    H / KV query heads of each KV head.  A query that sees no key gets 0 and
-    adds nothing to dk and dv.  The results are in the inputs' dtypes."""
+    ``exp(s - lse)`` on the visible pairs and 0 elsewhere, ``dS = P (dP -
+    D) / sqrt(hd)`` with ``D = rowsum(dout * out)``, which is ``rowsum(P *
+    dP)``: the kernel takes the first for a float32 ``out`` and the second
+    for a bfloat16 one, whose rounding would leave each row of dS adding to
+    about 2^-9 |D| instead of 0; dk and dv sum the H / KV query heads of
+    each KV head.  A query that sees no key gets 0 and adds nothing to dk
+    and dv.  The results are in the inputs' dtypes."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scores, ok, idx = _scores(q, k, causal, window, chunk)
     p = torch.where(ok, torch.exp(scores - lse.float()[..., None]), 0.0)
     do = dout.float()
-    D = torch.sum(do * out.float(), dim=-1).transpose(1, 2)  # (B, H, Sq)
     kr = k.index_select(2, idx).float()
     vr = v.index_select(2, idx).float()
     dv_r = torch.einsum("bhqc,bqhd->bchd", p, do)
     dp = torch.einsum("bqhd,bchd->bhqc", do, vr)
+    if out.dtype == torch.float32:
+        D = torch.sum(do * out, dim=-1).transpose(1, 2)  # (B, H, Sq)
+    else:
+        D = torch.sum(p * dp, dim=-1)
     ds = p * (dp - D[..., None]) * (1.0 / math.sqrt(hd))
     dq = torch.einsum("bhqc,bchd->bqhd", ds, kr)
     dk_r = torch.einsum("bhqc,bqhd->bchd", ds, q.float())

@@ -95,6 +95,9 @@ def run(cfg, rc, *, steps: int, batch: int, seq: int, ckpt_dir,
     ``mesh`` (a ``DeviceMesh`` of this process group), the parameters and
     the optimizer state are this rank's pieces under the sharding rules and
     the step is the sharded one; checkpoints go to ``ckpt_dir/rank<r>``.
+    The step updates the parameters and moments in place (donated, as the
+    reference's launcher jits its step with ``donate_argnums=(0, 1)``), so
+    the card holds one copy of the training state.
     Returns {"report": the trainer's report, "seconds": the trainer's wall
     time, "params", "opt_state", "n_params"}."""
     dev = resolve_device(device)
@@ -116,8 +119,8 @@ def run(cfg, rc, *, steps: int, batch: int, seq: int, ckpt_dir,
     try:
         hook = flaky(set(inject_failures)) if inject_failures else None
         trainer = ResilientTrainer(
-            train_step=make_train_step(cfg, rc, opt_cfg, pshard), stream=stream,
-            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, failure_hook=hook)
+            train_step=make_train_step(cfg, rc, opt_cfg, pshard, donate=True),
+            stream=stream, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, failure_hook=hook)
         t0 = time.perf_counter()
         params, opt_state = trainer.run(params, opt_state, steps)
         seconds = time.perf_counter() - t0

@@ -32,6 +32,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops, ref
 from ..parallel import sharding as SH
@@ -136,26 +137,42 @@ def _assoc_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.T
     return a, b
 
 
+def _scan_chunk(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor, h: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of :func:`selective_scan_chunked`: (y, the state after
+    it) from the chunk's (a, bx, c) and the state ``h`` before it."""
+    # h_t = (prod a)(h_in) + scan(b): fold h_in in via the first b term
+    bx0 = bx.clone()
+    bx0[:, 0] += a[:, 0] * h
+    _, h_all = _assoc_scan(a, bx0)
+    return torch.einsum("bcds,bcs->bcd", h_all, c), h_all[:, -1].clone()
+
+
 def selective_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, Cs: torch.Tensor,
                            h0: torch.Tensor | None = None, chunk: int = 256
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunk-recurrent parallel scan (the fused-layer execution): a loop
     over chunks carries the state; inside a chunk the recurrence runs as a
     parallel scan.  The returned state is a copy, so a cache holding it
-    does not keep the chunk's (B, chunk, di, ds) state sequence alive."""
+    does not keep the chunk's (B, chunk, di, ds) state sequence alive.
+
+    With grad mode on, each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``): the doubling scan's log2(chunk) rounds
+    of (B, chunk, di, ds) pairs are saved for one chunk at a time, not for
+    all of them (40 GB a falcon-mamba layer at 4096 tokens otherwise).  The
+    gradients are the same bits."""
     B, S, di, ds = dA.shape
     if S % chunk:
         chunk = S
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=dA.device) if h0 is None else h0
     ys = []
     for i in range(0, S, chunk):
-        a, bx, c = dA[:, i:i + chunk], dBx[:, i:i + chunk], Cs[:, i:i + chunk]
-        # h_t = (prod a)(h_in) + scan(b): fold h_in in via the first b term
-        bx0 = bx.clone()
-        bx0[:, 0] += a[:, 0] * h
-        _, h_all = _assoc_scan(a, bx0)
-        ys.append(torch.einsum("bcds,bcs->bcd", h_all, c))
-        h = h_all[:, -1].clone()
+        part = (dA[:, i:i + chunk], dBx[:, i:i + chunk], Cs[:, i:i + chunk], h)
+        if torch.is_grad_enabled():
+            y, h = checkpoint(_scan_chunk, *part, use_reentrant=False)
+        else:
+            y, h = _scan_chunk(*part)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

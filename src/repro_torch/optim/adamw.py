@@ -52,13 +52,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
+# Elements of a leaf updated at once in place: the update's float32
+# temporaries then stay within a few slices (256 MB each), however large
+# the leaf (gemma3's 262,144 x 5,376 embedding is 5.6 GB in float32).
+_SLICE = 1 << 26
+
+
 def _decay_mask(p: torch.Tensor) -> bool:
     """Weight decay only on >=2-D tensors (skip norms, biases, scalars)."""
     return p.dim() >= 2
 
 
 def adamw_update(grads, opt_state: dict, params, *, lr, cfg: AdamWConfig,
-                 decay=None, grad_norm: torch.Tensor | None = None):
+                 decay=None, grad_norm: torch.Tensor | None = None,
+                 inplace: bool = False):
     """Returns (new_params, new_opt_state, grad_norm).  Math in float32:
     the gradients are clipped to a global norm of ``cfg.grad_clip``, the
     moments updated and bias-corrected, decoupled weight decay added where
@@ -66,7 +73,10 @@ def adamw_update(grads, opt_state: dict, params, *, lr, cfg: AdamWConfig,
     tensors) says, and each new parameter rounded to its own dtype.  The
     update is elementwise, so it runs as well on shards of the tensors; the
     clipping norm is then the whole gradient's, given as ``grad_norm``
-    (default: :func:`global_norm` of ``grads``)."""
+    (default: :func:`global_norm` of ``grads``).  ``inplace``: the new
+    parameters and moments are written into ``params`` and ``opt_state``'s
+    tensors, which are returned; the values are the same bits, each element
+    computed alone."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -99,8 +109,28 @@ def adamw_update(grads, opt_state: dict, params, *, lr, cfg: AdamWConfig,
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_d):
         raise ValueError("params, grads, the moments and the decay mask differ "
                          "in structure")
+    if inplace:
+        for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d):
+            _update_into(upd, *leaf)
+        return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gnorm
     out = [upd(*leaf) for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d)]
     new_params = pytree.tree_unflatten([o[0] for o in out], spec)
     new_m = pytree.tree_unflatten([o[1] for o in out], spec)
     new_v = pytree.tree_unflatten([o[2] for o in out], spec)
     return new_params, {"m": new_m, "v": new_v, "step": step}, gnorm
+
+
+def _update_into(upd, p, g, m, v, d) -> None:
+    """``upd``'s new (p, m, v) of one leaf written into p, m and v, over
+    slices of at most ``_SLICE`` elements (the whole leaf at once if one of
+    them is not contiguous)."""
+    if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
+        for t, new in zip((p, m, v), upd(p, g, m, v, d)):
+            t.copy_(new)
+        return
+    flat = [t.view(-1) for t in (p, g.contiguous(), m, v)]
+    for i in range(0, p.numel(), _SLICE):
+        part = [t[i:i + _SLICE] for t in flat]
+        new = upd(*part, d)
+        for t, x in zip((part[0], part[2], part[3]), new):
+            t.copy_(x)

@@ -6,8 +6,10 @@ over the config and the fusion groups it runs through.
 the lever that keeps activation memory inside the card for the large
 train cells, with float32 gradient accumulators.  The step is functional,
 as the reference's is: it returns new parameters and optimizer state and
-leaves its arguments as they were.  Given shardings, it is the sharded
-(ZeRO-3 style) step over a device mesh: see :func:`make_train_step`.
+leaves its arguments as they were, unless it is made with ``donate=True``
+(the reference's launcher jits it with ``donate_argnums=(0, 1)``): then it
+writes them in place.  Given shardings, it is the sharded (ZeRO-3 style)
+step over a device mesh: see :func:`make_train_step`.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
                     grad_shardings=None, *,
-                    kernels: ops.FusedKernels | None = None):
+                    kernels: ops.FusedKernels | None = None, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) with metrics {"loss", "grad_norm", "lr"} (float32 scalars).
 
@@ -46,6 +48,12 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
     by the count; then ``warmup_cosine`` at the state's step and
     ``adamw_update`` with the reference's decay mask (``M.decay_mask``).
     ``kernels`` defaults to ``ops.train_kernels(rc.mamba_chunk)``.
+    ``donate``: the step's parameters and optimizer moments are donated,
+    as the reference's launcher donates them: the update writes the new
+    values into them (``adamw_update(inplace=True)``, the same bits) and
+    returns them, so a step holds the parameters, the moments and the
+    float32 gradient sums (16 bytes a bfloat16 parameter with float32
+    moments and microbatches) and not a second copy of the state.
 
     ``grad_shardings`` (a tree of :class:`~repro_torch.parallel.sharding.
     NamedSharding` shaped like the parameters, from ``param_shardings``)
@@ -89,7 +97,7 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
         return loss.detach(), grads
 
     if grad_shardings is not None:
-        return _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn)
+        return _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn, donate)
 
     def train_step(params, opt_state, batch):
         flat, spec = pytree.tree_flatten(params)
@@ -107,7 +115,8 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
                     a.add_(b.float())
                 del g
                 lsum = lsum + loss_i
-            grads = [g / n for g in gsum]
+            grads = [g.div_(n) for g in gsum]
+            del gsum
             loss_val = lsum / n
         else:
             loss_val, grads = grad_fn(leaves, spec, batch)
@@ -116,7 +125,7 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
                            warmup_steps=rc.warmup_steps)
         params, opt_state, gnorm = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, lr=lr, cfg=opt_cfg,
-            decay=M.decay_mask(params))
+            decay=M.decay_mask(params), inplace=donate)
         metrics = {"loss": loss_val, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 
@@ -191,9 +200,9 @@ def _gather_plan(cfg, shardings) -> tuple[list, list]:
     return axes, layouts
 
 
-def _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn):
+def _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn, donate: bool):
     """The sharded step of :func:`make_train_step` (``grad_shardings``
-    given)."""
+    given); ``donate`` updates this rank's pieces in place."""
     import torch.distributed as dist
 
     shards = pytree.tree_leaves(grad_shardings)
@@ -224,7 +233,8 @@ def _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn):
                     g[i] = None
                 lsum = lsum + loss_i
             del leaves
-        grads = [s / n if n > 1 else s for s in gsum]
+        grads = [s.div_(n) if n > 1 else s for s in gsum]
+        del gsum
         dist.all_reduce(lsum, op=dist.ReduceOp.SUM, group=group)
         loss_val = lsum / n if n > 1 else lsum
         gnorm = sharded_grad_norm(grads, shards, mesh)
@@ -232,7 +242,7 @@ def _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn):
                            warmup_steps=rc.warmup_steps)
         params, opt_state, gnorm = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, lr=lr, cfg=opt_cfg,
-            decay=M.decay_mask(params), grad_norm=gnorm)
+            decay=M.decay_mask(params), grad_norm=gnorm, inplace=donate)
         metrics = {"loss": loss_val, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
 

@@ -1329,6 +1329,60 @@ def test_attention_bwd_bf16_sums_do_not_grow_their_error_at_long_sequences(cuda)
         _assert_no_growth(f"flash_attention_bwd {name} causal (1, S, 16/8, 128) S", r)
 
 
+TRAIN_ZOO_CASES = [  # (B, Sq, Skv, H, KV, hd, causal, window, chunk): phase train_zoo's
+    (1, 4096, 4096, 48, 1, 128, True, 0, 0),      # granite: MQA, 48 query heads a KV head
+    (2, 4096, 4096, 32, 32, 96, True, 0, 0),      # phi3: hd 96, the mma.sync bodies
+    (4, 4096, 4096, 32, 16, 128, True, 1024, 0),  # gemma3: window 1024 at 4096 tokens
+    (2, 4096, 1024, 16, 16, 64, False, 0, 0),     # seamless: cross attention
+    (2, 4352, 4352, 14, 2, 64, True, 0, 0),       # internvl2: G 7, 256 frames + 4096
+]
+
+
+@pytest.mark.parametrize("case", TRAIN_ZOO_CASES, ids=[str(c) for c in TRAIN_ZOO_CASES])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_and_its_backward_at_the_train_zoo_shapes(cuda, case, dtype):
+    q, k, v, out, dout, lse, mask = _bwd_inputs(case, dtype, seed=6)
+    _assert_att(out, ref.flash_attention_ref(q, k, v, **mask), dtype)
+    tol = LSE_TOL[dtype]
+    torch.testing.assert_close(lse, ref.attention_lse_ref(q, k, **mask), atol=tol, rtol=tol)
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, f"{name} {case}")
+
+
+@pytest.mark.parametrize("hd", flash_attention_bwd.HEAD_DIMS)
+def test_backward_rows_of_ds_add_to_zero_when_the_keys_nearly_agree(cuda, hd):
+    """Keys and values nearly one vector (seamless's 1024 encoder frames at
+    random initialisation): the bfloat16 bodies sum D from their own P and
+    dP, so a row of dS adds to 0 up to dS's rounding to bfloat16 and the
+    keys' gradients add to 0.  dq and dk keep within 0.1 relative L2 of the
+    float32 backward: the rounding of dS for its products leaves 0.031-0.034
+    here on an H100; D from the stored bfloat16 output (rowsum(dO * O), the
+    kernel's earlier D) moves the plain version's dq by 4.7 relative L2 at
+    this spread of the keys (tests/test_torch_train_zoo.py)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    mask = dict(causal=False, window=0, chunk=0)
+    q = randn(2, 256, 4, hd).bfloat16()
+    k, v = ((randn(2, 1, 2, hd) + 0.05 * randn(2, 192, 2, hd)).bfloat16() for _ in range(2))
+    dout = randn(2, 256, 4, hd).bfloat16()
+    out, lse = fused_attention.flash_attention_lse(q, k, v, **mask)
+    dq, dk, _ = flash_attention_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    wide = [t.float() for t in (q, k, v)]
+    want = ref.flash_attention_bwd_ref(*wide, ref.flash_attention_ref(*wide, **mask),
+                                       dout.float(), lse, **mask)
+    for name, g, w in (("dq", dq, want[0]), ("dk", dk, want[1])):
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel <= 0.1, f"{name} at head_dim {hd}: relative L2 {rel}"
+    key_sum = float(dk.float().sum(1).norm() / dk.float().norm())
+    assert key_sum <= 1e-2, key_sum
+
+
 def test_flash_attention_bwd_is_deterministic(cuda):
     case = (2, 1024, 1024, 16, 8, 128, True, 0, 0)
     q, k, v, out, dout, lse, mask = _bwd_inputs(case, torch.bfloat16, seed=2)
@@ -1425,14 +1479,17 @@ def test_backward_library_reports_its_build(cuda):
     built = flash_attention_bwd.build()
     report = builder.ptxas_report(built.log)
     names = [n for n in report if "flash_bwd_" in n]
-    assert len(names) == 4 * 4 + 2  # 4 head dims x (2 bf16 + 2 float32) + 2 delta
+    # 4 head dims x (3 bf16: dK/dV, dQ and its D pass + 2 float32) + the
+    # float32 D kernel
+    assert len(names) == 4 * 5 + 1
     # bf16 on wgmma at head dims 64 and 128, on mma.sync at 32 and 96, and
     # no mma.sync body left at 64 or 128
     bf16 = {f"flash_bwd_{part}_{body}_kernelILi{hd}E"
             for part in ("dkdv", "dq") for hd in flash_attention_bwd.HEAD_DIMS
             for body in ("wgmma" if hd in flash_attention_bwd.WGMMA_HEAD_DIMS else "mma",)}
     assert {b for b in bf16 if any(b in n for n in names)} == bf16
-    assert sum(1 for n in names if "_wgmma_kernel" in n or "_mma_kernel" in n) == len(bf16)
+    assert sum(1 for n in names if "_wgmma_kernel" in n or "_mma_kernel" in n) == \
+        3 * len(flash_attention_bwd.HEAD_DIMS)
     for n in names:
         if "_wgmma_kernel" in n:
             assert not report[n].get("spill_stores") and not report[n].get("spill_loads"), n
@@ -1451,3 +1508,34 @@ def test_backward_shared_memory_is_the_wrappers(cuda):
                 flash_attention_bwd.smem_bytes(hd, dtype)
     assert lib.flash_attention_bwd_smem(48, 1) == -1
 
+
+def test_device_intervals_match_the_profilers_public_events(cuda):
+    """chip_smoke.device_intervals reads the profiler's raw events (not a
+    public interface); on a small training step it gives the device
+    activities, and their busy time, that the public ``prof.events()``
+    gives."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    case = (2, 256, 256, 8, 2, 64, True, 0, 0)
+    q, k, v, _, dout, _, mask = _bwd_inputs(case, torch.bfloat16, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = fused_attention.flash_attention(*leaves, **mask)
+        torch.autograd.grad((o.float() @ o.float().transpose(-1, -2)).sum(), leaves)
+        torch.cuda.synchronize()
+    raw = smoke.device_intervals(torch, prof)
+    public = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(raw) == len(public) > 4
+    assert sorted(n for *_, n in raw) == sorted(n for *_, n in public)
+    # the two read the same activities, their ends to within a microsecond
+    # each (busy 76.75 against 75.913 us over 10 of them on an H100)
+    assert abs(smoke.busy_us(raw) - smoke.busy_us(public)) <= len(raw)

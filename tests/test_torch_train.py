@@ -12,10 +12,14 @@ same in both packages) goes through both (float32):
   the loss within 1e-5 relative, every gradient leaf within 1e-4 of the
   largest of its leaf (float32 sums in another order, over the blocked
   cross-entropy and attention);
-* one ``runtime.steps.make_train_step`` step at ``microbatches`` 1 and 2
-  against the reference's jitted step: parameters, moments, step, loss,
-  gradient norm and learning rate (1e-5 relative to each leaf's largest),
-  and a batch that does not split into the microbatches raises in both;
+* two ``runtime.steps.make_train_step`` steps against the reference's
+  jitted step: qwen3 at ``microbatches`` 1 and 2, and the seven families
+  ``chip_smoke.py``'s phase train_zoo trains under its run config
+  (train_4k's microbatches, "full" remat, the custom-VJP flash attention;
+  two sequences a step, four where train_4k takes four microbatches):
+  parameters, moments, step, loss, gradient norm and learning rate (1e-5
+  relative to each leaf's largest), and a batch that does not split into
+  the microbatches raises in both;
 * tests/test_integration.py's three "learns" tests on the same
   ``TokenStream`` data.
 """
@@ -144,14 +148,27 @@ def test_loss_and_grads_match_the_jax_model(arch, over, remat):
     _leaves_close(got, jax.tree.leaves(r_grads), GRAD_TOL, f"{arch} {over} {remat} grads")
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_one_train_step_matches_the_jax_step(microbatches):
-    cfg = _cfg("qwen3")
-    rc = configs.RunConfig(xent_chunk=16, attn_chunk_kv=16, learning_rate=3e-3,
-                           warmup_steps=2, microbatches=microbatches, remat="none")
+# The families phase train_zoo trains (chip_smoke.TRAIN_ZOO), each under
+# the phase's run config; qwen3's cases keep their ids, the microbatches.
+TRAIN_ZOO = ["internvl2", "seamless", "phi3", "gemma3", "granite", "mixtral", "falcon-mamba"]
+STEP_CASES = ([pytest.param("qwen3", n, id=str(n)) for n in (1, 2)]
+              + [pytest.param(arch, None, id=arch) for arch in TRAIN_ZOO])
+
+
+@pytest.mark.parametrize("arch,microbatches", STEP_CASES)
+def test_one_train_step_matches_the_jax_step(arch, microbatches):
+    cfg = _cfg(arch)
+    common = dict(xent_chunk=16, attn_chunk_kv=16, mamba_chunk=8, learning_rate=3e-3,
+                  warmup_steps=2)
+    if microbatches is None:  # train_4k's microbatches, as phase train_zoo
+        rc = configs.run_config(cfg.name, "train_4k", remat="full", flash_vjp=True, **common)
+        B = 4 if rc.microbatches == 4 else 2
+    else:
+        rc = configs.RunConfig(microbatches=microbatches, remat="none", **common)
+        B = 4
     r_cfg, r_rc = _ref(cfg, rc)
     r_params, r_opt = r_steps.make_init(r_cfg, r_rc)(jax.random.key(0))
-    batch = _batch(cfg, B=4)
+    batch = _batch(cfg, B=B)
     params = _port_params(cfg, r_params)
     opt = {"m": pytree.tree_map(torch.zeros_like, params),
            "v": pytree.tree_map(torch.zeros_like, params),
@@ -159,7 +176,7 @@ def test_one_train_step_matches_the_jax_step(microbatches):
     step = make_train_step(cfg, rc)
     r_step = jax.jit(r_steps.make_train_step(r_cfg, r_rc))
     for i in range(2):  # the second step has a non-zero learning rate
-        batch = _batch(cfg, B=4, step=i)
+        batch = _batch(cfg, B=B, step=i)
         params, opt, m = step(params, opt, batch)
         r_params, r_opt, r_m = r_step(r_params, r_opt, jax.tree.map(jnp.asarray, batch))
         for key in ("loss", "grad_norm", "lr"):
