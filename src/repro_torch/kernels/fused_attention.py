@@ -44,6 +44,7 @@ from pathlib import Path
 
 import torch
 
+from ..runtime import spans
 from . import builder, flash_attention_bwd, ref
 
 HEAD_DIMS = (32, 64, 96, 128)  # head widths the kernel is built for
@@ -214,9 +215,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd.flash_attention_bwd(
-            q, k, v, o, dout.contiguous(), lse, **ctx.mask)
+        with spans.span(spans.ATTENTION_BACKWARD):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd.flash_attention_bwd(
+                q, k, v, o, dout.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -233,17 +235,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (counted in ``flash_attention.launches``) at the tile ``block_q`` x
     ``block_k`` (default :func:`default_tile`) or raises.  On CUDA tensors
     of which one requires grad, with grad mode on, the result is
-    differentiable through the backward kernel.
+    differentiable through the backward kernel.  With tracing on
+    (:mod:`repro_torch.runtime.spans`) a CUDA call runs in the span
+    ``repro_torch.attention`` and its backward in
+    ``repro_torch.attention.backward``.
     """
     _check_args(q, k, v, window, chunk)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        chunk=chunk)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window, chunk, block_q, block_k)
-    return _launch(q, k, v, causal=causal, window=window, chunk=chunk,
-                   block_q=block_q, block_k=block_k, with_lse=False)[0]
+    with spans.span(spans.ATTENTION):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal, window, chunk, block_q, block_k)
+        return _launch(q, k, v, causal=causal, window=window, chunk=chunk,
+                       block_q=block_q, block_k=block_k, with_lse=False)[0]
 
 
 flash_attention.launches = 0

@@ -19,6 +19,12 @@ over the data axes before their product, so the term is the whole
 microbatch's, as the reference's GSPMD program computes it.  The groups
 are the reference's: the group size comes from the whole microbatch's
 tokens.
+
+With tracing on (:mod:`repro_torch.runtime.spans`) the router through the
+dispatch product, the expert products and the combine run in the spans
+``repro_torch.moe.dispatch``, ``.experts`` and ``.combine``, and each
+layer counts its routed claims (``moe.claims``), those within capacity
+(``moe.kept``) and the capacity slots of every expert (``moe.slots``).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from ..kernels import ref
 from ..parallel import sharding as SH
+from ..runtime import spans
 from . import layers as L
 from .layers import params_from_jax  # noqa: F401  (the reference tree as tensors)
 
@@ -109,68 +116,74 @@ def _moe(params: dict, x: torch.Tensor, cfg, mlp, n_data: int
     dev, dt = x.device, x.dtype
     xg = x.reshape(G, Sg, d)
 
-    router = params["router"]  # float32 x float32, promoted as jnp does
-    logits = xg.float().to(torch.promote_types(torch.float32, router.dtype)) @ router
-    gates, idx, probs = route_topk(logits, K)  # (G, Sg, K)
+    with spans.span(spans.MOE_DISPATCH):
+        router = params["router"]  # float32 x float32, promoted as jnp does
+        logits = xg.float().to(torch.promote_types(torch.float32, router.dtype)) @ router
+        gates, idx, probs = route_topk(logits, K)  # (G, Sg, K)
 
-    # Load-balance aux loss (Switch): E * sum_e f_e * p_e, both statistics
-    # over the whole microbatch (summed over the data axes).
-    experts = torch.arange(E, device=dev)
-    top1 = (idx[..., 0, None] == experts).float()
-    if n_data == 1:
-        me, fe = probs.mean(dim=(0, 1)), top1.mean(dim=(0, 1))
-    else:
-        n_tok = float(G * Sg * n_data)
-        me = SH.sum_data(probs.sum(dim=(0, 1))) / n_tok
-        fe = SH.sum_data(top1.sum(dim=(0, 1))) / n_tok
-    aux = E * torch.sum(fe * me)
+        # Load-balance aux loss (Switch): E * sum_e f_e * p_e, both statistics
+        # over the whole microbatch (summed over the data axes).
+        experts = torch.arange(E, device=dev)
+        top1 = (idx[..., 0, None] == experts).float()
+        if n_data == 1:
+            me, fe = probs.mean(dim=(0, 1)), top1.mean(dim=(0, 1))
+        else:
+            n_tok = float(G * Sg * n_data)
+            me = SH.sum_data(probs.sum(dim=(0, 1))) / n_tok
+            fe = SH.sum_data(top1.sum(dim=(0, 1))) / n_tok
+        aux = E * torch.sum(fe * me)
 
-    C = _capacity(cfg, Sg)
-    # Position of each (token, k) claim within its expert's capacity, the
-    # (Sg, K) claims flattened token-major so earlier tokens win slots.
-    claims = (idx[..., None] == experts).to(dt)  # (G, Sg, K, E)
-    flat = claims.reshape(G, Sg * K, E)
-    pos = torch.cumsum(flat.float(), dim=1).to(dt) - flat
-    keep = torch.where(pos < C, flat, torch.zeros((), dtype=dt, device=dev))
-    slots = torch.arange(C, device=dev)
-    pos_oh = (pos.to(torch.int32)[..., None] == slots).to(dt) * keep[..., None]
-    disp_flat = pos_oh.reshape(G, Sg, K, E, C)
+        C = _capacity(cfg, Sg)
+        # Position of each (token, k) claim within its expert's capacity, the
+        # (Sg, K) claims flattened token-major so earlier tokens win slots.
+        claims = (idx[..., None] == experts).to(dt)  # (G, Sg, K, E)
+        flat = claims.reshape(G, Sg * K, E)
+        pos = torch.cumsum(flat.float(), dim=1).to(dt) - flat
+        keep = torch.where(pos < C, flat, torch.zeros((), dtype=dt, device=dev))
+        spans.count("moe.claims", G * Sg * K)
+        spans.count("moe.kept", keep)  # summed in int64: keep is 0/1 in dt
+        spans.count("moe.slots", G * E * C)  # every expert's, the ranks' together
+        slots = torch.arange(C, device=dev)
+        pos_oh = (pos.to(torch.int32)[..., None] == slots).to(dt) * keep[..., None]
+        disp_flat = pos_oh.reshape(G, Sg, K, E, C)
 
-    dispatch = disp_flat.sum(dim=2)  # (G, Sg, E, C): <= 1 slot per expert
-    combine = torch.einsum("gskec,gsk->gsec", disp_flat, gates.to(dt))
+        dispatch = disp_flat.sum(dim=2)  # (G, Sg, E, C): <= 1 slot per expert
+        combine = torch.einsum("gskec,gsk->gsec", disp_flat, gates.to(dt))
 
-    # This rank's experts (E off a mesh), or, when the experts do not split
-    # over the model axis, its columns of every expert's d_ff.
-    El = params["w1"].shape[0]
-    split = El < E or params["w1"].shape[-1] < cfg.d_ff
-    xe_in = xg
-    if split:
-        combine = SH.enter_model(combine)
-        xe_in = SH.enter_model(xg)
-    if El < E:
-        mine = SH.head_slice(E, El)
-        dispatch = dispatch[:, :, mine]
-        combine = combine[:, :, mine]
+        # This rank's experts (E off a mesh), or, when the experts do not split
+        # over the model axis, its columns of every expert's d_ff.
+        El = params["w1"].shape[0]
+        split = El < E or params["w1"].shape[-1] < cfg.d_ff
+        xe_in = xg
+        if split:
+            combine = SH.enter_model(combine)
+            xe_in = SH.enter_model(xg)
+        if El < E:
+            mine = SH.head_slice(E, El)
+            dispatch = dispatch[:, :, mine]
+            combine = combine[:, :, mine]
 
-    # The products are written out so that each takes its operands in the
-    # order of the reference's dot_generals (the one-hots on the left): a
-    # traced graph then gives the dispatch and combine actmuls the
-    # reference's frames, whatever path torch.einsum would choose.
-    xe = (dispatch.permute(0, 2, 3, 1).reshape(G, El * C, Sg) @ xe_in).reshape(G, El, C, d)
+        # The products are written out so that each takes its operands in the
+        # order of the reference's dot_generals (the one-hots on the left): a
+        # traced graph then gives the dispatch and combine actmuls the
+        # reference's frames, whatever path torch.einsum would choose.
+        xe = (dispatch.permute(0, 2, 3, 1).reshape(G, El * C, Sg) @ xe_in).reshape(G, El, C, d)
 
-    def per_expert(a, w):  # (G, E, C, i) x (E, i, o) -> (G, E, C, o)
-        o = a.transpose(0, 1).reshape(El, G * C, a.shape[-1]) @ w
-        return o.reshape(El, G, C, w.shape[-1]).transpose(0, 1)
+    with spans.span(spans.MOE_EXPERTS):
+        def per_expert(a, w):  # (G, E, C, i) x (E, i, o) -> (G, E, C, o)
+            o = a.transpose(0, 1).reshape(El, G * C, a.shape[-1]) @ w
+            return o.reshape(El, G, C, w.shape[-1]).transpose(0, 1)
 
-    h = per_expert(xe, params["w1"])
-    if cfg.ffn_act in L.GATED_ACTS:
-        h = ref.activation(h, cfg.ffn_act) * per_expert(xe, params["w3"])
-    else:
-        h = ref.activation(h, cfg.ffn_act)
-    ye = per_expert(h, params["w2"])
-    y = combine.reshape(G, Sg, El * C) @ ye.reshape(G, El * C, d)
-    if split:
-        y = SH.leave_model(y)
+        h = per_expert(xe, params["w1"])
+        if cfg.ffn_act in L.GATED_ACTS:
+            h = ref.activation(h, cfg.ffn_act) * per_expert(xe, params["w3"])
+        else:
+            h = ref.activation(h, cfg.ffn_act)
+        ye = per_expert(h, params["w2"])
+    with spans.span(spans.MOE_COMBINE):
+        y = combine.reshape(G, Sg, El * C) @ ye.reshape(G, El * C, d)
+        if split:
+            y = SH.leave_model(y)
 
     if "dense_residual" in params:  # arctic: parallel dense MLP
         y = y + L.mlp_block(params["dense_residual"], xg, cfg.ffn_act, fused=mlp,

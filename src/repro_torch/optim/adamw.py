@@ -14,6 +14,8 @@ import dataclasses
 import torch
 from torch.utils import _pytree as pytree
 
+from ..runtime import spans
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -76,48 +78,50 @@ def adamw_update(grads, opt_state: dict, params, *, lr, cfg: AdamWConfig,
     (default: :func:`global_norm` of ``grads``).  ``inplace``: the new
     parameters and moments are written into ``params`` and ``opt_state``'s
     tensors, which are returned; the values are the same bits, each element
-    computed alone."""
-    step = opt_state["step"] + 1
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    state_dt = _state_dtype(cfg)
-    lr = torch.as_tensor(lr, dtype=torch.float32)
+    computed alone.  With tracing on (:mod:`repro_torch.runtime.spans`)
+    the whole update runs in the span ``repro_torch.optim.adamw``."""
+    with spans.span(spans.ADAMW):
+        step = opt_state["step"] + 1
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        stepf = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+        bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+        state_dt = _state_dtype(cfg)
+        lr = torch.as_tensor(lr, dtype=torch.float32)
 
-    def upd(p, g, m, v, d):
-        g = g.float() * scale
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if d:
-            delta = delta + cfg.weight_decay * p.float()
-        new_p = p.float() - lr * delta
-        return new_p.to(p.dtype), m32.to(state_dt), v32.to(state_dt)
+        def upd(p, g, m, v, d):
+            g = g.float() * scale
+            m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+            mhat = m32 / bc1
+            vhat = v32 / bc2
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+            if d:
+                delta = delta + cfg.weight_decay * p.float()
+            new_p = p.float() - lr * delta
+            return new_p.to(p.dtype), m32.to(state_dt), v32.to(state_dt)
 
-    flat_p, spec = pytree.tree_flatten(params)
-    flat_g = pytree.tree_leaves(grads)
-    flat_m = pytree.tree_leaves(opt_state["m"])
-    flat_v = pytree.tree_leaves(opt_state["v"])
-    flat_d = ([_decay_mask(p) for p in flat_p] if decay is None
-              else pytree.tree_leaves(decay))
-    if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_d):
-        raise ValueError("params, grads, the moments and the decay mask differ "
-                         "in structure")
-    if inplace:
-        for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d):
-            _update_into(upd, *leaf)
-        return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gnorm
-    out = [upd(*leaf) for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d)]
-    new_params = pytree.tree_unflatten([o[0] for o in out], spec)
-    new_m = pytree.tree_unflatten([o[1] for o in out], spec)
-    new_v = pytree.tree_unflatten([o[2] for o in out], spec)
-    return new_params, {"m": new_m, "v": new_v, "step": step}, gnorm
+        flat_p, spec = pytree.tree_flatten(params)
+        flat_g = pytree.tree_leaves(grads)
+        flat_m = pytree.tree_leaves(opt_state["m"])
+        flat_v = pytree.tree_leaves(opt_state["v"])
+        flat_d = ([_decay_mask(p) for p in flat_p] if decay is None
+                  else pytree.tree_leaves(decay))
+        if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_d):
+            raise ValueError("params, grads, the moments and the decay mask differ "
+                             "in structure")
+        if inplace:
+            for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d):
+                _update_into(upd, *leaf)
+            return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gnorm
+        out = [upd(*leaf) for leaf in zip(flat_p, flat_g, flat_m, flat_v, flat_d)]
+        new_params = pytree.tree_unflatten([o[0] for o in out], spec)
+        new_m = pytree.tree_unflatten([o[1] for o in out], spec)
+        new_v = pytree.tree_unflatten([o[2] for o in out], spec)
+        return new_params, {"m": new_m, "v": new_v, "step": step}, gnorm
 
 
 def _update_into(upd, p, g, m, v, d) -> None:

@@ -9,7 +9,10 @@ as the reference's is: it returns new parameters and optimizer state and
 leaves its arguments as they were, unless it is made with ``donate=True``
 (the reference's launcher jits it with ``donate_argnums=(0, 1)``): then it
 writes them in place.  Given shardings, it is the sharded (ZeRO-3 style)
-step over a device mesh: see :func:`make_train_step`.
+step over a device mesh: see :func:`make_train_step`.  With tracing on
+(:mod:`.spans`) a step runs in its spans: the training step, each
+microbatch's forward and backward, the gradient sums and AdamW; the
+prefill step.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..kernels import ops
 from ..models import model as M
 from ..optim import AdamWConfig, adamw_update, init_opt_state, warmup_cosine
 from ..parallel import sharding as SH
+from . import spans
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -89,10 +93,11 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
         loss does not reach, as the reference's), of the loss times
         ``weight`` when one is given."""
         params = pytree.tree_unflatten(leaves, spec)
-        loss, _aux = M.loss_fn(params, cfg, rc, mb, kernels=kernels)
-        if weight is not None:
-            loss = loss * weight
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with spans.span(spans.TRAIN_FORWARD):
+            loss, _aux = M.loss_fn(params, cfg, rc, mb, kernels=kernels)
+            if weight is not None:
+                loss = loss * weight
+        grads = torch.autograd.grad(spans.backward_span(loss), leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         return loss.detach(), grads
 
@@ -100,34 +105,38 @@ def make_train_step(cfg, rc, opt_cfg: AdamWConfig | None = None,
         return _sharded_train_step(cfg, rc, opt_cfg, grad_shardings, grad_fn, donate)
 
     def train_step(params, opt_state, batch):
-        flat, spec = pytree.tree_flatten(params)
-        leaves = [p.detach().requires_grad_(True) for p in flat]
-        batch = batch_to_device(batch, opt_state["step"].device)
-        n = rc.microbatches
-        if n > 1:
-            mbs = _microbatches(batch, n)
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in flat]
-            lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-            for mb in mbs:
-                loss_i, g = grad_fn(leaves, spec, mb)
-                for a, b in zip(gsum, g):
-                    a.add_(b.float())
-                del g
-                lsum = lsum + loss_i
-            grads = [g.div_(n) for g in gsum]
-            del gsum
-            loss_val = lsum / n
-        else:
-            loss_val, grads = grad_fn(leaves, spec, batch)
-        del leaves
-        lr = warmup_cosine(opt_state["step"], peak_lr=rc.learning_rate,
-                           warmup_steps=rc.warmup_steps)
-        params, opt_state, gnorm = adamw_update(
-            pytree.tree_unflatten(grads, spec), opt_state, params, lr=lr, cfg=opt_cfg,
-            decay=M.decay_mask(params), inplace=donate)
-        metrics = {"loss": loss_val, "grad_norm": gnorm, "lr": lr}
-        return params, opt_state, metrics
+        with spans.span(spans.TRAIN_STEP):
+            flat, spec = pytree.tree_flatten(params)
+            leaves = [p.detach().requires_grad_(True) for p in flat]
+            batch = batch_to_device(batch, opt_state["step"].device)
+            n = rc.microbatches
+            if n > 1:
+                mbs = _microbatches(batch, n)
+                with spans.span(spans.GRAD_ACCUM):
+                    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                            for p in flat]
+                    lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+                for mb in mbs:
+                    loss_i, g = grad_fn(leaves, spec, mb)
+                    with spans.span(spans.GRAD_ACCUM):
+                        for a, b in zip(gsum, g):
+                            a.add_(b.float())
+                        del g
+                        lsum = lsum + loss_i
+                with spans.span(spans.GRAD_ACCUM):
+                    grads = [g.div_(n) for g in gsum]
+                    del gsum
+                    loss_val = lsum / n
+            else:
+                loss_val, grads = grad_fn(leaves, spec, batch)
+            del leaves
+            lr = warmup_cosine(opt_state["step"], peak_lr=rc.learning_rate,
+                               warmup_steps=rc.warmup_steps)
+            params, opt_state, gnorm = adamw_update(
+                pytree.tree_unflatten(grads, spec), opt_state, params, lr=lr, cfg=opt_cfg,
+                decay=M.decay_mask(params), inplace=donate)
+            metrics = {"loss": loss_val, "grad_norm": gnorm, "lr": lr}
+            return params, opt_state, metrics
 
     return train_step
 
@@ -272,7 +281,8 @@ def make_prefill_step(cfg, rc, *, kernels: ops.FusedKernels = ops.KERNELS,
     :func:`_sharded_serving`)."""
 
     def prefill_step(params, cache, batch):
-        return M.prefill(params, cfg, rc, batch, cache, kernels=kernels)
+        with spans.span(spans.PREFILL_STEP):
+            return M.prefill(params, cfg, rc, batch, cache, kernels=kernels)
 
     if shardings is not None:
         return _sharded_serving(cfg, rc, shardings, prefill_step)

@@ -1475,6 +1475,47 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     assert float(m["loss"]) == pytest.approx(l_cpu, rel=1e-5)
 
 
+def test_the_backward_span_owns_the_backward_on_the_engine_thread(cuda):
+    # On CUDA tensors the autograd engine runs the backward on a thread of
+    # its own: each microbatch's span repro_torch.train.backward opens and
+    # closes there, inside the step's range, and holds launches and every
+    # layer's attention backward span, none of which is on the step's thread
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_batch
+    from repro_torch.runtime import spans
+    from repro_torch.runtime.steps import make_init, make_train_step
+
+    cfg = scaled_down(resolve("qwen3"))
+    rc = dataclasses.replace(run_config(cfg.name, "train_4k"), microbatches=2, remat="full",
+                             flash_vjp=True, xent_chunk=64)
+    params, opt = make_init(cfg, rc, device="cuda")(torch.Generator("cuda").manual_seed(5))
+    step = make_train_step(cfg, rc)
+    batch = make_batch(cfg, 4, 128, seed=5)
+    params, opt, _ = step(params, opt, batch)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    with spans.enabled(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    host = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cpu]
+
+    def named(name):
+        return [h for h in host if h[0] == name]
+
+    (_, s0, s1, main), = named(spans.TRAIN_STEP)
+    backward = named(spans.TRAIN_BACKWARD)
+    assert len(backward) == 2 and len(named(spans.TRAIN_FORWARD)) == 2
+    for _, b0, b1, tid in backward:
+        assert tid != main and s0 <= b0 < b1 <= s1
+        inside = [h for h in host if h[3] == tid and b0 <= h[1] and h[2] <= b1]
+        assert sum(h[0] == spans.ATTENTION_BACKWARD for h in inside) == cfg.n_layers
+        assert any(h[0].startswith("cu") and "Launch" in h[0] for h in inside)
+    assert all(h[3] != main for h in named(spans.ATTENTION_BACKWARD))
+
+
 def test_backward_library_reports_its_build(cuda):
     built = flash_attention_bwd.build()
     report = builder.ptxas_report(built.log)

@@ -1,0 +1,156 @@
+"""The port's spans and counters (``repro_torch.runtime.spans``) on the CPU.
+
+* Tracing off: ``span`` hands back the shared null context, ``count``
+  records nothing, and a profiler over a training step sees no
+  ``repro_torch.*`` range.
+* Tracing on: a training step records its spans in order, nested in
+  ``train.step``; the MoE layer's counters equal the claims, kept claims
+  and slots worked out by hand for a router rigged to send every token to
+  the same two experts, drops included.
+* The training step's parameters and the prefill's logits are the same
+  bits with tracing on and off.
+
+On the CPU the backward runs on the caller's thread, so the backward span
+nests in the step there; on CUDA tensors it runs on the autograd engine's
+thread (tests/test_torch_on_card.py).
+"""
+import contextlib
+import dataclasses
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils import _pytree as pytree
+
+from repro_torch import configs
+from repro_torch.models import model as M
+from repro_torch.models import moe
+from repro_torch.runtime import spans
+from repro_torch.runtime.steps import make_init, make_prefill_step, make_train_step
+
+PREFIX = "repro_torch."
+
+
+@pytest.fixture(autouse=True)
+def clean_counters():
+    spans.reset()
+    yield
+    spans.reset()
+
+
+def _ranges(prof) -> list:
+    """[(name, start, end)] of the port's spans in ``prof``, by start."""
+    out = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+           if e.name().startswith(PREFIX)]
+    return sorted(out, key=lambda r: r[1])
+
+
+def _setup(arch: str, microbatches: int = 2):
+    cfg = configs.scaled_down(configs.resolve(arch))
+    rc = configs.RunConfig(microbatches=microbatches, remat="full", flash_vjp=True)
+    params, opt = make_init(cfg, rc, device="cpu")(torch.Generator().manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+    return cfg, rc, params, opt, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def _train(arch: str, on: bool, microbatches: int = 2, prof: bool = False):
+    cfg, rc, params, opt, batch = _setup(arch, microbatches)
+    step = make_train_step(cfg, rc)
+    with spans.enabled() if on else contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CPU]) if prof else contextlib.nullcontext() as p:
+            params, opt, met = step(params, opt, batch)
+    return params, opt, met, p
+
+
+def _prefill(arch: str, on: bool):
+    cfg, rc, params, _opt, batch = _setup(arch)
+    step = make_prefill_step(cfg, configs.RunConfig(remat="none"))
+    cache = M.init_cache(cfg, 2, 32, device="cpu")
+    with torch.inference_mode(), spans.enabled() if on else contextlib.nullcontext():
+        logits, _cache = step(params, cache, {"tokens": batch["tokens"]})
+    return logits
+
+
+@pytest.mark.parametrize("what", ["span", "count", "profile"])
+def test_tracing_off_records_nothing(what):
+    if what == "span":
+        assert spans.span(spans.TRAIN_STEP) is spans.span(spans.ADAMW) is spans._NULL
+        with spans.enabled():
+            assert spans.span(spans.TRAIN_STEP) is not spans._NULL
+        assert spans.span(spans.TRAIN_STEP) is spans._NULL
+    elif what == "count":
+        spans.count("moe.claims", 7)
+        spans.count("moe.kept", torch.ones(3, dtype=torch.bfloat16))
+        assert spans.counters() == {}
+        with spans.enabled():
+            spans.count("moe.claims", 7)
+        assert spans.counters() == {"moe.claims": 7}
+    else:
+        *_, prof = _train("qwen3", on=False, prof=True)
+        assert _ranges(prof) == []
+
+
+@pytest.mark.parametrize("microbatches, order", [
+    (1, [spans.TRAIN_FORWARD, spans.TRAIN_BACKWARD, spans.ADAMW]),
+    (2, [spans.GRAD_ACCUM, spans.TRAIN_FORWARD, spans.TRAIN_BACKWARD, spans.GRAD_ACCUM,
+         spans.TRAIN_FORWARD, spans.TRAIN_BACKWARD, spans.GRAD_ACCUM, spans.GRAD_ACCUM,
+         spans.ADAMW]),
+])
+def test_a_training_step_records_its_spans_in_order(microbatches, order):
+    *_, prof = _train("qwen3", on=True, microbatches=microbatches, prof=True)
+    ranges = _ranges(prof)
+    assert set(r[0] for r in ranges) <= set(spans.NAMES)
+    (step, a, b), *inner = ranges
+    assert step == spans.TRAIN_STEP
+    assert [r[0] for r in inner] == order
+    assert all(a <= s <= e <= b for _, s, e in inner)
+    assert all(e1 <= s2 for (_, _, e1), (_, s2, _) in zip(inner, inner[1:]))
+
+
+CAPACITY = [  # (capacity_factor, C, claims, kept, slots) of 2 x 32 tokens: G 4, Sg 16, E 4, K 2
+    (0.25, 2, 128, 16, 32),  # each of the two experts keeps its first 2 claims a group
+    (1.0, 8, 128, 64, 128),  # ... its first 8
+    (2.0, 16, 128, 128, 256),  # no claim dropped
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cf, C, claims, kept, slots", CAPACITY)
+def test_moe_counters_match_the_rigged_routes(cf, C, claims, kept, slots, dtype):
+    cfg = dataclasses.replace(configs.scaled_down(configs.resolve("mixtral")), capacity_factor=cf)
+    assert (cfg.n_experts, cfg.top_k, cfg.moe_group_size) == (4, 2, 16)
+    assert moe._capacity(cfg, 16) == C
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, dtype)
+    # every token's logits are (3, 2, 0, 0): experts 0 and 1, in that order
+    params["router"] = torch.zeros(cfg.d_model, 4)
+    params["router"][:, 0] = 3.0 / cfg.d_model
+    params["router"][:, 1] = 2.0 / cfg.d_model
+    x = torch.ones(2, 32, cfg.d_model, dtype=dtype)
+    with spans.enabled():
+        moe.moe_block(params, x, cfg)
+    assert spans.counters() == {"moe.claims": claims, "moe.kept": kept, "moe.slots": slots}
+    spans.reset()
+    assert spans.counters() == {}
+
+
+@pytest.mark.parametrize("arch, path, counted", [
+    ("qwen3", "train", None),
+    # 2 MoE layers, top-2, groups of 16 of 4 experts of 16 slots: 2 x 32
+    # tokens prefilled are 256 claims and 8 groups' 512 slots; training
+    # counts each layer's forward twice (remat "full" recomputes it)
+    ("mixtral", "train", (512, 1024)),
+    ("mixtral", "prefill", (256, 512)),
+])
+def test_tracing_leaves_the_results_bit_identical(arch, path, counted):
+    if path == "train":
+        off, on = (_train(arch, on)[:3] for on in (False, True))
+        for a, b in zip(pytree.tree_leaves(off), pytree.tree_leaves(on)):
+            assert torch.equal(a, b)
+    else:
+        assert torch.equal(_prefill(arch, False), _prefill(arch, True))
+    got = spans.counters()
+    if counted is None:
+        assert got == {}
+    else:
+        assert (got["moe.claims"], got["moe.slots"]) == counted
+        assert 0 < got["moe.kept"] <= got["moe.claims"]
