@@ -126,8 +126,8 @@ PyTorch version.  Phases, one line each:
                32 generated tokens -- the eighth main path, counts zeroed
                just before and read just after: flash_attention once per
                layer in the prefill (the sliding window of 4096), no
-               fused_mlp (the experts are batched products, as in the
-               reference);
+               fused_mlp (the experts are plain products: on each expert's
+               sorted rows, models/moe.py);
 17. serve_moe_time   as serve_time, for mixtral (the float32 logits at 2
                layers); the bfloat16 logits also against a kernel-free
                reordering of the attention (the router's top-2 may flip);
@@ -2698,7 +2698,7 @@ def zoo_launches(cfg, gen: int) -> dict:
     steps) makes: flash_attention once per attention sublayer in the
     prefill (a decode step's one query attends in torch ops), fused_mlp
     once per dense MLP per forward (arctic's dense residual beside its
-    experts is one; the experts are batched products), selective_scan once
+    experts is one; the experts are plain products), selective_scan once
     per Mamba sublayer per forward."""
     kinds = cfg.sublayer_kinds(0, cfg.n_layers)
     attn = sum(mixer != "mamba" for mixer, _ in kinds)

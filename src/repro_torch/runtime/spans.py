@@ -25,8 +25,10 @@ layer ``moe.dispatch``, ``moe.experts`` and ``moe.combine``; ``attention``
 is the flash-attention kernel's call on CUDA tensors.  The counters
 (:data:`COUNTERS`) are the MoE layer's: ``moe.claims`` the routed (token, k)
 claims, ``moe.kept`` those within their expert's capacity, ``moe.slots``
-the capacity slots the expert products compute.  A forward recomputed in
-the backward counts again.
+every expert's capacity slots, ``moe.rows`` the rows the expert products
+ran on (the slots of this rank's experts on the capacity path, the kept
+claims on the sorted one).  A forward recomputed in the backward counts
+again.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ ATTENTION_BACKWARD = "repro_torch.attention.backward"
 
 NAMES = (TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD, GRAD_ACCUM, ADAMW, PREFILL_STEP,
          MOE_DISPATCH, MOE_EXPERTS, MOE_COMBINE, ATTENTION, ATTENTION_BACKWARD)
-COUNTERS = ("moe.claims", "moe.kept", "moe.slots")
+COUNTERS = ("moe.claims", "moe.kept", "moe.slots", "moe.rows")
 
 _NULL = contextlib.nullcontext()
 _on = False

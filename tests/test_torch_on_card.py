@@ -1028,6 +1028,115 @@ def test_moe_layer_at_full_width_in_bfloat16_matches_float32(cuda):
     assert abs(float(aux16) - float(aux32)) <= 1e-6 * abs(float(aux32))
 
 
+
+def _moe_pass(moe, spans, cfg, params, x, r, dtype=None, frozen=()):
+    """(y, aux, {"x": its grad, and each parameter's but the ``frozen``},
+    counters) of one forward and backward of ``moe.moe_block`` on the card,
+    in ``dtype`` (default: the tensors' own) on the path ``moe._sorted``
+    picks."""
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    p = {k: (v if k == "router" else cast(v)).detach().requires_grad_(k not in frozen)
+         for k, v in params.items()}
+    xi = cast(x).detach().requires_grad_()
+    spans.reset()
+    with spans.enabled():
+        y, aux = moe.moe_block(p, xi, cfg)
+    ((y.float() * r).sum() + aux).backward()
+    counted = spans.counters()
+    spans.reset()
+    return (y.detach().float(), aux.detach(),
+            {"x": xi.grad.float(),
+             **{k: v.grad.float() for k, v in p.items() if k not in frozen}}, counted)
+
+
+@pytest.mark.parametrize("arch, tokens, C", [("mixtral", 4096, 256), ("mixtral", 32256, 256),
+                                             ("jamba", 4096, 128)],
+                         ids=["4096", "8x4032", "jamba-4096"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_moe_sorted_path_matches_the_capacity_path_at_full_width(cuda, dtype, arch, tokens,
+                                                                 C, monkeypatch):
+    """One MoE layer at full width, groups of 512, capacity factor 2:
+    mixtral-8x7b's (d 4096, ff 14336, 8 experts, top-2) on 4096 tokens and
+    on 32,256 (the benchmark's longest batch), jamba-1.5-large's (d 8192,
+    ff 24576, 16 experts, top-2) on 4096 tokens, its prefill's.  The
+    sorted path, which the card takes (its products count the kept rows),
+    against the capacity path, patched in (every slot), on the same routes,
+    forward and backward: the gradients of x and every parameter, jamba's
+    experts' weights left out (their gradients do not fit beside a float32
+    reference of its 19.3 GB of bfloat16 experts; mixtral's cover them).
+    Float32: within 1e-4 of each number's largest magnitude.  Bfloat16: no
+    further from the capacity path run in float32 on the same inputs than
+    twice the bfloat16 capacity path is, plus one bfloat16 rounding (2**-8)
+    of the largest magnitude."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import spans
+
+    cfg = resolve(arch)
+    frozen = ("w1", "w2", "w3") if arch == "jamba" else ()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = moe.init_moe(gen, cfg, dtype)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device="cuda").to(dtype)
+    r = torch.randn(x.shape, generator=gen, device="cuda")
+    G, E = tokens // 512, cfg.n_experts
+    assert moe._capacity(cfg, 512) == C
+
+    y_s, aux_s, g_s, n_s = _moe_pass(moe, spans, cfg, params, x, r, frozen=frozen)
+    assert n_s["moe.rows"] == n_s["moe.kept"] <= n_s["moe.claims"] == 2 * tokens
+    monkeypatch.setattr(moe, "_sorted", lambda *a: False)
+    y_c, aux_c, g_c, n_c = _moe_pass(moe, spans, cfg, params, x, r, frozen=frozen)
+    assert n_c == {**n_s, "moe.rows": G * E * C}
+    assert torch.equal(aux_s, aux_c)
+    got, capacity = {"y": y_s, **g_s}, {"y": y_c, **g_c}
+    if dtype == torch.float32:
+        for k, want in capacity.items():
+            err = float((got[k] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (k, err)
+        return
+    y_r, _, g_r, _ = _moe_pass(moe, spans, cfg, params, x, r, torch.float32, frozen)
+    for k, want in {"y": y_r, **g_r}.items():
+        err_s = float((got[k] - want).abs().max())
+        err_c = float((capacity[k] - want).abs().max())
+        assert err_s <= 2 * err_c + 2**-8 * float(want.abs().max()), (k, err_s, err_c)
+
+
+@pytest.mark.parametrize("tokens", [4096, 32256], ids=["4096", "8x4032"])
+def test_moe_sorted_combine_equals_the_one_hot_product_bit_for_bit(cuda, tokens, monkeypatch):
+    """Bfloat16 at mixtral's width, with experts rigged to be exact (w1, w3
+    and w2 the identity on the first d of ff columns, times powers of two):
+    both paths compute the same ``ye`` bits, so the sorted path's float32
+    sum of each token's ``ye * gate``, rounded once, equals the capacity
+    path's one-hot combine product, which accumulates in float32 and rounds
+    once, bit for bit.  A decode step's eight tokens (G * C = 4) take the
+    capacity path on the card."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import spans
+
+    cfg = resolve("mixtral")
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    eye = torch.eye(d, ff, device="cuda")
+    two = 2.0 ** (torch.arange(E, device="cuda") % 3 - 1)[:, None, None]  # 1/2, 1, 2
+    params = {"router": torch.randn((d, E), generator=gen, device="cuda") / d**0.5,
+              "w1": (eye * two).to(torch.bfloat16), "w3": (eye / two).to(torch.bfloat16),
+              "w2": (eye.T * two.flip(0)).to(torch.bfloat16)}
+    x = torch.randn((1, tokens, d), generator=gen, device="cuda").to(torch.bfloat16)
+    counted = []
+    with torch.inference_mode():
+        for part in (x[:, :8], x):
+            with spans.enabled():
+                out = moe.moe_block(params, part, cfg)
+            counted.append(spans.counters())
+            spans.reset()
+        monkeypatch.setattr(moe, "_sorted", lambda *a: False)
+        y_c, aux_c = moe.moe_block(params, x, cfg)
+    n_decode, n = counted
+    y_s, aux_s = out
+    assert n["moe.rows"] == n["moe.kept"] and n_decode["moe.rows"] == 1 * E * 4
+    assert y_s.dtype == torch.bfloat16 and torch.isfinite(y_s).all()
+    assert torch.equal(aux_s, aux_c)
+    assert torch.equal(y_s, y_c)
+
+
 def _same_fleet(a, b):
     for ra, rb in zip(a.results, b.results):
         assert ra.best_hw == rb.best_hw and ra.best_metrics == rb.best_metrics

@@ -4,11 +4,13 @@
   records nothing, and a profiler over a training step sees no
   ``repro_torch.*`` range.
 * Tracing on: a training step records its spans in order, nested in
-  ``train.step``; the MoE layer's counters equal the claims, kept claims
-  and slots worked out by hand for a router rigged to send every token to
-  the same two experts, drops included.
-* The training step's parameters and the prefill's logits are the same
-  bits with tracing on and off.
+  ``train.step``; the MoE layer's counters equal the claims, kept claims,
+  slots and expert rows worked out by hand for a router rigged to send
+  every token to the same two experts, drops included, on the capacity
+  path and on the sorted one (patched in: it runs on the card alone), and
+  the rule that picks the sorted path.
+* The training step's parameters, the prefill's logits and the sorted
+  MoE path's output are the same bits with tracing on and off.
 
 On the CPU the backward runs on the caller's thread, so the backward span
 nests in the step there; on CUDA tensors it runs on the autograd engine's
@@ -16,6 +18,7 @@ thread (tests/test_torch_on_card.py).
 """
 import contextlib
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -114,23 +117,65 @@ CAPACITY = [  # (capacity_factor, C, claims, kept, slots) of 2 x 32 tokens: G 4,
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cf, C, claims, kept, slots", CAPACITY)
-def test_moe_counters_match_the_rigged_routes(cf, C, claims, kept, slots, dtype):
+def _rigged(cf: float, dtype):
+    """(cfg, params, x) of one MoE layer whose router sends every token to
+    experts 0 and 1, in that order, at capacity factor ``cf``."""
     cfg = dataclasses.replace(configs.scaled_down(configs.resolve("mixtral")), capacity_factor=cf)
     assert (cfg.n_experts, cfg.top_k, cfg.moe_group_size) == (4, 2, 16)
-    assert moe._capacity(cfg, 16) == C
     params = moe.init_moe(torch.Generator().manual_seed(0), cfg, dtype)
     # every token's logits are (3, 2, 0, 0): experts 0 and 1, in that order
     params["router"] = torch.zeros(cfg.d_model, 4)
     params["router"][:, 0] = 3.0 / cfg.d_model
     params["router"][:, 1] = 2.0 / cfg.d_model
-    x = torch.ones(2, 32, cfg.d_model, dtype=dtype)
+    return cfg, params, torch.ones(2, 32, cfg.d_model, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cf, C, claims, kept, slots", CAPACITY)
+def test_moe_counters_match_the_rigged_routes(cf, C, claims, kept, slots, dtype):
+    cfg, params, x = _rigged(cf, dtype)
+    assert moe._capacity(cfg, 16) == C
     with spans.enabled():
         moe.moe_block(params, x, cfg)
-    assert spans.counters() == {"moe.claims": claims, "moe.kept": kept, "moe.slots": slots}
+    # a CPU call takes the capacity path: its products run on every slot
+    assert spans.counters() == {"moe.claims": claims, "moe.kept": kept, "moe.slots": slots,
+                                "moe.rows": slots}
     spans.reset()
     assert spans.counters() == {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cf, C, claims, kept, slots", CAPACITY)
+def test_moe_sorted_path_counts_the_kept_rows_and_traces_bit_identically(
+        cf, C, claims, kept, slots, dtype, monkeypatch):
+    """The sorted path, patched in on the CPU: its products run on the kept
+    claims alone, and tracing on leaves its results the same bits."""
+    cfg, params, x = _rigged(cf, dtype)
+    x = x + torch.rand(x.shape, generator=torch.Generator().manual_seed(2)).to(dtype)
+    monkeypatch.setattr(moe, "_sorted", lambda *a: True)
+    off = moe.moe_block(params, x, cfg)
+    assert spans.counters() == {}
+    with spans.enabled():
+        on = moe.moe_block(params, x, cfg)
+    assert spans.counters() == {"moe.claims": claims, "moe.kept": kept, "moe.slots": slots,
+                                "moe.rows": kept}
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+
+
+@pytest.mark.parametrize("on_card, split, rows, sorted_path", [
+    (False, False, 2048, False),  # a CPU call: the path compared with the JAX package
+    (True, False, 4, False),  # mixtral's decode step of 8 tokens: G * C 4
+    (True, False, moe.SORTED_MIN_ROWS - 1, False),
+    (True, False, moe.SORTED_MIN_ROWS, True),
+    (True, False, 2048, True),  # mixtral's prefill of 4096 tokens: G 8, C 256
+    (True, False, 64, False),  # llama4's prefill of 4096 tokens: G 8, C 8
+    (True, False, 1024, True),  # jamba's prefill of 4096 tokens: G 8, C 128
+    (True, True, 2048, False),  # the experts split over a mesh's model axis
+])
+def test_the_sorted_path_runs_on_the_card_once_the_products_are_compute_bound(
+        on_card, split, rows, sorted_path):
+    x = types.SimpleNamespace(is_cuda=True) if on_card else torch.zeros(1)
+    assert moe._sorted(x, split, rows) is sorted_path
 
 
 @pytest.mark.parametrize("arch, path, counted", [
