@@ -440,7 +440,21 @@ SERVE_ATTENTION = [
     # (a 512-token prompt never crosses one); the only launch of the real
     # chunk size.  The plain version's float32 scores take 24 GB.
     ("llama4_chunk", (1, 12288, 12288, 40, 8, 128), True, 0, 8192),   # 0
+    # The benchmark's prefill cells (portbench/): jamba2-mini-prefill-long's
+    # two attention layers (no RoPE, so the kernel's call is the same), 2
+    # launches a prompt of each length; phi3-prefill-mix's longest batch,
+    # 32 launches.  Plain scores past PLAIN_SCORES_BYTES go by query blocks.
+    ("jamba2_prefill", (1, 4096, 4096, 32, 8, 128), True, 0, 0),       # 2 a prompt
+    ("jamba2_prefill", (1, 8192, 8192, 32, 8, 128), True, 0, 0),       # 2
+    ("jamba2_prefill", (1, 16384, 16384, 32, 8, 128), True, 0, 0),     # 2
+    ("jamba2_prefill", (1, 32768, 32768, 32, 8, 128), True, 0, 0),     # 2
+    ("phi3_prefill_mix", (8, 4032, 4032, 32, 32, 96), True, 0, 0),     # 32 a batch
 ]
+# The plain attention's float32 scores are taken whole up to this many
+# bytes (llama4_chunk's 24.2 GB); past it, PLAIN_QUERY_BLOCK queries at a
+# time (8.6 GB of scores a block at 32,768 keys and 32 heads).
+PLAIN_SCORES_BYTES = 24 << 30
+PLAIN_QUERY_BLOCK = 2048
 # fused_mlp's bfloat16 shapes there: (label, (T, d, ff, act)); a serve_zoo
 # run's rows are "<arch>_prefill" and "<arch>_decode".
 SERVE_MLP = [
@@ -462,6 +476,18 @@ SERVE_MLP = [
     ("arctic_decode", (8, 7168, 4864, "swiglu")),       # 2 a step: 62
     ("jamba_prefill", (4096, 8192, 24576, "swiglu")),   # 2
     ("jamba_decode", (8, 8192, 24576, "swiglu")),       # 2 a step: 62
+    # the benchmark's prefill cells at their most rows: jamba2-mini-prefill-
+    # long's dense layers on a 32,768-token prompt, phi3-prefill-mix's batch
+    # of 8 x 4,032
+    ("jamba2_prefill", (32768, 4096, 14336, "swiglu")),    # 8 a prompt
+    ("phi3_prefill_mix", (32256, 3072, 8192, "swiglu")),  # 32 a batch
+]
+# selective_scan's shapes in the benchmark's prefill cells, with the state
+# in and out: jamba2-mini-prefill-long's Mamba layers take a prompt in
+# chunks of time of ssm.time_chunk(1, 8192, 16) = 8,192 steps, each call
+# starting from the state the one before returned: 14 launches a chunk.
+SERVE_SCAN = [
+    ("jamba2_prefill", (1, 8192, 8192, 16)),  # 56 a 32,768-token prompt
 ]
 # The fifteenth main path, phase serve_zoo: the registry's six other
 # families at full width through the serve entry point, 8 requests, prompt
@@ -2413,6 +2439,36 @@ def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def plain_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    chunk: int = 0):
+    """``ref.flash_attention_ref``; where its float32 scores would pass
+    PLAIN_SCORES_BYTES, the same materialised-scores softmax taken
+    PLAIN_QUERY_BLOCK queries at a time, each block's scores over every
+    key under the same mask."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import NEG_INF
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if B * H * Sq * Skv * 4 <= PLAIN_SCORES_BYTES:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, chunk=chunk)
+    idx = torch.arange(H, device=q.device) // (H // KV)
+    kr, vr = (t.index_select(2, idx).float() for t in (k, v))
+    ok = ref._visible(Sq, Skv, causal, window, chunk, q.device)
+    out = torch.empty_like(q)
+    for i in range(0, Sq, PLAIN_QUERY_BLOCK):
+        j = min(Sq, i + PLAIN_QUERY_BLOCK)
+        s = torch.einsum("bqhd,bchd->bhqc", q[:, i:j].float(), kr) * (1.0 / math.sqrt(hd))
+        s += torch.where(ok[i:j], 0.0, NEG_INF)
+        out[:, i:j] = torch.einsum("bhqc,bchd->bqhd", torch.softmax(s, dim=-1), vr).to(q.dtype)
+        del s
+    return out
+
+
 def scan_control(rc):
     """falcon-mamba's reordering: the plain path with the reference's
     chunk-recurrent scan in place of the sequential one."""
@@ -2438,11 +2494,12 @@ def attention_control(rc):
 
 def _routed(run, route):
     """``run()`` with ``moe.route_topk`` replaced by ``route(real, logits,
-    top_k)``, restored after."""
+    top_k, renormalize)``, restored after."""
     from repro_torch.models import moe as MOE
 
     real = MOE.route_topk
-    MOE.route_topk = lambda logits, top_k: route(real, logits, top_k)
+    MOE.route_topk = lambda logits, top_k, renormalize=True: route(real, logits, top_k,
+                                                                   renormalize)
     try:
         return run()
     finally:
@@ -2454,8 +2511,8 @@ def recorded_routes(run) -> tuple:
     call order)."""
     seen = []
 
-    def route(real, logits, top_k):
-        gates, idx, probs = real(logits, top_k)
+    def route(real, logits, top_k, renormalize):
+        gates, idx, probs = real(logits, top_k, renormalize=renormalize)
         seen.append(idx)
         return gates, idx, probs
 
@@ -2473,11 +2530,13 @@ def replayed_routes(routes: list, run):
 
     todo = iter(routes)
 
-    def route(real, logits, top_k):
-        _, _, probs = real(logits, top_k)
+    def route(real, logits, top_k, renormalize):
+        _, _, probs = real(logits, top_k, renormalize=renormalize)
         idx = next(todo)
         gates = probs.gather(-1, idx)
-        return gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx, probs
+        if renormalize:
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return gates, idx, probs
 
     return _routed(run, route)
 
@@ -3080,7 +3139,7 @@ def phase_attention(torch, spec, seed: int, plan_tile) -> list:
             return fused_attention.flash_attention(q, k, v, block_q=bq, block_k=bk, **mask)
 
         def plain():
-            return ref.flash_attention_ref(q, k, v, **mask)
+            return plain_attention(q, k, v, **mask)
 
         want = plain().float()
         got = kernel().float()
@@ -3257,6 +3316,7 @@ def phase_scan(torch, spec, seed: int) -> list:
         ("ragged", (3, 200, 1000, 16), (64, 384), True),
         ("ragged", (2, 77, 300, 5), None, True),
     ]
+    cases += [(label, shape, None, True) for label, shape in SERVE_SCAN]
     rows = []
     for label, (b, s, di, ds), tile, state in cases:
         dA = 0.3 + 0.68 * torch.rand((b, s, di, ds), generator=gen, device="cuda")

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, scaled_down  # noqa: F401
+from .base import (SHAPES, JambaConfig, ModelConfig, RunConfig, ShapeConfig,  # noqa: F401
+                   scaled_down)
 
 from . import (  # noqa: E402
     arctic_480b,

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import ClassVar, Sequence
 
 # Sub-layer mixer kinds usable in ``layer_pattern``.
 MIXERS = ("attn", "attn_local", "attn_chunked", "mamba")
@@ -71,6 +71,14 @@ class ModelConfig:
     # Max positions a serve-time KV cache is allocated for (decode shapes
     # override this per run).
     max_seq_len: int = 32_768
+
+    # ---- switches of a published model the reference's schema lacks --------
+    # Class-level, not fields, so that a registry config's fields (and its
+    # ``dataclasses.asdict``) stay the JAX package's; :class:`JambaConfig`
+    # makes them fields.
+    rope: ClassVar[bool] = True  # rotate q and k (False: no positional encoding)
+    moe_renormalize: ClassVar[bool] = True  # top-k gates rescaled to sum to 1
+    ssm_inner_norms: ClassVar[bool] = False  # RMSNorm of dt, B and C after x_proj
 
     # ------------------------------------------------------------------------
     def __post_init__(self):
@@ -134,6 +142,7 @@ class ModelConfig:
             + self.d_inner * self.ssm_state  # A_log
             + self.d_inner  # D
             + self.d_inner * d  # out_proj
+            + (self.dt_rank + 2 * self.ssm_state if self.ssm_inner_norms else 0)
         )
         total = active = 0.0
         n_dec = self.n_layers
@@ -166,6 +175,22 @@ class ModelConfig:
         total += emb + (0 if self.tie_embeddings else emb)
         active += emb + (0 if self.tie_embeddings else emb)
         return {"total": total, "active": active}
+
+
+@dataclasses.dataclass(frozen=True)
+class JambaConfig(ModelConfig):
+    """The published Jamba (arXiv:2403.19887, 2408.12570; the layer equations
+    of transformers' ``models/jamba/modeling_jamba.py``): its attention
+    takes no rotary embedding, its MoE keeps the top-k softmax probabilities
+    as the gates without renormalising them, and its Mamba mixer
+    RMS-normalises dt, B and C after ``x_proj``.  The three switches are
+    fields here, defaulting to Jamba's.  (The registry's
+    ``jamba-1.5-large-398b`` is the JAX package's jamba, a plain
+    :class:`ModelConfig` with none of the three.)"""
+
+    rope: bool = False
+    moe_renormalize: bool = False
+    ssm_inner_norms: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

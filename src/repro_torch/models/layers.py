@@ -397,6 +397,8 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
     ``cross_kv``: the encoder's (k, v), attended to without a mask; the
     queries take ``q_norm`` only, no RoPE (the keys were projected from the
     encoder's states once, :func:`repro_torch.models.encdec.cross_kv`).
+    A config with ``rope`` false (jamba) rotates no self-attention either:
+    its layers take no positional encoding.
 
     ``flash_vjp``: an uncached self-attention over more than one token with
     no softcap runs :func:`repro_torch.models.flash.flash_attention_vjp`
@@ -424,7 +426,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg, *, mixer: str,
             k_norm = params["k_norm"]
             k = rmsnorm(SH.enter_model(k_norm) if k.shape[2] < KV else k_norm, k,
                         cfg.rmsnorm_eps)
-    if cross_kv is None:
+    if cross_kv is None and cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 

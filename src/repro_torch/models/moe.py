@@ -113,12 +113,15 @@ def _capacity(cfg, group_size: int) -> int:
     return max(c, 1)
 
 
-def route_topk(router_logits: torch.Tensor, top_k: int):
+def route_topk(router_logits: torch.Tensor, top_k: int, *, renormalize: bool = True):
     """(..., E) logits -> (gates, indices, probs); gates and indices are
-    (..., top_k) and the gates sum to 1."""
+    (..., top_k).  With ``renormalize`` the gates are rescaled to sum to 1
+    (mixtral); without, they are the top-k softmax probabilities as drawn
+    (jamba)."""
     probs = torch.softmax(router_logits.float(), dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    if renormalize:
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return gates, idx, probs
 
 
@@ -155,7 +158,8 @@ def _moe(params: dict, x: torch.Tensor, cfg, mlp, n_data: int
     with spans.span(spans.MOE_DISPATCH):
         router = params["router"]  # float32 x float32, promoted as jnp does
         logits = xg.float().to(torch.promote_types(torch.float32, router.dtype)) @ router
-        gates, idx, probs = route_topk(logits, K)  # (G, Sg, K)
+        gates, idx, probs = route_topk(logits, K,  # (G, Sg, K)
+                                       renormalize=cfg.moe_renormalize)
 
         # Load-balance aux loss (Switch): E * sum_e f_e * p_e, both statistics
         # over the whole microbatch (summed over the data axes).

@@ -17,6 +17,20 @@ shapes as meta tensors.  The frontend passes its own ``scan`` (one marker
 op, so the recurrence traces to a single graph node); the model's path
 keeps ``ops.KERNELS.ssm_scan``.
 
+Jamba's mixer (``cfg.ssm_inner_norms``) RMS-normalises dt, B and C after
+``x_proj`` (its ``dt_layernorm``, ``b_layernorm`` and ``c_layernorm``), with
+scales ``dt_norm``, ``b_norm`` and ``c_norm``.  With grad mode off (serving)
+the discretisation and the scan run over chunks of time of
+:func:`time_chunk` steps, the state carried from one chunk's scan to the
+next, so that dA and dBx of a long prompt never exist whole; the
+projections, the convolution and dt stay whole.  A chunk's arithmetic is
+the whole prompt's, element for element, and the scan is sequential, so
+the chunked result is the same bits.  With tracing on
+(:mod:`repro_torch.runtime.spans`) the mixer runs in the spans
+``repro_torch.mamba.in``, ``.discretize``, ``.scan`` (each scan call) and
+``.out``, and counts its tokens (``mamba.tokens``) and scan calls
+(``mamba.scans``).
+
 On a mesh (``parallel.sharding.use_mesh``), a ``conv_w`` narrower than
 ``d_inner`` holds this rank's channels on the ``model`` axis (channel
 parallelism): ``in_proj`` comes whole (its column piece would hold x- or
@@ -36,15 +50,23 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops, ref
 from ..parallel import sharding as SH
+from ..runtime import spans
 from . import layers as L
 from .layers import dense_init
+
+# Bytes of float32 dA and dBx together that one chunk of time may hold
+# while serving: 8 GiB, what jamba-1.5-large's 8 x 512 prefill (d_inner
+# 16,384) held in one call, so no shape the registry serves is cut, while a
+# 32,768-token prompt of d_inner 8192 runs in four chunks (32 GiB whole).
+SCAN_BUDGET_BYTES = 8 << 30
 
 
 def init_mamba(gen: torch.Generator, cfg, dtype) -> dict:
     """One Mamba mixer's parameters, drawn from ``gen`` with the reference's
     initialisation: S4D-real ``A_log`` = log [1..ds] per channel, ``dt_bias``
     the inverse softplus of dt uniform in [1e-3, 0.1]; ``A_log``, ``D`` and
-    ``dt_bias`` in float32, the rest in ``dtype``."""
+    ``dt_bias`` in float32, the rest in ``dtype``; with
+    ``cfg.ssm_inner_norms`` the inner norms' scales, ones."""
     d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dr, dc = cfg.dt_rank, cfg.ssm_conv
     dev = gen.device
@@ -53,7 +75,7 @@ def init_mamba(gen: torch.Generator, cfg, dtype) -> dict:
     dt = torch.clamp(u * (0.1 - 1e-3) + 1e-3, min=1e-4)
     dt_bias = torch.log(torch.exp(dt) - 1.0)  # softplus^-1 of dt
     conv_w = torch.randn((dc, di), generator=gen, device=dev, dtype=torch.float32)
-    return {
+    p = {
         "in_proj": dense_init(gen, d, 2 * di, dtype),
         "conv_w": (conv_w / math.sqrt(dc)).to(dtype),
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
@@ -64,6 +86,11 @@ def init_mamba(gen: torch.Generator, cfg, dtype) -> dict:
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": dense_init(gen, di, d, dtype),
     }
+    if cfg.ssm_inner_norms:
+        p["dt_norm"] = L.rmsnorm_init(dr, dtype, dev)
+        p["b_norm"] = L.rmsnorm_init(ds, dtype, dev)
+        p["c_norm"] = L.rmsnorm_init(ds, dtype, dev)
+    return p
 
 
 def mamba_param_specs(cfg, *, dtype=torch.float32) -> dict:
@@ -90,27 +117,45 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b[None, None, :], new_state
 
 
-def _ssm_inputs(params: dict, x_c: torch.Tensor, cfg
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Discretised (dA, dBx, C) from the conv output, all float32 and
-    contiguous (as the scan kernel takes them): dA and dBx (B, S, di, ds),
-    C (B, S, ds).  With grad mode off the exponential and the last product
-    are taken in place, which saves one (B, S, di, ds) temporary each."""
+def time_chunk(batch: int, d_inner: int, d_state: int) -> int:
+    """Steps of time one chunk of the serving path's discretisation and
+    scan takes: the most whose float32 dA and dBx fit
+    :data:`SCAN_BUDGET_BYTES`, at least one."""
+    return max(1, SCAN_BUDGET_BYTES // (2 * 4 * batch * d_inner * d_state))
+
+
+def _selection(params: dict, x_c: torch.Tensor, cfg
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The input-dependent (dt (B, S, di), B (B, S, ds), C (B, S, ds)),
+    float32, C contiguous (as the scan kernel takes it): ``x_proj``, jamba's
+    inner norms where the config has them, ``dt_proj`` and softplus."""
     dr, ds = cfg.dt_rank, cfg.ssm_state
     if params["x_proj"].shape[0] < cfg.d_inner:  # this rank's channels' rows
         proj = SH.enter_model(SH.leave_model((x_c @ params["x_proj"]).float()))
     else:
         proj = (x_c @ params["x_proj"]).float()  # (B, S, dr + 2 ds)
     dt_low, Bs, Cs = torch.split(proj, [dr, ds, ds], dim=-1)
+    if cfg.ssm_inner_norms:
+        dt_low = L.rmsnorm(params["dt_norm"], dt_low, cfg.rmsnorm_eps)
+        Bs = L.rmsnorm(params["b_norm"], Bs, cfg.rmsnorm_eps)
+        Cs = L.rmsnorm(params["c_norm"], Cs, cfg.rmsnorm_eps)
     dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])  # (B, S, di)
-    A = -torch.exp(params["A_log"])  # (di, ds)
+    return dt, Bs, Cs.contiguous()
+
+
+def _discretize(dt: torch.Tensor, A: torch.Tensor, Bs: torch.Tensor,
+                x_c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dA, dBx) (B, T, di, ds), float32 and contiguous, of T steps' dt
+    (B, T, di), B (B, T, ds) and conv output x_c (B, T, di).  With grad mode
+    off the exponential and the last product are taken in place, which
+    saves one (B, T, di, ds) temporary each."""
     if torch.is_grad_enabled():
         dA = torch.exp(dt[..., None] * A[None, None])
         dBx = dt[..., None] * Bs[:, :, None, :] * x_c.float()[..., None]
     else:
         dA = (dt[..., None] * A[None, None]).exp_()
         dBx = (dt[..., None] * Bs[:, :, None, :]).mul_(x_c.float()[..., None])
-    return dA, dBx, Cs.contiguous()
+    return dA, dBx
 
 
 # The sequential oracle, (dA, dBx, Cs, h0=None) -> (y, h_last): the scan
@@ -189,32 +234,49 @@ def mamba_block(params: dict, x: torch.Tensor, cfg, cache: dict | None = None, *
     ``x.dtype``; the discretisation, the scan and ``y + D x`` in float32.
     """
     scan = ops.KERNELS.ssm_scan if scan is None else scan
+    B, S, _ = x.shape
     di, dil = cfg.d_inner, params["conv_w"].shape[1]
     split = dil < di  # this rank's channels of d_inner
-    if split:
-        mine = SH.head_slice(di, dil)
-        w = SH.enter_model(params["in_proj"])
-        w = torch.cat([w[:, mine], w[:, di + mine.start:di + mine.stop]], dim=1)
-        xz = SH.enter_model(x) @ w
-    else:
-        xz = x @ params["in_proj"]
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    spans.count("mamba.tokens", B * S)
+    with spans.span(spans.MAMBA_IN):
+        if split:
+            mine = SH.head_slice(di, dil)
+            w = SH.enter_model(params["in_proj"])
+            w = torch.cat([w[:, mine], w[:, di + mine.start:di + mine.stop]], dim=1)
+            xz = SH.enter_model(x) @ w
+        else:
+            xz = x @ params["in_proj"]
+        x_in, z = torch.chunk(xz, 2, dim=-1)
 
-    conv_state = SH.cache_open(cache["conv"]) if cache is not None else None
-    x_c, new_conv = causal_depthwise_conv(x_in, params["conv_w"], params["conv_b"],
-                                          conv_state)
-    x_c = F.silu(x_c)
+        conv_state = SH.cache_open(cache["conv"]) if cache is not None else None
+        x_c, new_conv = causal_depthwise_conv(x_in, params["conv_w"], params["conv_b"],
+                                              conv_state)
+        x_c = F.silu(x_c)
 
-    dA, dBx, Cs = _ssm_inputs(params, x_c, cfg)
-    h0 = SH.cache_open(cache["h"]) if cache is not None else None
-    y, h = scan(dA, dBx, Cs, h0)
-    del dA, dBx
+    with spans.span(spans.MAMBA_DISCRETIZE):
+        dt, Bs, Cs = _selection(params, x_c, cfg)
+        A = -torch.exp(params["A_log"])  # (di, ds)
+    h = SH.cache_open(cache["h"]) if cache is not None else None
+    T = S if torch.is_grad_enabled() else time_chunk(B, dil, cfg.ssm_state)
+    ys = []
+    for t in range(0, S, T):
+        part = slice(t, t + T)
+        with spans.span(spans.MAMBA_DISCRETIZE):
+            dA, dBx = _discretize(dt[:, part], A, Bs[:, part], x_c[:, part])
+        with spans.span(spans.MAMBA_SCAN):
+            y_part, h = scan(dA, dBx, Cs[:, part].contiguous(), h)
+        spans.count("mamba.scans", 1)
+        del dA, dBx
+        ys.append(y_part)
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    del ys, dt
 
-    y = y + params["D"][None, None, :] * x_c.float()
-    y = y.to(x.dtype) * F.silu(z)
-    out = y @ params["out_proj"]
-    if split:
-        out = SH.leave_model(out)
+    with spans.span(spans.MAMBA_OUT):
+        y = y + params["D"][None, None, :] * x_c.float()
+        y = y.to(x.dtype) * F.silu(z)
+        out = y @ params["out_proj"]
+        if split:
+            out = SH.leave_model(out)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": SH.cache_piece(cache["conv"], new_conv),

@@ -13,22 +13,28 @@ once: nothing is allocated or recorded and no tensor op runs.  On:
   summed on its device in ``int64`` into an ``int64`` tensor there, with no
   host sync until :func:`counters`.
 
-The spans (:data:`NAMES`) nest on a thread: ``train.step`` holds each
+The spans (:data:`NAMES`, and the Mamba mixer's :data:`MAMBA_NAMES`) nest
+on a thread: ``train.step`` holds each
 microbatch's ``train.forward``, the ``train.grad_accum`` pieces (the float32
 sums' zeros, each microbatch's sum, the division) and ``optim.adamw`` (the
 sharded step has the forward, backward and AdamW spans alone);
 ``train.backward`` runs on the thread that runs the backward (on CUDA
 tensors the autograd engine's own), from the backward's first node to the
 end of the pass, and holds the recomputation of a checkpointed forward and
-``attention.backward``.  ``prefill.step`` holds the trunk, and each MoE
-layer ``moe.dispatch``, ``moe.experts`` and ``moe.combine``; ``attention``
-is the flash-attention kernel's call on CUDA tensors.  The counters
+``attention.backward``.  ``prefill.step`` holds the trunk, each MoE layer
+``moe.dispatch``, ``moe.experts`` and ``moe.combine``, and each Mamba
+layer, one after another, ``mamba.in`` (in_proj, the convolution, SiLU),
+``mamba.discretize`` (x_proj, the inner norms, dt; then, a chunk of time
+at a time, dA and dBx), ``mamba.scan`` (each call of the selective scan)
+and ``mamba.out`` (the D skip, the gate, out_proj); ``attention`` is the
+flash-attention kernel's call on CUDA tensors.  The counters
 (:data:`COUNTERS`) are the MoE layer's: ``moe.claims`` the routed (token, k)
 claims, ``moe.kept`` those within their expert's capacity, ``moe.slots``
 every expert's capacity slots, ``moe.rows`` the rows the expert products
 ran on (the slots of this rank's experts on the capacity path, the kept
-claims on the sorted one).  A forward recomputed in the backward counts
-again.
+claims on the sorted one); and the Mamba layer's: ``mamba.tokens`` the
+B x S tokens of each layer's call, summed over the calls, ``mamba.scans``
+the scan calls.  A forward recomputed in the backward counts again.
 """
 from __future__ import annotations
 
@@ -45,12 +51,18 @@ PREFILL_STEP = "repro_torch.prefill.step"
 MOE_DISPATCH = "repro_torch.moe.dispatch"
 MOE_EXPERTS = "repro_torch.moe.experts"
 MOE_COMBINE = "repro_torch.moe.combine"
+MAMBA_IN = "repro_torch.mamba.in"
+MAMBA_DISCRETIZE = "repro_torch.mamba.discretize"
+MAMBA_SCAN = "repro_torch.mamba.scan"
+MAMBA_OUT = "repro_torch.mamba.out"
 ATTENTION = "repro_torch.attention"
 ATTENTION_BACKWARD = "repro_torch.attention.backward"
 
 NAMES = (TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD, GRAD_ACCUM, ADAMW, PREFILL_STEP,
          MOE_DISPATCH, MOE_EXPERTS, MOE_COMBINE, ATTENTION, ATTENTION_BACKWARD)
-COUNTERS = ("moe.claims", "moe.kept", "moe.slots", "moe.rows")
+MAMBA_NAMES = (MAMBA_IN, MAMBA_DISCRETIZE, MAMBA_SCAN, MAMBA_OUT)
+COUNTERS = ("moe.claims", "moe.kept", "moe.slots", "moe.rows", "mamba.tokens",
+            "mamba.scans")
 
 _NULL = contextlib.nullcontext()
 _on = False

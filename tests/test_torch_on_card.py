@@ -987,6 +987,73 @@ def test_mamba_prefill_and_decode_through_the_kernel_match_plain(cuda):
     torch.testing.assert_close(out["fused"], out["plain"], atol=1e-4, rtol=1e-4)
 
 
+def _jamba2_mini_mamba(seed: int, S: int):
+    """(cfg, one full-width Jamba2-Mini Mamba mixer in bfloat16, x (1, S,
+    4096), a zeroed cache): d_inner 8192, d_state 16, dt_rank 256, the
+    inner norms."""
+    from repro_torch.configs import JambaConfig
+    from repro_torch.models import ssm
+
+    cfg = JambaConfig(name="jamba2-mini", family="hybrid", n_layers=16, d_model=4096,
+                      n_heads=32, n_kv_heads=8, head_dim=128, d_ff=14_336, vocab_size=65_536,
+                      layer_pattern=("mamba",) * 4 + ("attn",) + ("mamba",) * 3,
+                      n_experts=16, top_k=2, moe_every=2, moe_offset=1, ssm_dt_rank=256,
+                      tie_embeddings=False, dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = ssm.init_mamba(gen, cfg, torch.bfloat16)
+    x = torch.randn((1, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    return cfg, params, x, ssm.init_mamba_cache(cfg, 1, torch.bfloat16, "cuda")
+
+
+def test_a_jamba2_mini_mamba_layer_prefills_32768_tokens_in_chunks_of_time(cuda):
+    from repro_torch.models import ssm
+
+    cfg, params, x, cache = _jamba2_mini_mamba(11, 32_768)
+    chunk = ssm.time_chunk(1, cfg.d_inner, cfg.ssm_state)
+    assert chunk == 8192
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s0 = mamba_scan.selective_scan.launches
+    with torch.inference_mode():
+        out, new = ssm.mamba_block(params, x, cfg, cache)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert mamba_scan.selective_scan.launches == s0 + 32_768 // chunk
+    whole = 2 * 4 * 32_768 * cfg.d_inner * cfg.ssm_state  # dA and dBx at once: 32 GiB
+    print(f"jamba2-mini mamba layer, 32768 tokens: peak {peak} B above the inputs "
+          f"(dA + dBx whole: {whole} B)")
+    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(new["h"]).all())
+    # hand the allocator's 8 GiB blocks back: a later allocation carved from
+    # one would pin it, and the full-width MoE tests need nearly the card
+    del params, x, cache, out, new
+    torch.cuda.empty_cache()
+    assert peak < ssm.SCAN_BUDGET_BYTES + (6 << 30) < whole
+    assert finite
+
+
+def test_the_chunked_jamba2_mini_mamba_layer_matches_one_call_at_8192_tokens(
+        cuda, monkeypatch):
+    from repro_torch.models import ssm
+
+    cfg, params, x, cache = _jamba2_mini_mamba(12, 8192)
+    got = {}
+    for steps in (8192, 3000):
+        monkeypatch.setattr(ssm, "SCAN_BUDGET_BYTES", steps * 2 * 4 * cfg.d_inner * cfg.ssm_state)
+        with torch.inference_mode():
+            out, new = ssm.mamba_block(params, x, cfg, {k: v.clone() for k, v in cache.items()})
+        got[steps] = (out.float(), new["h"], new["conv"])
+    (out, h, conv), (out_c, h_c, conv_c) = got[8192], got[3000]
+    print(f"chunks of 3000 against one call: out equal {torch.equal(out, out_c)}, "
+          f"h equal {torch.equal(h, h_c)}")
+    assert torch.equal(conv, conv_c)
+    torch.testing.assert_close(h_c, h, rtol=1e-5, atol=1e-6)
+    out_err = float((out_c - out).norm() / out.norm())
+    del params, x, cache, got, out, h, conv, out_c, h_c, conv_c
+    torch.cuda.empty_cache()  # as the 32,768-token test does
+    assert out_err < 1e-3  # a bf16 rounding flipped at most
+
+
 # ---------------------------------------------------------------------------
 # The tracing frontend's graphs and models on the card
 # ---------------------------------------------------------------------------

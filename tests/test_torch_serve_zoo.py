@@ -10,12 +10,14 @@ jamba-1.5-large) at full width on one 80 GB card.  Here, with no card:
   float32 comparison's depth at most 16 GB;
 * the launch counts the phase checks, computed from the config, equal the
   counts written out by hand (and the earlier serving phases' counts);
-* the kernel phases hold a row at each shape a run launches;
+* the kernel phases hold a row at each shape a run launches, and at the
+  shapes the benchmark's prefill cells launch (``portbench/``);
 * a serve sizes its cache for a vision prefix longer than its slack, and
   ``--layers`` cuts the depth the entry point serves.
 """
 import dataclasses
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +25,7 @@ import pytest
 
 from repro_torch import configs
 from repro_torch.launch import serve
+from repro_torch.models import ssm
 
 ROOT = Path(__file__).resolve().parents[1]
 GB = 1e9
@@ -139,6 +142,34 @@ def test_the_kernel_phases_hold_a_row_at_each_shape_a_run_launches(cs, arch):
     if arch == "llama4":  # the real chunk, crossed: no serve reaches it
         shape, causal, window, chunk = att["llama4_chunk"]
         assert shape[1] > cfg.chunk_size == chunk and shape[3:] == (40, 8, 128)
+
+
+# the benchmark's prefill cells whose kernel shapes no serve reaches: the
+# rows' label in the kernel phases
+BENCH_CELLS = {"jamba2-mini-prefill-long": "jamba2_prefill",
+               "phi3-prefill-mix": "phi3_prefill_mix"}
+
+
+@pytest.mark.parametrize("cell", list(BENCH_CELLS))
+def test_the_kernel_phases_hold_a_row_at_the_shapes_a_benchmark_cell_launches(cs, cell):
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    w = next(w for w in bench["workloads"] if w["name"] == cell)
+    cfg = json.loads((ROOT / "portbench" / "configs" / f"{w['config']}.json").read_text())
+    tr = json.loads((ROOT / "portbench" / "workloads" / f"{w['traffic']}.json").read_text())
+    label, B, L = BENCH_CELLS[cell], tr["batch"], max(tr["lengths"])
+    att = {shape for lab, shape, causal, window, chunk in cs.SERVE_ATTENTION
+           if lab == label and causal and not window and not chunk}
+    # one prompt a call: every length is its own shape; a batch: the longest
+    for length in (set(tr["lengths"]) if B == 1 else {L}):
+        assert (B, length, length, cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]) in att
+    assert dict(cs.SERVE_MLP)[label] == (B * L, cfg["d_model"], cfg["d_ff"], cfg["ffn_act"])
+    scan = {shape for lab, shape in cs.SERVE_SCAN if lab == label}
+    if "mamba" in cfg["layer_pattern"]:
+        di, ds = cfg["ssm_expand"] * cfg["d_model"], cfg["ssm_state"]
+        chunk = ssm.time_chunk(B, di, ds)
+        assert chunk < L and scan == {(B, chunk, di, ds)}
+    else:
+        assert not scan
 
 
 def test_a_serve_sizes_its_cache_for_the_vision_prefix(cs):

@@ -11,6 +11,10 @@
   the rule that picks the sorted path.
 * The training step's parameters, the prefill's logits and the sorted
   MoE path's output are the same bits with tracing on and off.
+* A Jamba prefill (``JambaConfig``, its time chunk cut so that every
+  Mamba layer scans in several calls) records each Mamba layer's spans
+  inside ``prefill.step`` in the mixer's order, and counts the layers'
+  tokens and scan calls as the shapes give them.
 
 On the CPU the backward runs on the caller's thread, so the backward span
 nests in the step there; on CUDA tensors it runs on the autograd engine's
@@ -27,7 +31,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import configs
 from repro_torch.models import model as M
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 from repro_torch.runtime import spans
 from repro_torch.runtime.steps import make_init, make_prefill_step, make_train_step
 
@@ -199,3 +203,37 @@ def test_tracing_leaves_the_results_bit_identical(arch, path, counted):
     else:
         assert (got["moe.claims"], got["moe.slots"]) == counted
         assert 0 < got["moe.kept"] <= got["moe.claims"]
+
+
+def _jamba_prefill(on: bool, chunk: int, monkeypatch):
+    """(logits, profile) of a prefill of 2 x 32 tokens through a reduced
+    Jamba (16 layers: 14 Mamba mixers), each mixer's time chunk ``chunk``."""
+    cfg = configs.JambaConfig(**dataclasses.asdict(configs.scaled_down(configs.resolve("jamba"))))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(ssm, "SCAN_BUDGET_BYTES", chunk * 2 * 4 * 2 * cfg.d_inner * cfg.ssm_state)
+    assert ssm.time_chunk(2, cfg.d_inner, cfg.ssm_state) == chunk
+    step = make_prefill_step(cfg, configs.RunConfig(remat="none"))
+    cache = M.init_cache(cfg, 2, 32, device="cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode(), spans.enabled() if on else contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CPU]) if on else contextlib.nullcontext() as p:
+            logits, _cache = step(params, cache, {"tokens": tok})
+    return cfg, logits, p
+
+
+@pytest.mark.parametrize("chunk, scans", [(32, 1), (12, 3), (5, 7)])
+def test_mamba_spans_nest_in_the_prefill_and_count_the_shapes(chunk, scans, monkeypatch):
+    cfg, logits, prof = _jamba_prefill(True, chunk, monkeypatch)
+    n_mamba = sum(cfg.mixer_of(i) == "mamba" for i in range(cfg.n_layers))
+    assert n_mamba == 14
+    ranges = _ranges(prof)
+    (step, a, b), *inner = ranges
+    assert step == spans.PREFILL_STEP and all(a <= s <= e <= b for _, s, e in inner)
+    assert set(r[0] for r in ranges) <= set(spans.NAMES + spans.MAMBA_NAMES)
+    mixer = [r[0] for r in inner if r[0] in spans.MAMBA_NAMES]
+    one = [spans.MAMBA_IN, spans.MAMBA_DISCRETIZE] + [spans.MAMBA_DISCRETIZE,
+                                                     spans.MAMBA_SCAN] * scans + [spans.MAMBA_OUT]
+    assert mixer == one * n_mamba
+    got = spans.counters()
+    assert (got["mamba.tokens"], got["mamba.scans"]) == (n_mamba * 2 * 32, n_mamba * scans)
+    assert torch.equal(logits, _jamba_prefill(False, chunk, monkeypatch)[1])
